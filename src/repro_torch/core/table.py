@@ -1,0 +1,314 @@
+"""Table: the port's counterpart of the reference ``core/table.py``.
+
+A :class:`Table` is a dict of equal-length *columns* (tensors whose
+leading axis is the row axis) on one device.  Columns may be
+multi-dimensional: a ``DOUBLE PRECISION[]`` feature column is an
+``(n_rows, d)`` tensor, as the paper stores feature vectors in §4.1.
+Computation runs where the table's tensors live; :meth:`from_columns`
+puts them on the card unless the caller passes ``device="cpu"``.
+
+The memo and versioning contracts are the reference's: one stable sort
+per ``(table, key)`` (:meth:`Table.sort_permutation`), a ``group_by``
+memo stamped with the table version, ``append`` bumping the version and
+``invalidate`` bumping version and epoch.  Distributed tables
+(``distribute``, ``sharded_blocks``) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Mapping
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .trace import record
+
+Columns = Mapping[str, torch.Tensor]
+
+
+def _n_rows(columns: Columns) -> int:
+    sizes = {k: v.shape[0] for k, v in columns.items()}
+    if len(set(sizes.values())) != 1:
+        raise ValueError(f"ragged table: column row counts differ: {sizes}")
+    return next(iter(sizes.values()))
+
+
+def _as_tensor(v, device: torch.device) -> torch.Tensor:
+    if isinstance(v, np.ndarray):
+        v = np.ascontiguousarray(v)
+        v = torch.from_numpy(v if v.flags.writeable else v.copy())
+    return torch.as_tensor(v, device=device)
+
+
+@dataclasses.dataclass(eq=False)
+class Table:
+    """Named columns sharing a leading row axis, on one device."""
+
+    columns: dict[str, torch.Tensor]
+    # group_by memo: (key_col, num_groups) -> (version, GroupedView);
+    # sort memo: key_col -> (version, (sorted_keys, perm)).  Entries are
+    # stamped with the version they were built at, so every lookup
+    # observes staleness.  Derived tables start with empty memos.
+    _gb_cache: dict = dataclasses.field(default_factory=dict, repr=False)
+    _sort_cache: dict = dataclasses.field(default_factory=dict, repr=False)
+    # ``_version`` bumps on every mutation (append or invalidate),
+    # ``_epoch`` only on invalidate: a fold state pinned at (v, e, r rows)
+    # may be brought current by folding rows [r:] iff the epoch is e.
+    _version: int = dataclasses.field(default=0, repr=False)
+    _epoch: int = dataclasses.field(default=0, repr=False)
+    # hooks ``hook(table)`` run after every version bump
+    _mutation_hooks: list = dataclasses.field(default_factory=list,
+                                              repr=False)
+
+    # -- construction ------------------------------------------------------
+    @classmethod
+    def from_columns(cls, columns, device=None) -> "Table":
+        """Columns (tensors, numpy arrays or sequences) placed on
+        ``device``: the card when ``None``, which raises without one."""
+        dev = resolve_device(device)
+        cols = {k: _as_tensor(v, dev) for k, v in columns.items()}
+        _n_rows(cols)
+        return cls(cols)
+
+    # -- basic relational ops ----------------------------------------------
+    @property
+    def n_rows(self) -> int:
+        return _n_rows(self.columns)
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self.columns.values())).device
+
+    @property
+    def column_names(self) -> tuple[str, ...]:
+        return tuple(sorted(self.columns))
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return self.columns[name]
+
+    def select(self, *names: str) -> "Table":
+        return Table({n: self.columns[n] for n in names})
+
+    def with_column(self, name: str, values) -> "Table":
+        cols = dict(self.columns)
+        cols[name] = _as_tensor(values, self.device)
+        _n_rows(cols)
+        return Table(cols)
+
+    # -- versioning --------------------------------------------------------
+    @property
+    def version(self) -> int:
+        """Monotonic mutation counter, bumped by :meth:`append` and
+        :meth:`invalidate`."""
+        return self._version
+
+    @property
+    def epoch(self) -> int:
+        """Bumped only by :meth:`invalidate`: while it is unchanged the
+        row prefix seen at any earlier version is intact."""
+        return self._epoch
+
+    def append(self, columns: Columns) -> "Table":
+        """Append rows in place and bump :attr:`version` (not the epoch).
+        ``columns`` must carry exactly this table's columns with matching
+        dtypes and trailing shapes.  Returns ``self``."""
+        new = {k: _as_tensor(v, self.device) for k, v in columns.items()}
+        if set(new) != set(self.columns):
+            raise ValueError(
+                f"append columns {sorted(new)} != table columns "
+                f"{sorted(self.columns)}")
+        _n_rows(new)
+        cols = {}
+        for k, old in self.columns.items():
+            v = new[k]
+            if v.dtype != old.dtype:
+                raise ValueError(
+                    f"append column {k!r}: dtype {v.dtype} != {old.dtype}")
+            if v.shape[1:] != old.shape[1:]:
+                raise ValueError(
+                    f"append column {k!r}: trailing shape "
+                    f"{tuple(v.shape[1:])} != {tuple(old.shape[1:])}")
+            cols[k] = torch.cat([old, v], dim=0)
+        self.columns.clear()
+        self.columns.update(cols)
+        self._version += 1
+        self._notify_mutation()
+        return self
+
+    def invalidate(self) -> None:
+        """Declare arbitrary in-place mutation: drop the memos and bump
+        both :attr:`version` and :attr:`epoch`."""
+        self._gb_cache.clear()
+        self._sort_cache.clear()
+        self._version += 1
+        self._epoch += 1
+        self._notify_mutation()
+
+    def on_mutation(self, hook: Callable[["Table"], None]) -> None:
+        """Register ``hook(table)`` to run after every version bump."""
+        self._mutation_hooks.append(hook)
+
+    def remove_mutation_hook(self, hook: Callable[["Table"], None]) -> None:
+        """Deregister a :meth:`on_mutation` hook (no-op if absent)."""
+        if hook in self._mutation_hooks:
+            self._mutation_hooks.remove(hook)
+
+    def _notify_mutation(self) -> None:
+        for hook in list(self._mutation_hooks):
+            hook(self)
+
+    # -- partitioning ------------------------------------------------------
+    def sort_permutation(self, key_col: str
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Memoized stable sort of one column: ``(sorted_keys, perm)``
+        with ``sorted_keys == self[key_col][perm]`` and ``perm`` int32.
+        A miss records one ``kind="sort"`` event; a hit records none."""
+        hit = self._sort_cache.get(key_col)
+        if hit is not None and hit[0] == self._version:
+            return hit[1]
+        record("sort", key_col=key_col, n_rows=self.n_rows, table=id(self))
+        keys = self.columns[key_col]
+        sorted_keys, perm = torch.sort(keys, stable=True)
+        out = (sorted_keys, perm.to(torch.int32))
+        self._sort_cache[key_col] = (self._version, out)
+        return out
+
+    def group_by(self, key_col: str, num_groups: int | None = None
+                 ) -> "GroupedView":
+        """Partition rows by an integer group-id column (sort once, scan
+        many), memoized per ``(key_col, num_groups)`` and stamped with the
+        table version.  Out-of-range ids keep their rows in the permuted
+        table but outside every segment."""
+        view = self.cached_group_by(key_col, num_groups)
+        if view is not None:
+            return view
+        view = self._group_by_uncached(key_col, num_groups)
+        self._gb_cache[(key_col, num_groups)] = (self._version, view)
+        self._gb_cache[(key_col, view.num_groups)] = (self._version, view)
+        return view
+
+    def cached_group_by(self, key_col: str, num_groups: int | None = None
+                        ) -> "GroupedView | None":
+        """The memoized view if it was built at the current version, else
+        ``None``.  Never sorts."""
+        hit = self._gb_cache.get((key_col, num_groups))
+        if hit is None or hit[0] != self._version:
+            return None
+        return hit[1]
+
+    def _group_by_uncached(self, key_col: str, num_groups: int | None
+                           ) -> "GroupedView":
+        sorted_keys, perm = self.sort_permutation(key_col)
+        sorted_gids = sorted_keys.to(torch.int32)
+        if num_groups is None:
+            num_groups = int(sorted_gids.max()) + 1
+        offsets = torch.searchsorted(
+            sorted_gids, torch.arange(num_groups + 1, dtype=torch.int32,
+                                      device=sorted_gids.device),
+            out_int32=True)
+        idx = perm.long()
+        data = {k: v[idx] for k, v in self.columns.items() if k != key_col}
+        return GroupedView(Table(data), sorted_gids, perm, num_groups,
+                           torch.diff(offsets), offsets)
+
+
+@dataclasses.dataclass(eq=False)
+class GroupedView:
+    """Partitioned ``GROUP BY`` layout of a :class:`Table`: data columns
+    (group-id column stripped) permuted so group ``g`` occupies rows
+    ``offsets[g]:offsets[g + 1]``."""
+
+    table: Table
+    gids: torch.Tensor         # (n,) int32, sorted ascending
+    perm: torch.Tensor         # (n,) int32, partitioned position -> row
+    num_groups: int
+    counts: torch.Tensor       # (G,) int32 rows per group
+    offsets: torch.Tensor      # (G + 1,) int32 segment boundaries
+
+    @property
+    def n_rows(self) -> int:
+        return self.table.n_rows
+
+    def select(self, *names: str) -> "GroupedView":
+        """Subset of data columns sharing this view's partitioning."""
+        return GroupedView(self.table.select(*names), self.gids, self.perm,
+                           self.num_groups, self.counts, self.offsets)
+
+    def permute(self, rows) -> torch.Tensor:
+        """Bring a row-aligned tensor (a base mask) into partitioned
+        order."""
+        rows = _as_tensor(rows, self.perm.device)
+        return rows[self.perm.long()]
+
+    def aligned_blocks(self, block_size: int, base_mask=None, *,
+                       pad_blocks_to: int | None = None):
+        """Group-aligned blocked layout: every group's segment zero-padded
+        to whole ``block_size`` row blocks, so each block holds rows of
+        exactly one group.
+
+        Returns ``(columns, valid, block_gids)``: columns with leading
+        axis ``n_blocks * block_size``, a bool mask over real (and
+        base-mask-passing) rows, and each block's int32 group id.  Empty
+        groups get no blocks; ``pad_blocks_to`` rounds the block count up
+        to a multiple with sentinel blocks (gid ``num_groups``, every row
+        invalid).  The index build runs on the host, as in the
+        reference; only the index tensors move to the device."""
+        bs = int(block_size)
+        dev = self.gids.device
+        counts = self.counts.cpu().numpy().astype(np.int64)
+        starts = self.offsets.cpu().numpy().astype(np.int64)[:-1]
+        bpg = -(-counts // bs)  # blocks per group (0 for empty groups)
+        bg_np = np.repeat(np.arange(self.num_groups), bpg).astype(np.int32)
+        ppg = bpg * bs          # padded rows per group
+        n2 = int(ppg.sum())
+        if n2 == 0:
+            # no real blocks: still honour pad_blocks_to with sentinel
+            # blocks, constructed (the table may have 0 rows)
+            pad = int(pad_blocks_to) if pad_blocks_to else 0
+            cols = {k: torch.zeros((pad * bs,) + tuple(v.shape[1:]),
+                                   dtype=v.dtype, device=dev)
+                    for k, v in self.table.columns.items()}
+            return (cols, torch.zeros((pad * bs,), dtype=torch.bool,
+                                      device=dev),
+                    torch.full((pad,), self.num_groups, dtype=torch.int32,
+                               device=dev))
+        grp = np.repeat(np.arange(self.num_groups), ppg)
+        out_start = np.concatenate([[0], np.cumsum(ppg)])[:-1]
+        local = np.arange(n2) - out_start[grp]
+        valid_np = local < counts[grp]
+        src_np = np.where(valid_np, starts[grp] + local, 0)
+        if pad_blocks_to:
+            extra = -len(bg_np) % int(pad_blocks_to)
+            if extra:
+                bg_np = np.concatenate(
+                    [bg_np, np.full(extra, self.num_groups, np.int32)])
+                src_np = np.concatenate(
+                    [src_np, np.zeros(extra * bs, np.int64)])
+                valid_np = np.concatenate(
+                    [valid_np, np.zeros(extra * bs, bool)])
+        src = torch.from_numpy(src_np.astype(np.int64)).to(dev)
+        cols = {k: v[src] for k, v in self.table.columns.items()}
+        valid = torch.from_numpy(valid_np).to(dev)
+        if base_mask is not None:
+            valid = valid & _as_tensor(base_mask, dev)[src]
+        return cols, valid, torch.from_numpy(bg_np).to(dev)
+
+
+def synthetic_regression_table(seed: int, n_rows: int, n_vars: int,
+                               noise: float = 0.1,
+                               dtype: Any = torch.float32, device=None
+                               ) -> tuple[Table, torch.Tensor]:
+    """The paper's linregr benchmark data, y = <b, x> + eps (§4.4), made
+    on ``device`` (the card unless ``device="cpu"``) from an explicit
+    ``torch.Generator`` seeded with ``seed``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    x = torch.randn((n_rows, n_vars), generator=gen, dtype=dtype,
+                    device=dev)
+    b = torch.randn((n_vars,), generator=gen, dtype=dtype, device=dev)
+    eps = torch.randn((n_rows,), generator=gen, dtype=dtype, device=dev)
+    y = x @ b + noise * eps
+    return Table({"x": x, "y": y}), b
