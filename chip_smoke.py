@@ -14,7 +14,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    160-variable f32 table made on the card from a seed, through the
    kernels (launch counters and trace events checked), against the same
    statements on the plain versions and against the CPU port on a small
-   input;
+   input; then the grouped statement's stages timed one by one;
 5. timing  — CUDA-event times of each kernel, its plain version and the
    library call at the main path's shapes, beside the bound.
 
@@ -115,13 +115,16 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import trace_execution
+    from repro_torch.core.aggregates import (
+        probe_segment_ops, segment_block_size, segment_fold)
     from repro_torch.core.table import Table, synthetic_regression_table
     from repro_torch.kernels import _build
     from repro_torch.kernels.segment_fold import ops as sf_ops
     from repro_torch.kernels.segment_fold.ref import segment_linregr_ref
     from repro_torch.kernels.xtx import ops as xtx_ops
     from repro_torch.kernels.xtx.ref import xtx_xty_ref
-    from repro_torch.methods.linregr import linregr, linregr_grouped
+    from repro_torch.methods.linregr import (
+        LinregrAggregate, linregr, linregr_grouped)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -282,21 +285,50 @@ def main() -> int:
                 f"{float((got - want).abs().max())}")
     print("[main] small input: card kernels agree with the CPU port")
 
+    # the repeated grouped statement, stage by stage: the same calls that
+    # run_grouped makes, each ended by synchronize() (host clock)
+    def staged(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    agg = LinregrAggregate(use_kernel=True)
+    stage_s = {}
+    view, stage_s["group_by (memo hit)"] = staged(
+        lambda: t.group_by("g", G_MAIN).select("x", "y"))
+    bs = segment_block_size(view.n_rows, G_MAIN)
+    (cols, valid, bgids), stage_s["aligned_blocks"] = staged(
+        lambda: view.aligned_blocks(bs))
+    ops = probe_segment_ops(agg, dict(view.table.columns))
+    states, stage_s["segment_fold (kernel)"] = staged(
+        lambda: segment_fold(agg, ops, cols, valid, bgids, G_MAIN,
+                             kernel_impl="cuda"))
+    _, stage_s["final_grouped"] = staged(lambda: agg.final_grouped(states))
+    stage_s["rest of the statement"] = (seconds["linregr_grouped"][1]
+                                        - sum(stage_s.values()))
+    print("[breakdown] linregr_grouped, repeated call "
+          f"{seconds['linregr_grouped'][1]:.4f} s (host clock, "
+          "synchronized): " + "; ".join(f"{k} {v:.4f} s"
+                                        for k, v in stage_s.items()))
+    del states
+
     # 5. timing at the main path's shapes -----------------------------------
     x, y = t["x"], t["y"]
-    view = t.group_by("g", G_MAIN)
-    bs = 4096
-    cols, valid, bgids = view.aligned_blocks(bs)
     xs, ys = cols["x"], cols["y"]
     n2, nb = xs.shape[0], bgids.shape[0]
     n_valid = int(valid.sum())
+    # Operations the function needs: X^T X is symmetric, so only its
+    # k (k + 1) / 2 distinct entries, plus X^T y (and, per group, y^2),
+    # each a multiply and an add per row; sum(y) and n one add per row.
     rows = []
     specs = (
         ("xtx", "src/repro_torch/csrc/xtx.cu",
          "src/repro/kernels/xtx/kernel.py:29",
          lambda: xtx_ops.xtx_xty(x, y), lambda: xtx_xty_ref(x, y),
          lambda: torch.matmul(x.T, x),
-         2.0 * N_MAIN * K_MAIN * (K_MAIN + 1),
+         float(N_MAIN) * K_MAIN * (K_MAIN + 3),
          4.0 * (N_MAIN * (K_MAIN + 1) + K_MAIN * (K_MAIN + 1)), 5),
         ("segment_linregr", "src/repro_torch/csrc/segment_linregr.cu",
          "src/repro/kernels/segment_fold/kernel.py:52",
@@ -305,7 +337,7 @@ def main() -> int:
          lambda: segment_linregr_ref(xs, ys, valid, bgids,
                                      num_groups=G_MAIN),
          None,
-         2.0 * n_valid * (K_MAIN * (K_MAIN + 1) + 2) + n_valid,
+         float(n_valid) * ((K_MAIN + 1) * (K_MAIN + 2) + 2),
          4.0 * n2 * (K_MAIN + 1) + n2 + 4.0 * nb
          + 4.0 * G_MAIN * (K_MAIN * (K_MAIN + 1) + 3), 5),
     )

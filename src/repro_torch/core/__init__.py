@@ -17,7 +17,7 @@ from .aggregates import (  # noqa: F401
     segment_block_update, segment_fold,
 )
 from .plan import (  # noqa: F401
-    ENGINE_CAPS, GroupedScanAgg, PhysicalPlan, ScanAgg, execute, plan,
+    GroupedScanAgg, PhysicalPlan, ScanAgg, execute, plan,
 )
 from .table import GroupedView, Table, synthetic_regression_table  # noqa: F401
 from .trace import Trace, record, trace_execution  # noqa: F401

@@ -287,46 +287,37 @@ def segment_block_size(n_rows: int, num_groups: int,
     return max(64, min(_SEGMENT_BLOCK, 1 << (avg - 1).bit_length()))
 
 
-def segment_block_update(make_agg, group_states, ops, blk: Columns,
+def segment_block_update(agg: Aggregate, ops, blk: Columns,
                          bm: torch.Tensor, g: int, acc) -> Any:
     """Fold ONE group-aligned block into the stacked per-group
-    accumulators: the (possibly group-parameterized) aggregate's block
-    transition from init, merged into group ``g``'s slot leaf-wise.
-    Blocks whose id lies outside ``[0, G)`` are dropped."""
+    accumulators: the aggregate's block transition from init, merged into
+    group ``g``'s slot leaf-wise.  Blocks whose id lies outside ``[0, G)``
+    are dropped."""
     if not 0 <= g < tree_leaves(acc)[0].shape[0]:
         return acc  # sentinel block: the reference's scatter drops it
-    a = make_agg(tree_index(group_states, g))
-    bstate = a.transition(a.init(blk), blk, bm)
+    bstate = agg.transition(agg.init(blk), blk, bm)
     return tree_map(lambda op, al, bl: _scatter_leaf(op, al, g, bl),
                     ops, acc, bstate)
 
 
-def segment_fold(make_agg, group_states, ops, columns: Columns,
+def segment_fold(agg: Aggregate, ops, columns: Columns,
                  valid: torch.Tensor, block_gids: torch.Tensor,
-                 num_groups: int, *, agg: Aggregate | None = None,
-                 kernel_impl: str | None = None) -> Any:
+                 num_groups: int, *, kernel_impl: str | None = None) -> Any:
     """Fold EVERY group's state in ONE pass over the group-aligned layout
     of :meth:`GroupedView.aligned_blocks`: the real block transition per
     block, segment-merged into ``(num_groups, ...)`` accumulators with
     each leaf's combinator (``ops``).  Empty groups keep their init.
 
-    ``agg`` + ``kernel_impl`` engage the aggregate's registered segment
-    kernel, which computes the fold-from-zero state stack that is then
-    merged with the per-group inits."""
-    lead = tree_leaves(group_states)[0].shape[0]
-    if lead != num_groups:
-        raise ValueError(f"segment_fold: group_states lead axis {lead} "
-                         f"!= num_groups={num_groups}")
-    if num_groups:
-        inits = tree_stack([make_agg(tree_index(group_states, g))
-                            .init(columns) for g in range(num_groups)])
-    else:
-        inits = tree_map(lambda z: z[None][:0], make_agg(None).init(columns))
+    ``kernel_impl`` engages the aggregate's registered segment kernel,
+    which computes the fold-from-zero state stack that is then merged
+    with the per-group inits.  (The reference's group-parameterized form,
+    which its grouped fits use, waits for the slice that ports them.)"""
+    inits = tree_map(lambda z: z[None].repeat(num_groups, *([1] * z.dim())),
+                     agg.init(columns))
     nb = block_gids.shape[0]
     if nb == 0:
         return inits
-    if kernel_impl is not None and agg is not None \
-            and getattr(agg, "segment_kernel", None):
+    if kernel_impl is not None and getattr(agg, "segment_kernel", None):
         kstates = agg.segment_kernel_fold(columns, valid, block_gids,
                                           num_groups, kernel_impl)
         return tree_map(_combine_leaf, ops, inits, kstates)
@@ -336,8 +327,7 @@ def segment_fold(make_agg, group_states, ops, columns: Columns,
     for b, g in enumerate(block_gids.tolist()):
         rows = slice(b * bs, (b + 1) * bs)
         blk = {k: v[rows] for k, v in columns.items()}
-        acc = segment_block_update(make_agg, group_states, ops, blk,
-                                   valid[rows], g, acc)
+        acc = segment_block_update(agg, ops, blk, valid[rows], g, acc)
     return acc
 
 
@@ -406,9 +396,7 @@ def run_grouped(agg: Aggregate, table, group_col: str | None = None,
         bs = segment_block_size(view.n_rows, G, block_size)
         cols_a, valid_a, bgids = view.aligned_blocks(bs, pmask)
         seg_impl = _resolve_segment_kernel(agg, cols_a, valid_a, bgids, G)
-        dummy_states = torch.zeros((G,), dtype=torch.int32)
-        states = segment_fold(lambda _s: agg, dummy_states, ops, cols_a,
-                              valid_a, bgids, G, agg=agg,
+        states = segment_fold(agg, ops, cols_a, valid_a, bgids, G,
                               kernel_impl=seg_impl)
         return group_final(states)
 

@@ -5,8 +5,8 @@ statements the OLS slice needs.  Method wrappers emit logical nodes
 (:class:`ScanAgg`, :class:`GroupedScanAgg`); :func:`plan` fuses
 compatible statements into ONE pass each (one ``run_many`` per
 ``(table, mask, block size)``, one ``run_grouped`` per ``(table, key)``)
-and picks the engine from the rows-moved heuristic; :func:`execute`
-runs one statement through it.
+and picks the grouped method from the rows-moved heuristic;
+:func:`execute` runs one statement through it.
 
 Fusion is refused loudly when it would be wrong: statements with
 different tables, masks or block partitionings never fold together.
@@ -26,13 +26,6 @@ from .aggregates import (
     segment_block_size,
 )
 from .table import GroupedView, Table
-
-# Which cross-cutting features each ported engine honors.
-ENGINE_CAPS: dict[str, dict[str, bool]] = {
-    "local":           {"mask": True, "group_by": False},
-    "grouped-segment": {"mask": True, "group_by": True},
-    "grouped-masked":  {"mask": True, "group_by": True},
-}
 
 
 # ---------------------------------------------------------------------------
@@ -137,15 +130,10 @@ def _member_agg(node) -> Aggregate:
 
 
 # ---------------------------------------------------------------------------
-# Cost model: the rows-moved heuristics behind engine selection.
+# Cost model: the rows-moved heuristic behind grouped method selection.
+# The port has one scan engine, "local", so a scan pass has nothing to
+# select; the sharded engines bring the scan side of the model with them.
 # ---------------------------------------------------------------------------
-
-def scan_cost(engine: str, rows: int) -> float:
-    """Rows-moved cost of a one-pass scan on the local engine."""
-    if engine == "local":
-        return float(rows)
-    raise ValueError(f"scan_cost: unknown engine {engine!r}")
-
 
 def grouped_cost(method: str, rows: int, groups: int, block: int) -> float:
     """The segment layout scans the group-aligned blocks once (padding at
@@ -158,36 +146,17 @@ def grouped_cost(method: str, rows: int, groups: int, block: int) -> float:
     raise ValueError(f"grouped_cost: unknown method {method!r}")
 
 
-def _capable(engine: str, *, mask: bool = False,
-             group_by: bool = False) -> bool:
-    caps = ENGINE_CAPS[engine]
-    return (not mask or caps["mask"]) and (not group_by or caps["group_by"])
-
-
-def select_scan_engine(rows: int, *, mask: bool = False,
-                       forced: str = "auto") -> tuple[str, dict[str, float]]:
-    """Pick the engine of a one-pass scan: ``(engine, candidate
-    costs)``.  The port has one local engine."""
-    costs = {e: scan_cost(e, rows) for e in ("local",)
-             if _capable(e, mask=mask)}
-    if forced != "auto":
-        if forced not in costs:
-            raise ValueError(f"unknown scan engine {forced!r}")
-        return forced, costs
-    return min(costs, key=lambda e: costs[e]), costs
-
-
 def select_grouped_method(rows: int, groups: int, *, segment_ok: bool,
-                          block_size: int | None = None, mask: bool = False,
+                          block_size: int | None = None,
                           forced: str = "auto"
                           ) -> tuple[str, dict[str, float]]:
-    """Pick segment vs masked for a grouped pass; a generic-merge
-    aggregate (``segment_ok=False``) removes the segment candidate."""
+    """Pick segment vs masked for a grouped pass: ``(method, candidate
+    costs)``; a generic-merge aggregate (``segment_ok=False``) removes
+    the segment candidate."""
     bs = segment_block_size(rows, groups, block_size)
-    costs = {}
-    for method in (("segment",) if segment_ok else ()) + ("masked",):
-        if _capable(f"grouped-{method}", mask=mask, group_by=True):
-            costs[method] = grouped_cost(method, rows, groups, bs)
+    costs = {method: grouped_cost(method, rows, groups, bs)
+             for method in (("segment",) if segment_ok else ())
+             + ("masked",)}
     if forced != "auto":
         if forced == "segment" and not segment_ok:
             raise ValueError(
@@ -244,20 +213,20 @@ def fused_scan_pass(members: Sequence[tuple[int, ScanAgg]], *,
             "fusing them would change their fold partitioning (and "
             "bit-exactness) vs solo execution")
 
-    rows = base.table.n_rows
+    forced = base.engine if engine == "auto" else engine
+    if forced not in ("auto", "local"):
+        raise ValueError(f"unknown scan engine {forced!r} (the port has "
+                         "'local'; the sharded engine is not ported)")
     idx = [i for i, _ in members]
     aggs = [_member_agg(n) for n in nodes]
-    eng, costs = select_scan_engine(
-        rows, mask=base.mask is not None,
-        forced=base.engine if engine == "auto" else engine)
 
     def run():
         out = run_many(aggs, base.table, block_size=base.block_size,
-                       mask=base.mask, engine=eng)
+                       mask=base.mask, engine="local")
         return dict(zip(idx, out))
 
-    return PhysicalPass(kind="scan", engine=eng, members=list(members),
-                        cost=costs[eng], run=run)
+    return PhysicalPass(kind="scan", engine="local", members=list(members),
+                        cost=float(base.table.n_rows), run=run)
 
 
 def _grouped_view(node) -> GroupedView:
@@ -314,7 +283,7 @@ def fused_grouped_pass(members: Sequence[tuple[int, GroupedScanAgg]]
                      for a in member_aggs)
     method, costs = select_grouped_method(
         rows, groups, segment_ok=segment_ok, block_size=base.block_size,
-        mask=base.mask is not None, forced=base.method)
+        forced=base.method)
 
     idx = [i for i, _ in members]
     projections = [_normalize_projection(n.columns) for n in nodes]

@@ -8,10 +8,14 @@
 // src/repro/kernels/segment_fold/kernel.py:_linregr_kernel (called through
 // segment_linregr_padded), the grouped hot path of linregr_grouped.
 //
-// Bound on the H100: 2 n2 (k + 2)^2 floating-point operations in f32 on
-// the CUDA cores (67 TFLOP/s) against 4 n2 (k + 1) + n2 bytes read
-// (3.35 TB/s), n2 the rows of the blocks with g < G.  At the main path's
-// 10M rows, k = 160, that is about 7.8 ms to 1.9 ms: bound by operations.
+// Bound on the H100: per valid row, a multiply and an add for each of the
+// (k + 1) (k + 2) / 2 distinct entries of the symmetric Gram of [x | y]
+// (x^T x, x^T y and y^2), and one add each for sum(y) and n: that is
+// n_valid ((k + 1) (k + 2) + 2) operations in f32 on the CUDA cores
+// (67 TFLOP/s), against 4 n2 (k + 1) + n2 bytes read (3.35 TB/s), n2 the
+// rows of the layout.  At the main path's 10M rows, k = 160, that is about
+// 3.9 ms to 1.9 ms: bound by operations.  This kernel computes every tile
+// of the full (k + 2)^2 Gram, about twice the work the bound counts.
 //
 // Design.  The TPU kernel keeps (G, k, k) accumulators across a sequential
 // grid and adds each block into its group's slot.  On the H100 the fold

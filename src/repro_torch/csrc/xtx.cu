@@ -3,10 +3,13 @@
 // Replaces the TPU kernel src/repro/kernels/xtx/kernel.py:_xtx_kernel
 // (called through xtx_xty_padded), the inner update of the OLS transition.
 //
-// Bound on the H100: 2 n (k + 1)^2 floating-point operations in f32 on the
-// CUDA cores (67 TFLOP/s) against 4 n (k + 1) bytes read (3.35 TB/s).  At
-// the main path's n = 10M, k = 160 that is 5.2e11 FLOP, about 7.7 ms, to
-// 6.4 GB, about 1.9 ms: the kernel is bound by operations.
+// Bound on the H100: X^T X is symmetric, so the function needs a multiply
+// and an add per row for each of its k (k + 1) / 2 distinct entries and
+// the k of X^T y, n k (k + 3) operations in f32 on the CUDA cores
+// (67 TFLOP/s), against 4 n (k + 1) bytes read (3.35 TB/s).  At the main
+// path's n = 10M, k = 160 that is 2.6e11 FLOP, about 3.9 ms, to 6.4 GB,
+// about 1.9 ms: bound by operations.  This kernel computes every tile of
+// the full (k + 1)^2 Gram, about twice the work the bound counts.
 //
 // Design.  The TPU kernel carries one accumulator across a sequential
 // grid; CTAs on the H100 run in parallel and in no fixed order.  So the

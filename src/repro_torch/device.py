@@ -21,3 +21,16 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device=\"cpu\" to run the "
             "plain PyTorch versions on the CPU")
     return dev
+
+
+def runs_on_card(t: torch.Tensor, what: str) -> bool:
+    """Where a kernel's work on ``t`` runs: ``True`` on a CUDA tensor (the
+    kernel launches), ``False`` on a CPU tensor (its plain version runs).
+    Any other device raises.  The kernel wrappers and the registry both
+    ask this one function, so they cannot disagree."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{what}: no kernel and no plain version for "
+                     f"device {t.device}")

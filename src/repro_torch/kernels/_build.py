@@ -15,6 +15,7 @@ Each C entry point launches on the stream it is given and returns
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import shutil
 import subprocess
 import threading
@@ -55,13 +56,26 @@ def _nvcc() -> str:
 
 def build(force: bool = False) -> Path:
     """Compile the sources (in parallel) and link the library; returns its
-    path.  Raises with the compiler's output when a step fails."""
+    path.  Raises with the compiler's output when a step fails.
+
+    The objects and the temporary library have fixed names, so the whole
+    build holds an exclusive ``flock`` on ``build/kernels/.lock``: a
+    second process waits, then finds the library fresh and returns."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _build_locked(force)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build_locked(force: bool) -> Path:
     sources = sorted(CSRC.glob("*.cu"))
     headers = sorted(CSRC.glob("*.cuh"))
     newest = max(p.stat().st_mtime for p in sources + headers)
     if not force and LIB_PATH.exists() and LIB_PATH.stat().st_mtime >= newest:
         return LIB_PATH
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
     jobs = []

@@ -12,6 +12,12 @@ Dispatch policy (``impl``):
 * ``"ref"`` forces the plain version, wherever the tensors lie.
 * ``"cuda"`` forces the kernel; on CPU tensors it raises.
 
+Where the work runs is decided by :func:`repro_torch.device.runs_on_card`,
+which the kernel wrappers ask too: through ``"auto"`` a CPU tensor goes
+to the plain version here, and a direct call of a wrapper on a CPU
+tensor does the same there.  The registry adds one rule of its own: a
+forced ``"cuda"`` never runs the plain version.
+
 There is no ``supports`` gate that degrades to ``ref`` on the card: a
 kernel that cannot take a shape raises from its wrapper.  Every
 dispatch records a ``kind="kernel"`` trace event carrying the resolved
@@ -26,16 +32,17 @@ from typing import Any, Callable
 import torch
 
 from ..core.trace import record
+from ..device import runs_on_card
 from .segment_fold import ops as _sf_ops, ref as _sf_ref
 from .xtx import ops as _xtx_ops, ref as _xtx_ref
 
 IMPLS = ("auto", "ref", "cuda")
 
 
-def _device_of(args) -> torch.device:
+def _first_tensor(args) -> torch.Tensor:
     for a in args:
         if isinstance(a, torch.Tensor):
-            return a.device
+            return a
     raise ValueError("kernel dispatch: no tensor argument")
 
 
@@ -55,13 +62,14 @@ class KernelEntry:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         if impl == "ref":
             return "ref"
-        on_cuda = _device_of(args).type == "cuda"
+        t = _first_tensor(args)
+        on_card = runs_on_card(t, self.name)
         if impl == "auto":
-            return "cuda" if on_cuda else "ref"
-        if not on_cuda:
+            return "cuda" if on_card else "ref"
+        if not on_card:
             raise ValueError(
                 f"kernel {self.name!r}: impl='cuda' forced on tensors on "
-                f"{_device_of(args)}; the CUDA kernel runs only on the card")
+                f"{t.device}; the CUDA kernel runs only on the card")
         return "cuda"
 
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ...device import runs_on_card
 from .. import _build
 from .ref import segment_linregr_ref
 
@@ -58,11 +59,9 @@ def segment_linregr(x, y, valid, bgids, *, num_groups: int):
     n2, k = x.shape
     nb = bgids.shape[0]
     bs = _layout(n2, nb)
-    if x.device.type == "cpu":
+    if not runs_on_card(x, "segment_linregr"):
         return segment_linregr_ref(x, y, valid, bgids,
                                    num_groups=num_groups)
-    if x.device.type != "cuda":
-        raise ValueError(f"segment_linregr: no kernel for {x.device}")
     w = k + 2
     if -(-w // _TILE) > _GRID_YZ_MAX or -(-w * w // 256) > _GRID_YZ_MAX:
         raise ValueError(f"segment_linregr: K={k} is too wide for the "

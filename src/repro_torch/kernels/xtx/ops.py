@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from ...device import runs_on_card
 from .. import _build
 from .ref import xtx_xty_ref
 
@@ -49,10 +50,8 @@ def xtx_xty(x: torch.Tensor, y: torch.Tensor):
     """(N, K), (N,) f32 -> (X^T X (K, K), X^T y (K,)) f32."""
     global xtx_launches
     _check(x, y)
-    if x.device.type == "cpu":
+    if not runs_on_card(x, "xtx"):
         return xtx_xty_ref(x, y)
-    if x.device.type != "cuda":
-        raise ValueError(f"xtx: no kernel for device {x.device}")
     n, k = x.shape
     props = torch.cuda.get_device_properties(x.device)
     splits, rows = splits_for(n, k, props.multi_processor_count)

@@ -168,6 +168,20 @@ def test_registry_forced_cuda_on_cpu_raises():
         registry.dispatch("xtx", x, y, impl="cuda")
 
 
+def test_registry_and_wrappers_share_one_device_rule():
+    """A device that is neither the card nor the CPU is refused alike by
+    the registry and by a direct call of each wrapper."""
+    x, y = torch.ones((4, 2), device="meta"), torch.ones(4, device="meta")
+    valid = torch.ones(4, dtype=torch.bool, device="meta")
+    bgids = torch.zeros(1, dtype=torch.int32, device="meta")
+    for call in (lambda: registry.dispatch("xtx", x, y, impl="auto"),
+                 lambda: xtx_ops.xtx_xty(x, y),
+                 lambda: sf_ops.segment_linregr(x, y, valid, bgids,
+                                                num_groups=1)):
+        with pytest.raises(ValueError, match="no kernel and no plain"):
+            call()
+
+
 def test_registry_rejects_unknown_impl_and_kernel():
     x, y = torch.ones((4, 2)), torch.ones(4)
     with pytest.raises(ValueError, match="impl must be one of"):

@@ -192,6 +192,9 @@ def test_plan_fuses_statements_and_rejects_mixed_masks():
     with pytest.raises(ValueError, match="mixed-mask"):
         fused_grouped_pass([(0, GroupedScanAgg(a, t, "g", G, mask=m1)),
                             (1, GroupedScanAgg(b, t, "g", G, mask=m2))])
+    with pytest.raises(ValueError, match="unknown scan engine"):
+        fused_scan_pass([(0, ScanAgg(a, t, engine="sharded"))])
+    assert fused_scan_pass([(0, ScanAgg(a, t))]).engine == "local"
 
 
 def test_fused_aggregate_forwards_kernel_hook_and_names():
