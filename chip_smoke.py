@@ -5,18 +5,30 @@
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
-1. device  — the card's name, count and power limit (fails without CUDA);
+1. device  — the card's name, count, power limit and SM clock (fails
+   without CUDA);
 2. build   — the CUDA kernels from ``src/repro_torch/csrc`` with nvcc,
    with ptxas' registers and spills;
 3. kernels — each kernel against its plain PyTorch version on the card:
    bitwise on dyadic data, within a stated tolerance on Gaussian data;
-4. main path — ``linregr`` and ``linregr_grouped`` on a 10,000,000-row,
-   160-variable f32 table made on the card from a seed, through the
-   kernels (launch counters and trace events checked), against the same
-   statements on the plain versions and against the CPU port on a small
-   input; then the grouped statement's stages timed one by one;
-5. timing  — CUDA-event times of each kernel, its plain version and the
-   library call at the main path's shapes, beside the bound.
+   the sketch kernels bitwise on any items (integer counts);
+4. main path, on a 10,000,000-row table made on the card from a seed
+   (``x`` 160 f32 variables, ``y``, 64 groups ``g``, and an int32
+   ``item`` column drawn Zipf(1.1) over 1,000,000 keys), through the
+   kernels (launch counters and trace events checked):
+   a. ``linregr`` and ``linregr_grouped``, against the plain versions;
+   b. one ``Session`` batch of the analytics mix (``profile`` with
+      distinct counts, ``linregr``, Count-Min, FM), planned as ONE scan
+      through ``xtx`` and ``countmin``, against the statements run solo
+      on the plain versions;
+   c. ``countmin_sketch_grouped`` and ``fm_distinct_count_grouped``
+      through ``segment_countmin`` and ``segment_fm``, fold states
+      against the plain versions;
+   d. the card against the CPU port on a small input; then the grouped
+      OLS statement's stages timed one by one;
+5. timing  — CUDA-event times of each kernel (and its device time from
+   torch.profiler), its plain version and the library call at the main
+   path's shapes, beside the bound.
 
 The last line is ``{"ok": true, "device": {...}}``.  Imports neither JAX
 nor the JAX package.
@@ -33,14 +45,41 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 20121208
 N_MAIN, K_MAIN, G_MAIN = 10_000_000, 160, 64
+ZIPF_S, ZIPF_KEYS = 1.1, 1_000_000
 PEAK_F32_FLOPS = 67e12     # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
+# Integer instructions per SM per clock on compute capability 9.0, by the
+# pipe that issues them.  The CUDA C++ Programming Guide's arithmetic
+# instruction throughput table gives 64 for 32-bit integer add, shift,
+# logical ops and multiply-add alike.  Nsight Compute's pipe names put
+# IMAD on the FMA pipe and shifts, logical ops and selects on the ALU
+# pipe, so the two run side by side.  The four schedulers of an SM issue
+# at most one warp instruction each per clock: 128 lanes over all pipes.
+# Times the SM count and the maximum SM clock from nvidia-smi.
+PIPE_LANES_PER_SM = {"alu": 64, "fma": 64}
+ISSUE_LANES_PER_SM = 128
+# Instructions per valid row and hash that each function needs, by pipe,
+# as the kernels' SASS has them (cuobjdump -sass; phase 2 prints the
+# opcode mix).  The hash fmix32(x * p + p) is 3 IMAD (fma: the multiply-
+# add and two multiplies), 3 SHF and 3 LOP3 (alu: shifts and xors).
+# Count-Min at a power-of-two width folds `% width` (an AND) into the last
+# LOP3; its increment is a shared or global atomic, not a lane op, and is
+# not counted.  FM adds -h (an IMAD.MOV, fma), h & -h (LOP3), the fallback
+# select (SEL) and the OR into the bitmap (LOP3).
+PIPE_OPS_PER_HASH = {"countmin": {"alu": 6, "fma": 3},
+                     "segment_countmin": {"alu": 6, "fma": 3},
+                     "segment_fm": {"alu": 9, "fma": 4}}
+SASS_OPS = ("IMAD", "IADD3", "SHF", "LOP3", "SEL", "ISETP", "ATOMS", "REDG",
+            "REDUX", "MUFU", "I2F", "F2I", "FLO", "BREV")
 # Gaussian data: the kernel sums in another order than cuBLAS or the
 # block loop, so the two differ by the f32 rounding of sums over up to
 # 1e7 rows.  Both are held against a float64 sum of the same inputs: the
 # kernel's max error may exceed neither twice the plain version's nor
 # GAUSS_RTOL * max|float64 sum|, whichever is larger.
 GAUSS_RTOL = 1e-5
+# profile's f32 sums and sums of squares against float64 sums: within
+# PROFILE_RTOL of the float64 sum of the terms' absolute values.
+PROFILE_RTOL = 1e-5
 
 
 def require(cond: bool, what: str) -> None:
@@ -48,10 +87,10 @@ def require(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(query: str = "name,power.limit", units: bool = True) -> str:
+    fmt = "csv,noheader" if units else "csv,noheader,nounits"
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader", "-i", "0"],
+        ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}", "-i", "0"],
         capture_output=True, text=True, check=True)
     return out.stdout.strip()
 
@@ -62,6 +101,18 @@ def dyadic(torch, gen, shape, dev):
     summation order gives the same bits."""
     return torch.randint(-1, 2, shape, generator=gen, dtype=torch.int8,
                          device=dev).float() / 8
+
+
+def zipf_items(torch, gen, n, dev):
+    """(n,) int32 keys in [0, ZIPF_KEYS), P(k) proportional to
+    (k + 1)^-ZIPF_S: uniform draws through the cumulative weights."""
+    w = torch.arange(1, ZIPF_KEYS + 1, dtype=torch.float64,
+                     device=dev) ** -ZIPF_S
+    cdf = torch.cumsum(w, 0)
+    cdf /= cdf[-1].clone()
+    u = torch.rand((n,), generator=gen, dtype=torch.float64, device=dev)
+    keys = torch.searchsorted(cdf, u).clamp_(max=ZIPF_KEYS - 1)
+    return keys.to(torch.int32)
 
 
 def cuda_ms(torch, fn, reps: int, warm: int = 1) -> float:
@@ -76,6 +127,23 @@ def cuda_ms(torch, fn, reps: int, warm: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int, kernels: tuple[str, ...]):
+    """Device time per call of the CUDA kernels whose names contain one of
+    ``kernels``, from torch.profiler's CUDA activity; None when the
+    profiler records no device time for them."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "device_time_total", 0.0)
+                   for e in prof.key_averages()
+                   if any(k in e.key for k in kernels))
+    return total_us / reps / 1e3 if total_us > 0 else None
 
 
 def max_err(torch, got: dict, want: dict) -> tuple[float, float]:
@@ -103,6 +171,82 @@ def gauss_check(torch, what: str, got: dict, plain: dict,
     return diff
 
 
+def bitwise(torch, what: str, got, want) -> float:
+    """Require ``got`` equal to ``want`` bit for bit; returns
+    max |got - want| (0.0 when they are)."""
+    torch.cuda.synchronize()
+    require(got.shape == want.shape, f"{what}: shapes differ")
+    err = float((got.double() - want.double()).abs().max())
+    require(torch.equal(got, want), f"{what}: not bitwise equal (max err "
+            f"{err})")
+    return err
+
+
+class Counters:
+    """The five wrappers' launch counters: zeroed just before each
+    main-path run, read just after it, and summed over those runs only
+    (launches made to check or time a kernel are never read)."""
+
+    def __init__(self, mods):
+        self.where = {name: (mod, f"{name}_launches")
+                      for name, mod in mods.items()}
+        self.total = dict.fromkeys(mods, 0)
+
+    def zero(self) -> None:
+        for mod, attr in self.where.values():
+            setattr(mod, attr, 0)
+
+    def read(self) -> dict:
+        got = {name: getattr(mod, attr)
+               for name, (mod, attr) in self.where.items()}
+        for name, n in got.items():
+            self.total[name] += n
+        return got
+
+
+def int_ops_seconds(name: str, row_hashes: float, sms: int,
+                    clock_hz: float) -> float:
+    """Least time of the integer work of ``row_hashes`` (valid rows times
+    hashes): the slowest pipe, or the issue rate over all of them."""
+    ops = PIPE_OPS_PER_HASH[name]
+    times = [row_hashes * n / (PIPE_LANES_PER_SM[pipe] * sms * clock_hz)
+             for pipe, n in ops.items()]
+    times.append(row_hashes * sum(ops.values())
+                 / (ISSUE_LANES_PER_SM * sms * clock_hz))
+    return max(times)
+
+
+def sass_mix(cuobjdump: Path, obj: Path) -> dict[str, dict[str, int]]:
+    """For each kernel in ``obj``, how many of its SASS instructions have
+    each opcode of SASS_OPS (every path of the kernel, not per row)."""
+    out = subprocess.run([str(cuobjdump), "-sass", str(obj)],
+                         capture_output=True, text=True, check=True).stdout
+    mix: dict[str, dict[str, int]] = {}
+    counts = None
+    for line in out.splitlines():
+        if "Function :" in line:
+            counts = mix.setdefault(line.split(":", 1)[1].strip(),
+                                    dict.fromkeys(SASS_OPS, 0))
+        elif counts is not None and line.lstrip().startswith("/*") \
+                and "*/" in line:
+            words = line.split("*/", 1)[1].split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            op = words[0].split(".")[0] if words else ""
+            if op in counts:
+                counts[op] += 1
+    return mix
+
+
+def timed(torch, fn):
+    """(result, host seconds) of ``fn()`` ended by a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
 def main() -> int:
     import torch
 
@@ -114,30 +258,51 @@ def main() -> int:
               "is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import trace_execution
+    from repro_torch.core import Session, run_grouped, run_many, \
+        trace_execution
+    from repro_torch.core.plan import ScanAgg, execute
     from repro_torch.core.aggregates import (
         probe_segment_ops, segment_block_size, segment_fold)
     from repro_torch.core.table import Table, synthetic_regression_table
     from repro_torch.kernels import _build
+    from repro_torch.kernels.countmin import ops as cm_ops
+    from repro_torch.kernels.countmin.ref import countmin_block_ref
     from repro_torch.kernels.segment_fold import ops as sf_ops
-    from repro_torch.kernels.segment_fold.ref import segment_linregr_ref
+    from repro_torch.kernels.segment_fold.ref import (
+        segment_countmin_ref, segment_fm_ref, segment_linregr_ref)
     from repro_torch.kernels.xtx import ops as xtx_ops
     from repro_torch.kernels.xtx.ref import xtx_xty_ref
     from repro_torch.methods.linregr import (
         LinregrAggregate, linregr, linregr_grouped)
+    from repro_torch.methods.profile import profile
+    from repro_torch.methods.sketches import (
+        CountMinAggregate, FMAggregate, countmin_query,
+        countmin_sketch_grouped, fm_distinct_count,
+        fm_distinct_count_grouped)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
+    counters = Counters({"xtx": xtx_ops, "segment_linregr": sf_ops,
+                         "countmin": cm_ops, "segment_countmin": sf_ops,
+                         "segment_fm": sf_ops})
 
     # 1. device -------------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = nvidia_smi()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_mhz = float(nvidia_smi("clocks.max.sm", units=False))
+    clock_hz = clock_mhz * 1e6
     print(f"[device] {kind} x{count}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
+    print(f"[device] {sms} SMs, max SM clock {clock_mhz:.0f} MHz: integer "
+          "peaks " + ", ".join(
+              f"{pipe} {lanes * sms * clock_hz:.4e}/s ({lanes} lanes/SM/clock)"
+              for pipe, lanes in PIPE_LANES_PER_SM.items())
+          + f", issue {ISSUE_LANES_PER_SM * sms * clock_hz:.4e}/s")
     print(smi)
 
     # 2. build --------------------------------------------------------------
@@ -146,6 +311,12 @@ def main() -> int:
     for line in _build.last_build["ptxas"]:
         print(f"[build] {line}")
     _build.lib()
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    for src in ("countmin", "segment_sketch"):
+        for fn, mix in sass_mix(cuobjdump,
+                                _build.BUILD_DIR / f"{src}.o").items():
+            print(f"[build] SASS {fn}: " + ", ".join(
+                f"{op} {n}" for op, n in mix.items() if n))
 
     # 3. kernels against their plain versions -------------------------------
     errs: dict[str, float] = {}
@@ -170,25 +341,29 @@ def main() -> int:
         print(f"[kernels] xtx ({n}, {k}): dyadic bitwise")
         del x, y, got, plain, exact
 
-    def segment_layout(x, y, num_groups, used, sentinels):
+    def segment_layout(cols, num_groups, used, sentinels, base=None):
         """A real aligned_blocks layout: ids 0..used-1 only (the rest are
         empty groups), padded by pad_blocks_to with ``sentinels`` blocks."""
-        g = torch.randint(0, used, (x.shape[0],), generator=gen,
-                          dtype=torch.int32, device=dev)
-        view = Table({"x": x, "y": y, "g": g}).group_by("g", num_groups)
+        n = next(iter(cols.values())).shape[0]
+        g = torch.randint(0, used, (n,), generator=gen, dtype=torch.int32,
+                          device=dev)
+        view = Table({**cols, "g": g}).group_by("g", num_groups)
         real = int((-(-view.counts.long() // 4096)).sum())
-        cols, valid, bgids = view.aligned_blocks(
-            4096, pad_blocks_to=real + sentinels)
-        return cols["x"], cols["y"], valid, bgids
+        pbase = None if base is None else view.permute(base)
+        out, valid, bgids = view.aligned_blocks(
+            4096, pbase, pad_blocks_to=real + sentinels)
+        require(int((bgids == num_groups).sum()) == sentinels,
+                "sentinel blocks")
+        return out, valid, bgids
 
     for label, make in (("dyadic", dyadic),
                         ("gaussian", lambda t, g_, s, d: torch.randn(
                             s, generator=g_, device=d))):
-        x = make(torch, gen, (N_MAIN, K_MAIN), dev)
-        y = make(torch, gen, (N_MAIN,), dev)
-        xs, ys, valid, bgids = segment_layout(x, y, G_MAIN, G_MAIN - 8, 5)
-        del x, y
-        require(int((bgids == G_MAIN).sum()) == 5, "sentinel blocks")
+        cols, valid, bgids = segment_layout(
+            {"x": make(torch, gen, (N_MAIN, K_MAIN), dev),
+             "y": make(torch, gen, (N_MAIN,), dev)}, G_MAIN, G_MAIN - 8, 5)
+        xs, ys = cols["x"], cols["y"]
+        del cols
         got = sf_ops.segment_linregr(xs, ys, valid, bgids,
                                      num_groups=G_MAIN)
         want = segment_linregr_ref(xs, ys, valid, bgids, num_groups=G_MAIN)
@@ -212,44 +387,94 @@ def main() -> int:
         del xs, ys, valid, bgids, got, want
     torch.cuda.empty_cache()
 
+    # the sketch kernels: integer counts, so bitwise on any items.  The
+    # items are the main path's Zipf keys with a tenth replaced by
+    # full-range int32 draws and a fifth negated; the mask is ragged.
+    zipf = zipf_items(torch, gen, N_MAIN, dev)
+
+    def sketch_items(n):
+        keys = zipf[:n].clone()
+        wide = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=gen,
+                             dtype=torch.int32, device=dev)
+        u = torch.rand((n,), generator=gen, device=dev)
+        keys = torch.where(u < 0.1, wide, keys)
+        keys = torch.where((u >= 0.1) & (u < 0.3), -keys, keys)
+        mask = torch.rand((n,), generator=gen, device=dev) < 0.9
+        return keys, mask
+
+    errs.update(countmin=0.0, segment_countmin=0.0, segment_fm=0.0)
+    # widths of a power of two take the AND path, 1000 the division path
+    for n, depth, width in ((4096, 4, 1024), (1_000_000, 8, 4096),
+                            (1_000_000, 3, 1000), (N_MAIN, 4, 1024)):
+        items, mask = sketch_items(n)
+        require(bool((items < 0).any()), "negative items present")
+        got = cm_ops.countmin_block(items, mask, depth, width)
+        want = countmin_block_ref(items, mask, depth, width)
+        errs["countmin"] = max(errs["countmin"], bitwise(
+            torch, f"countmin ({n}, {depth}, {width})", got, want))
+        require(int(got.sum()) == depth * int(mask.sum()),
+                "countmin: counts do not add up to depth x valid rows")
+        print(f"[kernels] countmin ({n}, depth {depth}, width {width}), "
+              f"negative items and a ragged mask: bitwise")
+    items, mask = sketch_items(N_MAIN)
+    cols, valid, bgids = segment_layout({"item": items}, G_MAIN, G_MAIN - 8,
+                                        5, base=mask)
+    seg_items = cols["item"]
+    del cols, items, mask
+    checks = [("segment_countmin", sf_ops.segment_countmin,
+               segment_countmin_ref, {"depth": depth, "width": width})
+              for depth, width in ((4, 1024), (3, 1000))]
+    checks += [("segment_fm", sf_ops.segment_fm, segment_fm_ref,
+                {"num_hashes": 8, "bits": bits}) for bits in (16, 32)]
+    for name, kern, plain, kw in checks:
+        got = kern(seg_items, valid, bgids, num_groups=G_MAIN, **kw)
+        want = plain(seg_items, valid, bgids, num_groups=G_MAIN, **kw)
+        errs[name] = max(errs[name], bitwise(torch, f"{name} {kw}", got,
+                                             want))
+        require(int(got[G_MAIN - 8:].abs().sum()) == 0,
+                f"{name}: empty groups not zero")
+        require(int(got[:G_MAIN - 8].sum()) > 0, f"{name}: nothing counted")
+        print(f"[kernels] {name} {kw}: {seg_items.shape[0]} rows, "
+              f"{bgids.shape[0]} blocks, G={G_MAIN} with 8 empty groups and "
+              "5 sentinel blocks: bitwise")
+    del seg_items, valid, bgids, got, want
+    torch.cuda.empty_cache()
+
     # 4. main path ----------------------------------------------------------
     t, b_true = synthetic_regression_table(SEED, N_MAIN, K_MAIN)
     t = t.with_column("g", torch.randint(0, G_MAIN, (N_MAIN,), generator=gen,
                                          dtype=torch.int32, device=dev))
+    t = t.with_column("item", zipf)
+    del zipf
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    launches = {}
     seconds = {}
     results = {}
-    for name, stmt, counter_mod, counter in (
-            ("linregr", lambda: linregr(t, use_kernel=True), xtx_ops,
-             "xtx_launches"),
+
+    # a. OLS, solo and grouped
+    for name, stmt in (
+            ("linregr", lambda: linregr(t, use_kernel=True)),
             ("linregr_grouped",
              lambda: linregr_grouped(t, "g", num_groups=G_MAIN,
-                                     use_kernel=True),
-             sf_ops, "segment_linregr_launches")):
+                                     use_kernel=True))):
         # twice: the first run pays the partitioning sort and the host
         # index build of the layout (memoized after), the second does not
-        xtx_ops.xtx_launches = 0
-        sf_ops.segment_linregr_launches = 0
+        counters.zero()
         with trace_execution() as tr:
             seconds[name] = []
             for _ in range(2):
-                t0 = time.perf_counter()
-                results[name] = stmt()
-                torch.cuda.synchronize()
-                seconds[name].append(time.perf_counter() - t0)
-        launches[name] = getattr(counter_mod, counter)
+                results[name], s = timed(torch, stmt)
+                seconds[name].append(s)
+        launched = counters.read()
+        kern = "xtx" if name == "linregr" else "segment_linregr"
         engines = [e.engine for e in tr.kernels]
-        require(launches[name] > 0, f"{name}: {counter} did not rise")
+        require(launched[kern] > 0, f"{name}: {kern}_launches did not rise")
         require(engines and all(e == "cuda" for e in engines),
                 f"{name}: trace kernel events {engines}")
         print(f"[main] {name}: first {seconds[name][0]:.3f} s, again "
               f"{seconds[name][1]:.3f} s (host clock, synchronized); "
-              f"{counter}={launches[name]}, trace kernel events {engines}, "
+              f"launches {launched}, trace kernel events {engines}, "
               f"sorts {len(tr.sorts)}")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[main] max_memory_allocated {peak_gb:.2f} GB")
 
     solo, grouped = results["linregr"], results["linregr_grouped"]
     require(tuple(solo.coef.shape) == (K_MAIN,)
@@ -270,10 +495,146 @@ def main() -> int:
         print(f"[main] {name}: coef vs use_kernel='ref' max diff {d:.3e}; "
               f"coef vs true b max diff "
               f"{float((got.coef - b_true).abs().max()):.3e}")
+    del ref_solo, ref_grouped
 
-    # small input: the card's kernel path against the CPU port
+    # b. the analytics mix as one Session batch: one shared scan
+    def mix(tb, cm_kernel=True):
+        sess = Session()
+        handles = {
+            "profile": sess.profile(tb, distinct_counts=True),
+            "linregr": sess.linregr(tb, use_kernel=True),
+            "countmin": sess.scan(CountMinAggregate(use_kernel=cm_kernel),
+                                  tb, columns=("item",), label="countmin"),
+            "fm_distinct": sess.fm_distinct_count(tb)}
+        sess.run()
+        return {k: h.result() for k, h in handles.items()}
+
+    seconds["session batch"] = []
+    for _ in range(2):
+        counters.zero()
+        with trace_execution() as tr:
+            batch, s = timed(torch, lambda: mix(t))
+        launched = counters.read()
+        seconds["session batch"].append(s)
+        events = sorted((e.detail["name"], e.engine) for e in tr.kernels)
+        require(len(tr.scans) == 1,
+                f"session batch: {len(tr.scans)} scans, want 1")
+        require(events == [("countmin", "cuda"), ("xtx", "cuda")],
+                f"session batch: trace kernel events {events}")
+        require(launched["xtx"] > 0 and launched["countmin"] > 0,
+                f"session batch: launches {launched}")
+    print(f"[main] session batch (profile with distinct counts, linregr, "
+          f"countmin, fm_distinct): first {seconds['session batch'][0]:.3f} "
+          f"s, again {seconds['session batch'][1]:.3f} s (host clock, "
+          f"synchronized); scans 1, launches {launched}, trace kernel "
+          f"events {events}")
+
+    # the batch against the statements solo, on the plain versions
+    cm_solo = execute(ScanAgg(CountMinAggregate(use_kernel="ref"), t,
+                              label="countmin"))
+    bitwise(torch, "session countmin vs solo use_kernel='ref'",
+            batch["countmin"], cm_solo)
+    for col in ("item", "g"):
+        want = fm_distinct_count(t, item_col=col)
+        got = (batch["fm_distinct"] if col == "item"
+               else batch["profile"][col]["approx_distinct"])
+        require(torch.equal(got, want)
+                and torch.equal(batch["profile"][col]["approx_distinct"],
+                                want),
+                f"session FM estimate of {col} differs from solo")
+    fused = run_many([CountMinAggregate(use_kernel=True), FMAggregate(),
+                      FMAggregate(item_col="g")], t, finalize=False)
+    for got, want in zip(fused, (
+            cm_solo,
+            run_many([FMAggregate()], t, finalize=False)[0],
+            run_many([FMAggregate(item_col="g")], t, finalize=False)[0])):
+        bitwise(torch, "fused sketch states vs solo", got, want)
+    d_ols = float((batch["linregr"].coef - solo.coef).abs().max())
+    require(torch.allclose(batch["linregr"].coef, solo.coef, rtol=1e-5,
+                           atol=1e-6),
+            f"session linregr coef vs solo differ by {d_ols}")
+    # Count-Min never underestimates: the 100 most frequent keys
+    exact = torch.bincount(t["item"].long(), minlength=ZIPF_KEYS)
+    top = torch.topk(exact, 100).indices
+    est = countmin_query(batch["countmin"], top.to(torch.int32))
+    require(bool((est >= exact[top].to(est.dtype)).all()),
+            "Count-Min underestimates a heavy hitter")
+    over = float(((est - exact[top]).double() / exact[top].double()).max())
+    # profile: count, min and max exact; sums against float64
+    stats = batch["profile"]
+    for col in ("x", "y", "g", "item"):
+        v = t[col].to(torch.float32)
+        st = stats[col]
+        require(float(st["count"]) == N_MAIN, f"profile {col} count")
+        require(torch.equal(st["min"], v.amin(dim=0))
+                and torch.equal(st["max"], v.amax(dim=0)),
+                f"profile {col} min/max")
+        require(bool(torch.isfinite(st["std"]).all()), f"profile {col} std")
+        # float64 sums, 32 columns at a time to bound the copies
+        chunks = torch.split(v.reshape(N_MAIN, -1), 32, dim=1)
+        for key, power in (("sum", 1), ("sumsq", 2)):
+            want = torch.cat([(c.double() ** power).sum(0) for c in chunks])
+            scale = torch.cat([(c.double().abs() ** power).sum(0)
+                               for c in chunks])
+            err = float((st[key].reshape(-1).double() - want).abs().max())
+            limit = PROFILE_RTOL * float(scale.max())
+            require(err <= limit, f"profile {col}.{key}: error {err} vs "
+                    f"float64 exceeds {limit}")
+        del v, chunks
+    print(f"[main] session batch vs solo use_kernel='ref': countmin state "
+          f"and fused sketch states bitwise, FM estimates bitwise, linregr "
+          f"coef within {d_ols:.1e}; profile count/min/max exact, sum/sumsq within "
+          f"{PROFILE_RTOL} of the float64 sum of |terms|; Count-Min over "
+          f"the 100 heaviest keys: never under, max over {over:.3e} "
+          f"(relative); FM estimate of item {float(batch['fm_distinct']):.0f}"
+          f" vs {int((exact > 0).sum())} distinct")
+    del batch, fused, exact, stats
+    torch.cuda.empty_cache()
+
+    # c. GROUP BY sketches, each a statement of its own
+    view = t.group_by("g", G_MAIN).select("item")
+    for name, stmt, agg_cls in (
+            ("countmin_grouped",
+             lambda uk: countmin_sketch_grouped(t, "g", G_MAIN,
+                                                use_kernel=uk),
+             CountMinAggregate),
+            ("fm_grouped",
+             lambda uk: fm_distinct_count_grouped(t, "g", G_MAIN,
+                                                  use_kernel=uk),
+             FMAggregate)):
+        kern = "segment_" + ("countmin" if agg_cls is CountMinAggregate
+                             else "fm")
+        seconds[name] = []
+        counters.zero()
+        with trace_execution() as tr:
+            for _ in range(2):
+                results[name], s = timed(torch, lambda: stmt(True))
+                seconds[name].append(s)
+        launched = counters.read()
+        engines = [e.engine for e in tr.kernels]
+        require(launched[kern] == 2, f"{name}: launches {launched}")
+        require(engines == ["cuda", "cuda"],
+                f"{name}: trace kernel events {engines}")
+        want = stmt("ref")
+        bitwise(torch, f"{name} result vs use_kernel='ref'", results[name],
+                want)
+        got = run_grouped(agg_cls(use_kernel=True), view, finalize=False)
+        want = run_grouped(agg_cls(use_kernel="ref"), view, finalize=False)
+        bitwise(torch, f"{name} fold state vs use_kernel='ref'", got, want)
+        require(tuple(got.shape[:1]) == (G_MAIN,), f"{name} shape")
+        print(f"[main] {name}: first {seconds[name][0]:.3f} s, again "
+              f"{seconds[name][1]:.3f} s (host clock, synchronized); "
+              f"launches {launched}, trace kernel events {engines}, sorts "
+              f"{len(tr.sorts)}; fold state bitwise vs use_kernel='ref'")
+        del got, want
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[main] max_memory_allocated {peak_gb:.2f} GB")
+
+    # d. small input: the card's kernel path against the CPU port
     small, _ = synthetic_regression_table(SEED + 1, 4096, 7, device="cpu")
     small = small.with_column("g", torch.arange(4096, dtype=torch.int32) % 5)
+    small = small.with_column("item", (torch.arange(4096, dtype=torch.int32)
+                                       * 7919 % 1013) - 300)
     small_gpu = Table({k: v.to(dev) for k, v in small.columns.items()})
     for name, fn in (("linregr", lambda tb, uk: linregr(tb, use_kernel=uk)),
                      ("linregr_grouped", lambda tb, uk: linregr_grouped(
@@ -283,53 +644,103 @@ def main() -> int:
         require(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
                 f"{name} small: card vs CPU differ by "
                 f"{float((got - want).abs().max())}")
-    print("[main] small input: card kernels agree with the CPU port")
+    # Sketch states are integers: bitwise.  FM estimates go through a
+    # float pow that the card and the CPU may round 1 ulp apart.
+    got, want = mix(small_gpu), mix(small)
+    require(torch.equal(got["countmin"].cpu(), want["countmin"]),
+            "session countmin small: card vs CPU")
+    require(torch.allclose(got["fm_distinct"].cpu(), want["fm_distinct"],
+                           rtol=1e-6, atol=0),
+            "session FM estimate small: card vs CPU")
+    require(torch.allclose(got["linregr"].coef.cpu(), want["linregr"].coef,
+                           rtol=1e-4, atol=1e-4), "session linregr small")
+    for col, st in want["profile"].items():
+        for key, v in st.items():
+            require(torch.allclose(got["profile"][col][key].cpu(), v,
+                                   rtol=1e-5, atol=1e-5 * float(
+                                       v.abs().max().clamp(min=1))),
+                    f"session profile small {col}.{key}")
+    for agg_cls in (CountMinAggregate, FMAggregate):
+        require(torch.equal(
+            run_grouped(agg_cls(use_kernel=True), small_gpu, "g", 5,
+                        finalize=False).cpu(),
+            run_grouped(agg_cls(use_kernel=True), small, "g", 5,
+                        finalize=False)),
+                f"grouped {agg_cls.__name__} state small: card vs CPU")
+    require(torch.equal(profile(small_gpu)["item"]["max"].cpu(),
+                        profile(small)["item"]["max"]), "profile small")
+    print("[main] small input: card kernels agree with the CPU port "
+          "(sketch states bitwise, FM estimates within 1e-6, OLS and "
+          "profile within 1e-4 / 1e-5)")
 
-    # the repeated grouped statement, stage by stage: the same calls that
-    # run_grouped makes, each ended by synchronize() (host clock)
-    def staged(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
+    # the repeated grouped statements, stage by stage: the same calls
+    # that run_grouped makes, each ended by synchronize() (host clock)
+    def grouped_stages(name, agg, columns):
+        stage_s = {}
+        gview, stage_s["group_by (memo hit)"] = timed(
+            torch, lambda: t.group_by("g", G_MAIN).select(*columns))
+        bs = segment_block_size(gview.n_rows, G_MAIN)
+        layout, stage_s["aligned_blocks"] = timed(
+            torch, lambda: gview.aligned_blocks(bs))
+        ops = probe_segment_ops(agg, dict(gview.table.columns))
+        states, stage_s["segment_fold (kernel)"] = timed(
+            torch, lambda: segment_fold(agg, ops, *layout, G_MAIN,
+                                        kernel_impl="cuda"))
+        _, stage_s["final_grouped"] = timed(
+            torch, lambda: agg.final_grouped(states))
+        stage_s["rest of the statement"] = (seconds[name][1]
+                                            - sum(stage_s.values()))
+        print(f"[breakdown] {name}, repeated call {seconds[name][1]:.4f} s "
+              "(host clock, synchronized): " + "; ".join(
+                  f"{k} {v:.4f} s" for k, v in stage_s.items()))
+        return layout
 
-    agg = LinregrAggregate(use_kernel=True)
-    stage_s = {}
-    view, stage_s["group_by (memo hit)"] = staged(
-        lambda: t.group_by("g", G_MAIN).select("x", "y"))
-    bs = segment_block_size(view.n_rows, G_MAIN)
-    (cols, valid, bgids), stage_s["aligned_blocks"] = staged(
-        lambda: view.aligned_blocks(bs))
-    ops = probe_segment_ops(agg, dict(view.table.columns))
-    states, stage_s["segment_fold (kernel)"] = staged(
-        lambda: segment_fold(agg, ops, cols, valid, bgids, G_MAIN,
-                             kernel_impl="cuda"))
-    _, stage_s["final_grouped"] = staged(lambda: agg.final_grouped(states))
-    stage_s["rest of the statement"] = (seconds["linregr_grouped"][1]
-                                        - sum(stage_s.values()))
-    print("[breakdown] linregr_grouped, repeated call "
-          f"{seconds['linregr_grouped'][1]:.4f} s (host clock, "
-          "synchronized): " + "; ".join(f"{k} {v:.4f} s"
-                                        for k, v in stage_s.items()))
-    del states
+    cols, valid, bgids = grouped_stages(
+        "linregr_grouped", LinregrAggregate(use_kernel=True), ("x", "y"))
+    sk_cols, sk_valid, sk_bgids = grouped_stages(
+        "countmin_grouped", CountMinAggregate(use_kernel=True), ("item",))
+
+    # the repeated Session batch against its members run alone, each a
+    # full scan of its own (host clock, synchronized)
+    member_s = {}
+    for name, stmt in (
+            ("profile", lambda: profile(t, distinct_counts=True)),
+            ("linregr", lambda: linregr(t, use_kernel=True)),
+            ("countmin", lambda: execute(ScanAgg(
+                CountMinAggregate(use_kernel=True), t, label="countmin"))),
+            ("fm_distinct", lambda: fm_distinct_count(t))):
+        _, member_s[name] = timed(torch, stmt)
+    print(f"[breakdown] session batch, repeated call "
+          f"{seconds['session batch'][1]:.4f} s; its members alone: "
+          + "; ".join(f"{k} {v:.4f} s" for k, v in member_s.items())
+          + f" (sum {sum(member_s.values()):.4f} s)")
 
     # 5. timing at the main path's shapes -----------------------------------
     x, y = t["x"], t["y"]
     xs, ys = cols["x"], cols["y"]
     n2, nb = xs.shape[0], bgids.shape[0]
     n_valid = int(valid.sum())
+    items = t["item"]
+    all_rows = torch.ones((N_MAIN,), dtype=torch.bool, device=dev)
+    sk_items = sk_cols["item"]
+    sk_n2, sk_nb = sk_items.shape[0], sk_bgids.shape[0]
+    sk_valid_n = int(sk_valid.sum())
+    cm_kw = {"depth": 4, "width": 1024, "num_groups": G_MAIN}
+    fm_kw = {"num_hashes": 8, "bits": 32, "num_groups": G_MAIN}
     # Operations the function needs: X^T X is symmetric, so only its
     # k (k + 1) / 2 distinct entries, plus X^T y (and, per group, y^2),
     # each a multiply and an add per row; sum(y) and n one add per row.
-    rows = []
+    # The sketches need PIPE_OPS_PER_HASH integer instructions per valid
+    # row and hash, on the slowest pipe (int_ops_seconds).  Bytes: each
+    # input read once, each output written once.
     specs = (
         ("xtx", "src/repro_torch/csrc/xtx.cu",
          "src/repro/kernels/xtx/kernel.py:29",
          lambda: xtx_ops.xtx_xty(x, y), lambda: xtx_xty_ref(x, y),
          lambda: torch.matmul(x.T, x),
-         float(N_MAIN) * K_MAIN * (K_MAIN + 3),
-         4.0 * (N_MAIN * (K_MAIN + 1) + K_MAIN * (K_MAIN + 1)), 5),
+         float(N_MAIN) * K_MAIN * (K_MAIN + 3) / PEAK_F32_FLOPS,
+         4.0 * (N_MAIN * (K_MAIN + 1) + K_MAIN * (K_MAIN + 1)), 5, 2,
+         [N_MAIN, K_MAIN], ("xtx_partial_kernel", "xtx_reduce_kernel")),
         ("segment_linregr", "src/repro_torch/csrc/segment_linregr.cu",
          "src/repro/kernels/segment_fold/kernel.py:52",
          lambda: sf_ops.segment_linregr(xs, ys, valid, bgids,
@@ -337,24 +748,54 @@ def main() -> int:
          lambda: segment_linregr_ref(xs, ys, valid, bgids,
                                      num_groups=G_MAIN),
          None,
-         float(n_valid) * ((K_MAIN + 1) * (K_MAIN + 2) + 2),
+         float(n_valid) * ((K_MAIN + 1) * (K_MAIN + 2) + 2) / PEAK_F32_FLOPS,
          4.0 * n2 * (K_MAIN + 1) + n2 + 4.0 * nb
-         + 4.0 * G_MAIN * (K_MAIN * (K_MAIN + 1) + 3), 5),
+         + 4.0 * G_MAIN * (K_MAIN * (K_MAIN + 1) + 3), 5, 2,
+         [n2, K_MAIN, nb, G_MAIN],
+         ("segment_partial_kernel", "segment_reduce_kernel")),
+        ("countmin", "src/repro_torch/csrc/countmin.cu",
+         "src/repro/kernels/countmin/kernel.py:34",
+         lambda: cm_ops.countmin_block(items, all_rows, 4, 1024),
+         lambda: countmin_block_ref(items, all_rows, 4, 1024), None,
+         int_ops_seconds("countmin", float(N_MAIN) * 4, sms, clock_hz),
+         5.0 * N_MAIN + 4.0 * 4 * 1024, 20, 1, [N_MAIN, 4, 1024],
+         ("countmin_shared_kernel", "countmin_global_kernel")),
+        ("segment_countmin", "src/repro_torch/csrc/segment_sketch.cu",
+         "src/repro/kernels/segment_fold/kernel.py:125",
+         lambda: sf_ops.segment_countmin(sk_items, sk_valid, sk_bgids,
+                                         **cm_kw),
+         lambda: segment_countmin_ref(sk_items, sk_valid, sk_bgids, **cm_kw),
+         None,
+         int_ops_seconds("segment_countmin", float(sk_valid_n) * 4, sms,
+                         clock_hz),
+         5.0 * sk_n2 + 4.0 * sk_nb + 4.0 * G_MAIN * 4 * 1024, 20, 1,
+         [sk_n2, sk_nb, G_MAIN, 4, 1024], ("segment_countmin_kernel",)),
+        ("segment_fm", "src/repro_torch/csrc/segment_sketch.cu",
+         "src/repro/kernels/segment_fold/kernel.py:180",
+         lambda: sf_ops.segment_fm(sk_items, sk_valid, sk_bgids, **fm_kw),
+         lambda: segment_fm_ref(sk_items, sk_valid, sk_bgids, **fm_kw),
+         None,
+         int_ops_seconds("segment_fm", float(sk_valid_n) * 8, sms,
+                         clock_hz),
+         5.0 * sk_n2 + 4.0 * sk_nb + 4.0 * G_MAIN * 8 * 32, 20, 1,
+         [sk_n2, sk_nb, G_MAIN, 8, 32], ("segment_fm_kernel",)),
     )
-    for name, source, replaces, kern, plain, lib, flops, nbytes, reps in specs:
+    rows = []
+    for (name, source, replaces, kern, plain, lib, op_s, nbytes, reps,
+         per_call, shape, kernel_names) in specs:
         ms = cuda_ms(torch, kern, reps)
+        dev_ms = device_ms(torch, kern, reps, kernel_names)
         plain_ms = cuda_ms(torch, plain, 2)
         lib_ms = cuda_ms(torch, lib, reps) if lib is not None else None
-        t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        t_ops, t_bytes = op_s * 1e3, nbytes / PEAK_BYTES * 1e3
         row = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces, "launches": launches[
-                   "linregr" if name == "xtx" else "linregr_grouped"],
+               "replaces": replaces, "launches": counters.total[name],
                "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "library_ms": lib_ms, "launches_per_call": 2,
-               "shape": ([N_MAIN, K_MAIN] if name == "xtx"
-                         else [n2, K_MAIN, nb, G_MAIN])}
+               "library_ms": lib_ms, "launches_per_call": per_call,
+               "device_ms": dev_ms, "ops_ms": t_ops, "bytes_ms": t_bytes,
+               "shape": shape}
         print(json.dumps({"kernel": row}))
         rows.append(row)
 

@@ -1,5 +1,6 @@
 """The port's core: tables, user-defined aggregates and their local
-engines, the planner subset of the OLS slice, and execution tracing.
+engines, the planner, the session front end, templated aggregates, and
+execution tracing.
 
 - Table / GroupedView — named columns on one device, the memoized
   partitioning sort and the group-aligned block layout
@@ -8,6 +9,8 @@ engines, the planner subset of the OLS slice, and execution tracing.
 - run_local / run_grouped / segment_fold — the local and grouped engines
 - ScanAgg / GroupedScanAgg / plan / execute — logical statements and the
   planner that fuses them
+- Session / Handle — batch statements; one run() plans them together
+- ProfileAggregate / map_columns / one_hot_encode — templated queries
 - trace_execution — count scans, sorts and kernel dispatches
 """
 
@@ -19,5 +22,9 @@ from .aggregates import (  # noqa: F401
 from .plan import (  # noqa: F401
     GroupedScanAgg, PhysicalPlan, ScanAgg, execute, plan,
 )
+from .session import Handle, Session  # noqa: F401
 from .table import GroupedView, Table, synthetic_regression_table  # noqa: F401
+from .templates import (  # noqa: F401
+    ProfileAggregate, map_columns, one_hot_encode,
+)
 from .trace import Trace, record, trace_execution  # noqa: F401

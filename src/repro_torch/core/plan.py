@@ -44,6 +44,7 @@ class ScanAgg:
     mask: Any = None             # base row filter, table row order
     block_size: int | None = None
     engine: str = "auto"         # "auto" | "local"
+    label: str | None = None     # the statement's name in a Session
 
 
 @dataclasses.dataclass(eq=False)
@@ -61,6 +62,7 @@ class GroupedScanAgg:
     mask: Any = None
     block_size: int | None = None
     method: str = "auto"         # "auto" | "segment" | "masked"
+    label: str | None = None     # the statement's name in a Session
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,196 @@
+"""Session: the declarative front end over the logical-plan layer.
+
+The port's counterpart of the reference ``core/session.py``, local mode.
+A :class:`Session` batches statements as logical plan nodes, and
+:meth:`Session.run` plans and executes them together: independent
+one-pass statistics over the same table fold into ONE data pass, and
+grouped statements share ONE partitioning sort::
+
+    sess = Session()
+    stats = sess.profile(tbl)
+    ols   = sess.linregr(tbl, use_kernel=True)
+    freq  = sess.countmin_sketch(tbl, item_col="item")
+    sess.run()                    # one shared scan, three statements
+    ols.result().coef
+
+Each statement returns a :class:`Handle`; ``handle.result()`` is there
+after ``run()``.  ``run()`` consumes the batch, whether or not it
+succeeds.
+
+Not ported yet, and raising ``NotImplementedError`` that names the
+ROADMAP item which brings them: server mode (``Session(server=...)``)
+and ``explain()`` with the orchestration and planner items; ``fit``,
+``logregr`` with the iterative executor; ``stream_scan`` with
+``run_stream``; ``joined_grouped_scan`` and ``materialize`` with the
+orchestration item; ``naive_bayes`` with the remaining methods.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+from .plan import GroupedScanAgg, ScanAgg, plan
+from .table import Table
+
+_UNSET = object()
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(
+        f"Session.{what} is not ported to repro_torch yet (ROADMAP Queue 1 "
+        f"item {item})")
+
+
+class Handle:
+    """Deferred result of one session statement."""
+
+    def __init__(self, label: str):
+        self.label = label
+        self._value: Any = _UNSET
+        self._failed = False
+
+    def done(self) -> bool:
+        return self._value is not _UNSET
+
+    def result(self) -> Any:
+        if self._value is _UNSET:
+            if self._failed:
+                raise RuntimeError(
+                    f"statement {self.label!r} was in a batch whose "
+                    "Session.run() raised; the batch was discarded, "
+                    "re-issue the statement")
+            raise RuntimeError(
+                f"statement {self.label!r} has not executed yet; call "
+                "Session.run() first")
+        return self._value
+
+
+class Session:
+    """Batches logical statements and runs them through the planner."""
+
+    def __init__(self, server=None):
+        if server is not None:
+            _not_ported("__init__(server=...)", "8 (core/server.py)")
+        self._nodes: list = []
+        self._posts: list = []
+        self._handles: list = []
+        self._derived: list = []
+        self.last_plan = None
+
+    # -- generic statements ----------------------------------------------
+    def statement(self, node, *, post: Callable | None = None) -> Handle:
+        """Enqueue a prebuilt logical plan node; ``post`` (optional)
+        shapes the engine's result into the handle's value."""
+        if node.label is None:
+            node.label = f"s{len(self._handles)}"
+        h = Handle(node.label)
+        self._nodes.append(node)
+        self._posts.append(post)
+        self._handles.append(h)
+        return h
+
+    def scan(self, agg, table: Table, *, columns=None, mask=None,
+             block_size=None, engine: str = "auto",
+             label: str | None = None, post=None) -> Handle:
+        return self.statement(
+            ScanAgg(agg, table, columns=columns, mask=mask,
+                    block_size=block_size, engine=engine, label=label),
+            post=post)
+
+    def grouped_scan(self, agg, table, group_col=None, num_groups=None, *,
+                     columns=None, mask=None, block_size=None,
+                     method: str = "auto", label=None, post=None) -> Handle:
+        return self.statement(
+            GroupedScanAgg(agg, table, group_col, num_groups,
+                           columns=columns, mask=mask,
+                           block_size=block_size, method=method,
+                           label=label), post=post)
+
+    def joined_grouped_scan(self, *args, **kwargs):
+        _not_ported("joined_grouped_scan", "8 (core/join.py)")
+
+    def fit(self, *args, **kwargs):
+        _not_ported("fit", "7 (core/iterative.py)")
+
+    def stream_scan(self, *args, **kwargs):
+        _not_ported("stream_scan", "3 (run_stream, StreamAgg)")
+
+    def materialize(self, *args, **kwargs):
+        _not_ported("materialize", "8 (core/materialize.py)")
+
+    def _derive(self, parts: list, combine: Callable) -> Handle:
+        h = Handle(f"d{len(self._derived)}")
+        self._derived.append((h, parts, combine))
+        return h
+
+    # -- method sugar (lazy imports: methods build on core) ----------------
+    def profile(self, table: Table, *, distinct_counts: bool = False,
+                block_size=None) -> Handle:
+        """Every statistic of ``profile`` as a statement of its own; the
+        planner fuses them into one scan."""
+        from ..methods.profile import _shape_results, profile_aggregates
+        aggs = profile_aggregates(table, distinct_counts=distinct_counts)
+        parts = [self.scan(agg, table, block_size=block_size,
+                           label=f"profile:{name.strip('_')}")
+                 for name, agg in aggs.items()]
+        names = list(aggs)
+        return self._derive(
+            parts, lambda vals: _shape_results(dict(zip(names, vals))))
+
+    def linregr(self, table: Table, *, x_col: str = "x", y_col: str = "y",
+                block_size=None, use_kernel: bool | str = False) -> Handle:
+        from ..methods.linregr import LinregrAggregate
+        return self.scan(LinregrAggregate(use_kernel), table,
+                         columns={"x": x_col, "y": y_col},
+                         block_size=block_size, label="linregr")
+
+    def naive_bayes(self, *args, **kwargs):
+        _not_ported("naive_bayes", "9 (methods/naive_bayes.py)")
+
+    def countmin_sketch(self, table: Table, *, depth: int = 4,
+                        width: int = 1024, item_col: str = "item",
+                        block_size=None) -> Handle:
+        from ..methods.sketches import CountMinAggregate
+        return self.scan(
+            CountMinAggregate(depth, width, item_col=item_col), table,
+            columns=(item_col,), block_size=block_size, label="countmin")
+
+    def fm_distinct_count(self, table: Table, *, num_hashes: int = 8,
+                          bits: int = 32, item_col: str = "item",
+                          block_size=None) -> Handle:
+        from ..methods.sketches import FMAggregate
+        return self.scan(FMAggregate(num_hashes, bits, item_col=item_col),
+                         table, columns=(item_col,), block_size=block_size,
+                         label="fm_distinct")
+
+    def logregr(self, *args, **kwargs):
+        _not_ported("logregr", "7 (core/iterative.py, methods/logregr.py)")
+
+    # -- planning & execution ----------------------------------------------
+    def explain(self) -> str:
+        _not_ported("explain", "6 (plan.explain and its goldens)")
+
+    def run(self) -> list:
+        """Plan and execute the pending batch; resolves every handle and
+        returns the per-statement results in statement order.  The batch
+        is consumed whether or not execution succeeds: a failed batch is
+        discarded (its handles say so), never re-planned with the next
+        one.  An empty batch returns ``[]``."""
+        if not self._nodes:
+            self._derived = []
+            return []
+        try:
+            pl = plan(self._nodes)
+            self.last_plan = pl
+            results = pl.execute()
+            for h, post, res in zip(self._handles, self._posts, results):
+                h._value = post(res) if post is not None else res
+            for h, parts, combine in self._derived:
+                h._value = combine([p.result() for p in parts])
+            return [h.result() for h in self._handles]
+        finally:
+            for h in self._handles + [d for d, _, _ in self._derived]:
+                if not h.done():
+                    h._failed = True
+            self._nodes, self._posts, self._handles = [], [], []
+            self._derived = []

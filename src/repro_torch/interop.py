@@ -4,8 +4,13 @@ port, as numpy arrays.
 A fold state made by one package can be merged with a fold of further
 rows made by the other: both hold OLS states as the same dict of
 ``xtx``, ``xty``, ``y_sum``, ``y_sq`` and ``n``, solo or stacked with a
-leading group axis ``(G, ...)``.  Nothing here imports the reference
-package: the caller converts its arrays with ``numpy.asarray``.
+leading group axis ``(G, ...)``.  Sketch states carry across the same
+way, as int32 arrays: a Count-Min ``(depth, width)`` counter matrix or
+an FM ``(num_hashes, bits)`` bitmap, or their ``(G, ...)`` stacks,
+through the same :func:`state_from_numpy` and :func:`state_to_numpy`;
+they merge with the aggregate's own combinator (sum, max) and stay
+exact.  Nothing here imports the reference package: the caller converts
+its arrays with ``numpy.asarray``.
 """
 
 from __future__ import annotations

@@ -11,6 +11,11 @@ them with ``nvcc`` at first use and loads them with ``ctypes``.  Call
 sites go through ``registry.dispatch``.
 
 Kernels:
-  xtx             — X^T X and X^T y of a row block (the OLS transition)
-  segment_linregr — the whole grouped OLS fold over group-aligned blocks
+  xtx              — X^T X and X^T y of a row block (the OLS transition)
+  segment_linregr  — the whole grouped OLS fold over group-aligned blocks
+  countmin         — the Count-Min counts of a column (its transition)
+  segment_countmin — the whole grouped Count-Min fold
+  segment_fm       — the whole grouped Flajolet-Martin fold
+The sketches share one hash family: ``sketch_hash.py`` beside
+``csrc/sketch_hash.cuh``.
 """

@@ -35,6 +35,12 @@ _SIGNATURES = {
     "madlib_segment_linregr": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                ctypes.c_int, _P],
+    "madlib_countmin": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_int, _P],
+    "madlib_segment_countmin": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+    "madlib_segment_fm": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
 }
 
 _LOCK = threading.Lock()

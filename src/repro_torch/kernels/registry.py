@@ -33,6 +33,7 @@ import torch
 
 from ..core.trace import record
 from ..device import runs_on_card
+from .countmin import ops as _cm_ops, ref as _cm_ref
 from .segment_fold import ops as _sf_ops, ref as _sf_ref
 from .xtx import ops as _xtx_ops, ref as _xtx_ref
 
@@ -78,6 +79,13 @@ _REGISTRY: dict[str, KernelEntry] = {
     "segment_linregr": KernelEntry(
         "segment_linregr", _sf_ref.segment_linregr_ref,
         _sf_ops.segment_linregr),
+    "countmin": KernelEntry("countmin", _cm_ref.countmin_block_ref,
+                            _cm_ops.countmin_block),
+    "segment_countmin": KernelEntry(
+        "segment_countmin", _sf_ref.segment_countmin_ref,
+        _sf_ops.segment_countmin),
+    "segment_fm": KernelEntry("segment_fm", _sf_ref.segment_fm_ref,
+                              _sf_ops.segment_fm),
 }
 
 

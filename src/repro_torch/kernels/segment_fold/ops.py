@@ -1,12 +1,12 @@
-"""PyTorch wrapper of the CUDA segment_linregr kernel
-(``csrc/segment_linregr.cu``).
+"""PyTorch wrappers of the CUDA segment-fold kernels
+(``csrc/segment_linregr.cu``, ``csrc/segment_sketch.cu``).
 
-It takes the group-aligned layout as ``segment_fold`` holds it:
-``(N2, K)`` permuted and padded x, ``(N2,)`` y and validity, ``(nb,)``
-int32 block gids.  On CUDA tensors it checks them and launches the
-kernel, or raises; on CPU tensors it runs the plain version in
-``ref.py``.  ``segment_linregr_launches`` counts the kernel's launches.
-Count-Min and Flajolet-Martin segment kernels are not ported yet.
+They take the group-aligned layout as ``segment_fold`` holds it:
+``(N2, ...)`` permuted and padded columns, ``(N2,)`` validity, ``(nb,)``
+int32 block gids.  On CUDA tensors they check them and launch the
+kernel, or raise; on CPU tensors they run the plain versions in
+``ref.py``.  ``segment_linregr_launches``, ``segment_countmin_launches``
+and ``segment_fm_launches`` count the kernels' launches.
 """
 
 from __future__ import annotations
@@ -15,10 +15,15 @@ import torch
 
 from ...device import runs_on_card
 from .. import _build
-from .ref import segment_linregr_ref
+from ..countmin.ops import check_items, item_words
+from ..sketch_hash import _check_rows
+from .ref import segment_countmin_ref, segment_fm_ref, segment_linregr_ref
 
 # launches of the CUDA kernel pair (per-block Gram + per-group reduce)
 segment_linregr_launches = 0
+# launches of the sketch kernels (one each per call)
+segment_countmin_launches = 0
+segment_fm_launches = 0
 
 _GRID_YZ_MAX = 65535
 _TILE = 64
@@ -85,4 +90,77 @@ def segment_linregr(x, y, valid, bgids, *, num_groups: int):
         out["n"].data_ptr(), nb, bs, k, num_groups, stream)
     _build.check("segment_linregr", err)
     segment_linregr_launches += 1
+    return out
+
+
+def _check_sketch(what: str, items, valid, bgids, num_groups: int) -> int:
+    """Checks shared by the sketch kernels; returns the block size."""
+    check_items(items, valid, what)
+    if bgids.dim() != 1 or bgids.dtype != torch.int32:
+        raise TypeError(f"{what}: want (nb,) int32 bgids, got "
+                        f"{tuple(bgids.shape)} {bgids.dtype}")
+    if bgids.device != items.device:
+        raise ValueError(f"{what}: inputs on different devices")
+    if not 0 <= num_groups < 2 ** 31:
+        raise ValueError(f"{what}: num_groups {num_groups} out of range")
+    return _layout(items.shape[0], bgids.shape[0])
+
+
+def segment_countmin(items, valid, bgids, *, depth: int, width: int,
+                     num_groups: int):
+    """(N2,) items, (N2,) bool valid, (nb,) bgids -> (G, depth, width)
+    int32 Count-Min stack (fold-from-zero)."""
+    global segment_countmin_launches
+    bs = _check_sketch("segment_countmin", items, valid, bgids, num_groups)
+    _check_rows(depth, "segment_countmin: depth")
+    if width < 1 or num_groups * depth * width >= 2 ** 31:
+        raise ValueError(f"segment_countmin: (G, depth, width) = "
+                         f"({num_groups}, {depth}, {width}) is out of range")
+    if not runs_on_card(items, "segment_countmin"):
+        return segment_countmin_ref(items, valid, bgids, depth=depth,
+                                    width=width, num_groups=num_groups)
+    nb = bgids.shape[0]
+    if max(nb, bs) >= 2 ** 31:
+        raise ValueError("segment_countmin: too many blocks or rows per "
+                         "block for the kernel's int arguments")
+    out = torch.empty((num_groups, depth, width), dtype=torch.int32,
+                      device=items.device)
+    words = item_words(items)
+    valid, bgids = valid.contiguous(), bgids.contiguous()
+    stream = torch.cuda.current_stream(items.device).cuda_stream
+    err = _build.lib().madlib_segment_countmin(
+        words.data_ptr(), valid.data_ptr(), bgids.data_ptr(), out.data_ptr(),
+        nb, bs, depth, width, num_groups, stream)
+    _build.check("segment_countmin", err)
+    segment_countmin_launches += 1
+    return out
+
+
+def segment_fm(items, valid, bgids, *, num_hashes: int, bits: int,
+               num_groups: int):
+    """(N2,) items, (N2,) bool valid, (nb,) bgids -> (G, H, bits) int32
+    {0,1} Flajolet-Martin stack (fold-from-zero)."""
+    global segment_fm_launches
+    bs = _check_sketch("segment_fm", items, valid, bgids, num_groups)
+    _check_rows(num_hashes, "segment_fm: num_hashes")
+    if bits < 1 or num_groups * num_hashes * bits >= 2 ** 31:
+        raise ValueError(f"segment_fm: (G, H, bits) = ({num_groups}, "
+                         f"{num_hashes}, {bits}) is out of range")
+    if not runs_on_card(items, "segment_fm"):
+        return segment_fm_ref(items, valid, bgids, num_hashes=num_hashes,
+                              bits=bits, num_groups=num_groups)
+    nb = bgids.shape[0]
+    if max(nb, bs) >= 2 ** 31:
+        raise ValueError("segment_fm: too many blocks or rows per block "
+                         "for the kernel's int arguments")
+    out = torch.empty((num_groups, num_hashes, bits), dtype=torch.int32,
+                      device=items.device)
+    words = item_words(items, saturate_floats=True)
+    valid, bgids = valid.contiguous(), bgids.contiguous()
+    stream = torch.cuda.current_stream(items.device).cuda_stream
+    err = _build.lib().madlib_segment_fm(
+        words.data_ptr(), valid.data_ptr(), bgids.data_ptr(), out.data_ptr(),
+        nb, bs, num_hashes, bits, num_groups, stream)
+    _build.check("segment_fm", err)
+    segment_fm_launches += 1
     return out

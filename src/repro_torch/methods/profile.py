@@ -1,0 +1,59 @@
+"""Data profiling (paper Table 1): MADlib's ``profile`` gives one summary
+row per column of an arbitrary table, in a SINGLE table scan.
+
+The port's counterpart of the reference ``methods/profile.py``.
+``profile`` is a planned batch: one ``ScanAgg`` statement per part (the
+templated :class:`ProfileAggregate`, plus one FM distinct-count sketch
+per 1-D integer column when asked), issued into a
+:class:`~repro_torch.core.session.Session`, whose planner fuses them into
+one data pass.  ``profile_stream`` waits for ``StreamAgg`` (ROADMAP
+Queue 1 item 3).
+"""
+
+from __future__ import annotations
+
+from ..core.session import Session
+from ..core.table import Table
+from ..core.templates import ProfileAggregate, is_numeric
+from .sketches import FMAggregate
+
+_STATS = "__stats__"
+_FM = "__fm__"
+
+
+def distinct_count_columns(table: Table) -> tuple[str, ...]:
+    """Columns eligible for FM distinct-count enrichment (1-D integer)."""
+    return tuple(
+        name for name, col in sorted(table.columns.items())
+        if is_numeric(col.dtype) and not col.dtype.is_floating_point
+        and col.dim() == 1)
+
+
+def profile_aggregates(table: Table, *, distinct_counts: bool = False
+                       ) -> dict:
+    """The aggregates a profile run plans as one batch."""
+    aggs = {_STATS: ProfileAggregate()}
+    if distinct_counts:
+        for name in distinct_count_columns(table):
+            aggs[_FM + name] = FMAggregate(item_col=name)
+    return aggs
+
+
+def _shape_results(results: dict) -> dict:
+    out = {name: dict(stats) for name, stats in results[_STATS].items()}
+    for key, est in results.items():
+        if key.startswith(_FM):
+            out[key[len(_FM):]]["approx_distinct"] = est
+    return out
+
+
+def profile(table: Table, *, distinct_counts: bool = False,
+            block_size: int | None = None) -> dict:
+    """Univariate stats for every numeric column (plus approximate
+    distinct counts of the integer columns when asked), in ONE data pass
+    through the planner."""
+    sess = Session()
+    handle = sess.profile(table, distinct_counts=distinct_counts,
+                          block_size=block_size)
+    sess.run()
+    return handle.result()

@@ -9,18 +9,24 @@ machine that has only PyTorch:
 
 Inputs are dyadic draws (every partial sum exact in f32), so kernel and
 plain version agree bit for bit whatever their summation order.  The
-end-to-end checks at the main path's size are in ``chip_smoke.py``.
+sketch kernels count in integers and agree bit for bit on any items.
+The end-to-end checks at the main path's size are in ``chip_smoke.py``.
 """
 
 import pytest
 import torch
 
-from repro_torch.core import trace_execution
+from repro_torch.core import Session, run_grouped, trace_execution
+from repro_torch.core.plan import ScanAgg, execute
 from repro_torch.core.table import Table
 from repro_torch.kernels import registry
+from repro_torch.kernels.countmin import ops as cm_ops, ref as cm_ref
 from repro_torch.kernels.segment_fold import ops as sf_ops, ref as sf_ref
 from repro_torch.kernels.xtx import ops as xtx_ops, ref as xtx_ref
 from repro_torch.methods.linregr import linregr, linregr_grouped
+from repro_torch.methods.sketches import (
+    CountMinAggregate, FMAggregate, countmin_sketch, fm_distinct_count,
+)
 from strategies import Draw, group_layout
 
 pytestmark = pytest.mark.cuda
@@ -101,3 +107,129 @@ def test_forced_cuda_and_auto_agree_on_card(cuda_device):
     assert [e.engine for e in tr.kernels] == ["cuda", "cuda", "ref"]
     assert all(torch.equal(p, q) and torch.equal(p, r)
                for p, q, r in zip(a, b, c))
+
+
+def _items(draw, n):
+    items = draw.ints((n,), -2 ** 31, 2 ** 31 - 1)
+    items[: n // 2] %= 101                     # hot keys
+    return items
+
+
+# (depth, width) up to 8 x 16384: 512 KB of counters, the global path
+@pytest.mark.parametrize("n,depth,width", [(1, 1, 1), (4096, 4, 1024),
+                                           (100_000, 8, 4096),
+                                           (30_000, 8, 16384),
+                                           (5000, 3, 1000)])
+def test_countmin_kernel_matches_plain(cuda_device, n, depth, width):
+    draw = Draw(n + depth)
+    items = torch.from_numpy(_items(draw, n)).to(cuda_device)
+    mask = torch.from_numpy(draw.bools((n,), p=0.8)).to(cuda_device)
+    before = cm_ops.countmin_launches
+    got = cm_ops.countmin_block(items, mask, depth, width)
+    want = cm_ref.countmin_block_ref(items, mask, depth, width)
+    torch.cuda.synchronize()
+    assert cm_ops.countmin_launches == before + 1
+    assert torch.equal(got, want)
+    assert int(got.sum()) == depth * int(mask.sum())
+
+
+def _sketch_layout(cuda_device, pattern, pad_to, n=20_000, G=6, bs=64):
+    draw = Draw(sum(map(ord, pattern)) + 1)
+    gids, _ = group_layout(draw, n, G, pattern)
+    t = Table.from_columns({"item": _items(draw, n), "g": gids},
+                           device=cuda_device)
+    view = t.group_by("g", G)
+    base = view.permute(torch.from_numpy(draw.bools((n,), p=0.9)))
+    cols, valid, bgids = view.aligned_blocks(bs, base, pad_blocks_to=pad_to)
+    return cols["item"], valid, bgids
+
+
+@pytest.mark.parametrize("pattern,pad_to", [("uniform", None),
+                                            ("skewed", 7), ("empty", 3),
+                                            ("singleton", None)])
+def test_segment_sketch_kernels_match_plain(cuda_device, pattern, pad_to):
+    items, valid, bgids = _sketch_layout(cuda_device, pattern, pad_to)
+    G = 6
+    cases = [(sf_ops.segment_countmin, sf_ref.segment_countmin_ref,
+              "segment_countmin_launches", {"depth": 4, "width": 1024}),
+             (sf_ops.segment_countmin, sf_ref.segment_countmin_ref,
+              "segment_countmin_launches", {"depth": 8, "width": 16384}),
+             (sf_ops.segment_countmin, sf_ref.segment_countmin_ref,
+              "segment_countmin_launches", {"depth": 3, "width": 1000})]
+    cases += [(sf_ops.segment_fm, sf_ref.segment_fm_ref,
+               "segment_fm_launches", {"num_hashes": h, "bits": b})
+              for h, b in ((8, 16), (8, 32), (5, 40), (1, 1))]
+    for kern, plain, counter, kw in cases:
+        before = getattr(sf_ops, counter)
+        got = kern(items, valid, bgids, num_groups=G, **kw)
+        want = plain(items, valid, bgids, num_groups=G, **kw)
+        torch.cuda.synchronize()
+        assert getattr(sf_ops, counter) == before + 1
+        assert torch.equal(got, want), (kern.__name__, kw)
+    if pattern == "empty":  # ids [4, 6) never occur
+        assert int(got[4:].abs().sum()) == 0
+
+
+def test_session_batch_goes_through_countmin_and_xtx(cuda_device):
+    draw = Draw(17)
+    n = 30_000
+    cols = {"x": draw.dyadic((n, 6)), "y": draw.dyadic((n,)),
+            "g": draw.ints((n,), 0, 7), "item": _items(draw, n)}
+    t = Table.from_columns(cols, device=cuda_device)
+    cpu = Table.from_columns(cols, device="cpu")
+    xtx_ops.xtx_launches = cm_ops.countmin_launches = 0
+    sess = Session()
+    stats = sess.profile(t, distinct_counts=True)
+    ols = sess.linregr(t, use_kernel=True)
+    cm = sess.scan(CountMinAggregate(use_kernel=True), t, columns=("item",),
+                   label="countmin")
+    fm = sess.fm_distinct_count(t)
+    with trace_execution() as tr:
+        sess.run()
+    assert len(tr.scans) == 1
+    assert (xtx_ops.xtx_launches, cm_ops.countmin_launches) == (1, 1)
+    assert sorted((e.detail["name"], e.engine) for e in tr.kernels) == [
+        ("countmin", "cuda"), ("xtx", "cuda")]
+    assert torch.equal(cm.result().cpu(), countmin_sketch(cpu))
+    # FM estimates go through a float pow that the card and the CPU may
+    # round 1 ulp apart; the states themselves are integers
+    torch.testing.assert_close(fm.result().cpu(), fm_distinct_count(cpu),
+                               rtol=1e-6, atol=0)
+    torch.testing.assert_close(ols.result().coef.cpu(),
+                               linregr(cpu).coef, rtol=1e-4, atol=1e-4)
+    assert float(stats.result()["item"]["count"]) == n
+
+
+def test_grouped_sketches_go_through_the_segment_kernels(cuda_device):
+    draw = Draw(19)
+    n = 50_000
+    gids, _ = group_layout(draw, n, 8, "skewed")
+    t = Table.from_columns({"item": _items(draw, n), "g": gids},
+                           device=cuda_device)
+    for agg, counter in ((CountMinAggregate, "segment_countmin_launches"),
+                         (FMAggregate, "segment_fm_launches")):
+        setattr(sf_ops, counter, 0)
+        with trace_execution() as tr:
+            got = run_grouped(agg(use_kernel=True), t, "g", 8,
+                              finalize=False)
+        assert getattr(sf_ops, counter) == 1
+        assert [e.engine for e in tr.kernels] == ["cuda"]
+        want = run_grouped(agg(use_kernel="ref"), t, "g", 8, finalize=False)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("block_size,launches", [(None, 1), (4096, 5)])
+def test_countmin_launches_show_the_blocking(cuda_device, block_size,
+                                             launches):
+    """No block size: one countmin call over every row; a block size: one
+    call per block (20,000 rows in blocks of 4,096 make 5)."""
+    draw = Draw(23)
+    cols = {"item": _items(draw, 20_000)}
+    t = Table.from_columns(cols, device=cuda_device)
+    cm_ops.countmin_launches = 0
+    got = execute(ScanAgg(CountMinAggregate(use_kernel=True), t,
+                          block_size=block_size))
+    assert cm_ops.countmin_launches == launches
+    want = countmin_sketch(Table.from_columns(cols, device="cpu"),
+                           block_size=block_size)
+    assert torch.equal(got.cpu(), want)

@@ -8,6 +8,9 @@ dispatch registry.
   the largest entry: the two libraries sum in different orders).
 * The wrappers on CPU tensors run the plain version and count no launch;
   they reject wrong dtypes, shapes and layouts.
+* The sketch kernels' plain versions against the jnp oracles, bit for
+  bit on any data (integer states), on real group-aligned layouts with
+  sentinel blocks and empty groups.
 * The registry: ``auto`` on CPU runs ``ref`` and records it, a forced
   ``cuda`` on CPU raises, an unknown impl or kernel raises.
 
@@ -20,10 +23,12 @@ import pytest
 import torch
 
 from repro.core.table import Table as JTable
+from repro.kernels.countmin import ref as jcm_ref
 from repro.kernels.segment_fold import ref as jsf_ref
 from repro.kernels.xtx import ref as jxtx_ref
 from repro_torch.core import trace_execution
 from repro_torch.kernels import registry
+from repro_torch.kernels.countmin import ops as cm_ops, ref as cm_ref
 from repro_torch.kernels.segment_fold import ops as sf_ops, ref as sf_ref
 from repro_torch.kernels.xtx import ops as xtx_ops, ref as xtx_ref
 from strategies import Draw, group_layout
@@ -187,10 +192,154 @@ def test_registry_rejects_unknown_impl_and_kernel():
     with pytest.raises(ValueError, match="impl must be one of"):
         registry.dispatch("xtx", x, y, impl="pallas")
     with pytest.raises(KeyError):
-        registry.get("countmin")
-    assert registry.available() == ("segment_linregr", "xtx")
+        registry.get("kmeans_assign")
+    assert registry.available() == ("countmin", "segment_countmin",
+                                    "segment_fm", "segment_linregr", "xtx")
     assert registry.IMPLS == ("auto", "ref", "cuda")
     assert [registry.resolve_impl(u) for u in (False, True, "ref", "cuda")] \
         == [None, "auto", "ref", "cuda"]
     with pytest.raises(ValueError):
         registry.resolve_impl("pallas")
+
+
+# ---------------------------------------------------------------------------
+# Sketch kernels: plain versions against the jnp oracles, bit for bit.
+# ---------------------------------------------------------------------------
+
+def _sketch_items(draw: Draw, n: int) -> np.ndarray:
+    items = draw.ints((n,), -2 ** 31, 2 ** 31 - 1)
+    items[: n // 2] %= 97                      # repeated keys
+    edges = np.array([0, -1, 2 ** 31 - 1, -2 ** 31], np.int32)
+    items[:4] = edges[:n]
+    return items
+
+
+@pytest.mark.parametrize("n,depth,width", [(1, 1, 1), (300, 4, 1024),
+                                           (1000, 8, 4096), (257, 3, 7)])
+def test_countmin_ref_matches_jax(n, depth, width):
+    draw = Draw(n + depth + width)
+    items, mask = _sketch_items(draw, n), draw.bools((n,), p=0.7)
+    got = cm_ref.countmin_block_ref(torch.from_numpy(items),
+                                    torch.from_numpy(mask), depth, width)
+    want = jcm_ref.countmin_block_ref(items, mask, depth, width)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got.dtype == torch.int32
+
+
+def _sketch_layout(pattern: str, pad_to, n: int = 403, G: int = 6,
+                   bs: int = 16):
+    """A real group-aligned layout of an item column, from the JAX
+    package's GroupedView, with a ragged base mask."""
+    draw = Draw(sum(map(ord, pattern)) + 3)
+    gids, _ = group_layout(draw, n, G, pattern)
+    view = JTable.from_columns({"item": _sketch_items(draw, n),
+                                "g": gids}).group_by("g", G)
+    base = view.permute(draw.bools((n,), p=0.8))
+    cols, valid, bgids = view.aligned_blocks(bs, base, pad_blocks_to=pad_to)
+    return tuple(np.array(a) for a in (cols["item"], valid, bgids))
+
+
+LAYOUTS = [("uniform", None), ("skewed", 5), ("empty", 3),
+           ("singleton", None), ("one_group", 4), ("non_contiguous", 2)]
+
+
+@pytest.mark.parametrize("pattern,pad_to", LAYOUTS)
+def test_segment_countmin_ref_matches_jax(pattern, pad_to):
+    items, valid, bgids = _sketch_layout(pattern, pad_to)
+    got = sf_ref.segment_countmin_ref(
+        torch.from_numpy(items), torch.from_numpy(valid),
+        torch.from_numpy(bgids), depth=4, width=128, num_groups=6)
+    want = jsf_ref.segment_countmin_ref(items, valid, bgids, depth=4,
+                                        width=128, num_groups=6)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("bits", [16, 32, 40])
+@pytest.mark.parametrize("pattern,pad_to", LAYOUTS)
+def test_segment_fm_ref_matches_jax(pattern, pad_to, bits):
+    items, valid, bgids = _sketch_layout(pattern, pad_to)
+    got = sf_ref.segment_fm_ref(
+        torch.from_numpy(items), torch.from_numpy(valid),
+        torch.from_numpy(bgids), num_hashes=8, bits=bits, num_groups=6)
+    want = jsf_ref.segment_fm_ref(items, valid, bgids, num_hashes=8,
+                                  bits=bits, num_groups=6)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_sketch_wrappers_on_cpu_run_the_plain_version_and_count_nothing():
+    items, valid, bgids = (torch.from_numpy(a)
+                           for a in _sketch_layout("skewed", 5))
+    before = (cm_ops.countmin_launches, sf_ops.segment_countmin_launches,
+              sf_ops.segment_fm_launches)
+    assert torch.equal(cm_ops.countmin_block(items, valid, 4, 64),
+                       cm_ref.countmin_block_ref(items, valid, 4, 64))
+    kw = {"num_groups": 6}
+    assert torch.equal(
+        sf_ops.segment_countmin(items, valid, bgids, depth=2, width=9, **kw),
+        sf_ref.segment_countmin_ref(items, valid, bgids, depth=2, width=9,
+                                    **kw))
+    assert torch.equal(
+        sf_ops.segment_fm(items, valid, bgids, num_hashes=3, bits=12, **kw),
+        sf_ref.segment_fm_ref(items, valid, bgids, num_hashes=3, bits=12,
+                              **kw))
+    assert (cm_ops.countmin_launches, sf_ops.segment_countmin_launches,
+            sf_ops.segment_fm_launches) == before
+
+
+@pytest.mark.parametrize("case", ["mask_dtype", "shape", "depth", "width",
+                                  "gid_dtype", "layout", "bits"])
+def test_sketch_wrappers_reject_bad_inputs(case):
+    items = torch.arange(8, dtype=torch.int32)
+    valid = torch.ones(8, dtype=torch.bool)
+    bgids = torch.zeros(2, dtype=torch.int32)
+    seg = {"num_groups": 1}
+    if case == "mask_dtype":
+        with pytest.raises(TypeError):
+            cm_ops.countmin_block(items, valid.int(), 4, 16)
+        with pytest.raises(TypeError):
+            sf_ops.segment_fm(items, valid.int(), bgids, num_hashes=2,
+                              bits=8, **seg)
+    elif case == "shape":
+        with pytest.raises(ValueError):
+            cm_ops.countmin_block(items[:5], valid, 4, 16)
+        with pytest.raises(ValueError):
+            sf_ops.segment_countmin(items.reshape(4, 2), valid, bgids,
+                                    depth=2, width=4, **seg)
+    elif case == "depth":
+        with pytest.raises(ValueError, match="depth"):
+            cm_ops.countmin_block(items, valid, 9, 16)
+        with pytest.raises(ValueError, match="depth"):
+            sf_ops.segment_countmin(items, valid, bgids, depth=9, width=4,
+                                    **seg)
+    elif case == "width":
+        with pytest.raises(ValueError, match="width"):
+            cm_ops.countmin_block(items, valid, 4, 0)
+    elif case == "gid_dtype":
+        with pytest.raises(TypeError):
+            sf_ops.segment_countmin(items, valid, bgids.long(), depth=2,
+                                    width=4, **seg)
+    elif case == "layout":
+        with pytest.raises(ValueError, match="equal"):
+            sf_ops.segment_fm(items, valid, torch.zeros(3, dtype=torch.int32),
+                              num_hashes=2, bits=8, **seg)
+    else:
+        with pytest.raises(ValueError, match="bits"):
+            sf_ops.segment_fm(items, valid, bgids, num_hashes=2, bits=0,
+                              **seg)
+
+
+def test_sketch_kernels_forced_cuda_on_cpu_raise():
+    items = torch.arange(8, dtype=torch.int32)
+    valid = torch.ones(8, dtype=torch.bool)
+    bgids = torch.zeros(2, dtype=torch.int32)
+    for name, args, kw in (
+            ("countmin", (items, valid, 4, 16), {}),
+            ("segment_countmin", (items, valid, bgids),
+             {"depth": 4, "width": 16, "num_groups": 1}),
+            ("segment_fm", (items, valid, bgids),
+             {"num_hashes": 8, "bits": 32, "num_groups": 1})):
+        with pytest.raises(ValueError, match="only on the card"):
+            registry.dispatch(name, *args, impl="cuda", **kw)
+        with trace_execution() as t:
+            registry.dispatch(name, *args, impl="auto", **kw)
+        assert [e.engine for e in t.kernels] == ["ref"]
