@@ -26,6 +26,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
       against the plain versions;
    d. the card against the CPU port on a small input; then the grouped
       OLS statement's stages timed one by one;
+   e. k-means on a 10,000,000 x 32 blobs table (64 true centers), made on
+      the card from the seed: ``kmeans_fit`` (k = 64, k-means++) through
+      ``kmeans_assign`` against the same fit on the plain version, the
+      two-pass variant at 1,000,000 rows, ``kmeans_grouped`` (G = 64,
+      k = 8), seconds per fit and per round and the kernel's share;
+   f. logistic regression (IRLS) over the 10M x 160 ``x`` with a 0/1
+      label drawn from sigmoid(x b): ``logregr`` against the same IRLS in
+      float64 on the card, and ``logregr_grouped`` (G = 64); then the
+      fits' states on a small input against the CPU port;
 5. timing  — CUDA-event times of each kernel (and its device time from
    torch.profiler), its plain version and the library call at the main
    path's shapes, beside the bound.
@@ -46,6 +55,21 @@ ROOT = Path(__file__).resolve().parent
 SEED = 20121208
 N_MAIN, K_MAIN, G_MAIN = 10_000_000, 160, 64
 ZIPF_S, ZIPF_KEYS = 1.1, 1_000_000
+# k-means: 10M points in D = 32 around 64 true centers (coordinates
+# N(0, CENTER_SD^2), unit noise), fit with k = 64; grouped: G_MAIN groups,
+# k = 8 each; the two-pass variant on the first N_TWO_PASS rows
+D_KM, K_KM, K_KM_GROUPED, CENTER_SD = 32, 64, 8, 10.0
+N_TWO_PASS = 1_000_000
+KM_MAX_ITERS = 50
+# the convergence test of the card's fits: MADlib's kmeans default
+# min_frac_reassigned = 0.001 (stop once at most 0.1% of the rows move)
+KM_REASSIGN_TOL = 1e-3
+# Gaussian kmeans_assign: a row that the kernel assigns elsewhere than
+# the exact (float64) nearest centroid must be a near tie, its distance
+# within NEAR_TIE_RTOL of |x|^2 + max |c|^2 of the best one's
+NEAR_TIE_RTOL = 1e-5
+# IRLS in f32 against the same IRLS in float64, coefficients
+IRLS_RTOL, IRLS_ATOL = 1e-3, 1e-4
 PEAK_F32_FLOPS = 67e12     # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 # Integer instructions per SM per clock on compute capability 9.0, by the
@@ -171,6 +195,67 @@ def gauss_check(torch, what: str, got: dict, plain: dict,
     return diff
 
 
+def km_gauss_check(torch, what: str, x, c, m, got, plain) -> float:
+    """Hold the kmeans_assign kernel (``got``) and its plain version on
+    Gaussian data against a float64 computation: every row's assigned
+    centroid is the nearest or a near tie (NEAR_TIE_RTOL); ``mind`` and
+    the sums, each against float64 from its own assignment, err no more
+    than twice the plain version or GAUSS_RTOL of the largest term;
+    counts exact.  Returns max |kernel - plain| over ``mind`` where the
+    two assign alike (and over the sums when they assign every row
+    alike)."""
+    c64 = c.double()
+    cc = (c64 * c64).sum(1)
+    ak, ap = got[0].long(), plain[0].long()
+    gap = {"kernel": 0.0, "plain": 0.0}
+    mind64 = torch.empty(x.shape[0], dtype=torch.float64, device=x.device)
+    scale = 0.0
+    for r0 in range(0, x.shape[0], 1_000_000):
+        x64 = x[r0:r0 + 1_000_000].double()
+        xx = (x64 * x64).sum(1)
+        d2 = xx[:, None] - 2.0 * (x64 @ c64.T) + cc[None, :]
+        best = d2.amin(1)
+        terms = xx + cc.max()
+        scale = max(scale, float(terms.max()))
+        for name, a in (("kernel", ak), ("plain", ap)):
+            g = (d2.gather(1, a[r0:r0 + 1_000_000, None])[:, 0] - best) / terms
+            gap[name] = max(gap[name], float(g.max()))
+        mind64[r0:r0 + 1_000_000] = best.clamp(min=0.0)
+        del x64, d2
+    mind64 *= m.double()
+    require(gap["kernel"] <= NEAR_TIE_RTOL,
+            f"{what} gaussian: a row assigned {gap['kernel']:.3e} (relative)"
+            " off its nearest centroid")
+    err = {}
+    for name, out, a in (("kernel", got, ak), ("plain", plain, ap)):
+        sums64 = torch.zeros(c.shape, dtype=torch.float64, device=x.device)
+        sums64.index_add_(0, a, x.double() * m.double()[:, None])
+        cnt64 = torch.zeros(c.shape[0], dtype=torch.float64, device=x.device)
+        cnt64.index_add_(0, a, m.double())
+        require(torch.equal(out[3].double(), cnt64),
+                f"{what} gaussian: {name} counts not exact")
+        scale = max(scale, float(sums64.abs().max()))
+        err[name] = max(float((out[1].double() - mind64).abs().max()),
+                        float((out[2].double() - sums64).abs().max()))
+        del sums64
+    limit = max(2.0 * err["plain"], GAUSS_RTOL * scale)
+    require(err["kernel"] <= limit,
+            f"{what} gaussian: kernel error {err['kernel']} vs float64 "
+            f"exceeds {limit} (plain version's error {err['plain']})")
+    same = ak == ap
+    flips = int((~same).sum())
+    diff = float((got[1] - plain[1]).abs()[same].max())
+    if flips == 0:
+        diff = max(diff, float((got[2] - plain[2]).abs().max()))
+    print(f"[kernels] {what} gaussian: {flips} rows assigned apart from the "
+          f"plain version (near ties: the kernel's worst row "
+          f"{gap['kernel']:.2e}, the plain's {gap['plain']:.2e} of "
+          f"|x|^2 + max|c|^2 from the nearest); max error vs float64 kernel "
+          f"{err['kernel']:.3e}, plain {err['plain']:.3e} (scale "
+          f"{scale:.3e}); kernel vs plain {diff:.3e}")
+    return diff
+
+
 def bitwise(torch, what: str, got, want) -> float:
     """Require ``got`` equal to ``want`` bit for bit; returns
     max |got - want| (0.0 when they are)."""
@@ -183,7 +268,7 @@ def bitwise(torch, what: str, got, want) -> float:
 
 
 class Counters:
-    """The five wrappers' launch counters: zeroed just before each
+    """The wrappers' launch counters: zeroed just before each
     main-path run, read just after it, and summed over those runs only
     (launches made to check or time a kernel are never read)."""
 
@@ -248,6 +333,7 @@ def timed(torch, fn):
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -262,18 +348,27 @@ def main() -> int:
         trace_execution
     from repro_torch.core.plan import ScanAgg, execute
     from repro_torch.core.aggregates import (
-        probe_segment_ops, segment_block_size, segment_fold)
+        probe_segment_ops, run_local, segment_block_size, segment_fold)
+    from repro_torch.core.iterative import fit_grouped
     from repro_torch.core.table import Table, synthetic_regression_table
     from repro_torch.kernels import _build
     from repro_torch.kernels.countmin import ops as cm_ops
     from repro_torch.kernels.countmin.ref import countmin_block_ref
+    from repro_torch.kernels.kmeans_assign import ops as km_ops
+    from repro_torch.kernels.kmeans_assign.ref import assign_and_reduce_ref
     from repro_torch.kernels.segment_fold import ops as sf_ops
     from repro_torch.kernels.segment_fold.ref import (
         segment_countmin_ref, segment_fm_ref, segment_linregr_ref)
     from repro_torch.kernels.xtx import ops as xtx_ops
     from repro_torch.kernels.xtx.ref import xtx_xty_ref
+    from repro_torch.interop import state_to_numpy
+    from repro_torch.methods.kmeans import (
+        KMeansAggregate, KMeansTask, kmeans_fit, kmeans_grouped,
+        kmeans_pp_seed)
     from repro_torch.methods.linregr import (
         LinregrAggregate, linregr, linregr_grouped)
+    from repro_torch.methods.logregr import (
+        IRLSAggregate, logregr, logregr_grouped)
     from repro_torch.methods.profile import profile
     from repro_torch.methods.sketches import (
         CountMinAggregate, FMAggregate, countmin_query,
@@ -287,7 +382,7 @@ def main() -> int:
     gen.manual_seed(SEED)
     counters = Counters({"xtx": xtx_ops, "segment_linregr": sf_ops,
                          "countmin": cm_ops, "segment_countmin": sf_ops,
-                         "segment_fm": sf_ops})
+                         "segment_fm": sf_ops, "kmeans_assign": km_ops})
 
     # 1. device -------------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -438,6 +533,59 @@ def main() -> int:
               f"{bgids.shape[0]} blocks, G={G_MAIN} with 8 empty groups and "
               "5 sentinel blocks: bitwise")
     del seg_items, valid, bgids, got, want
+    torch.cuda.empty_cache()
+
+    # kmeans_assign: dyadic draws bitwise at every shape (rows and
+    # centroids multiples of 1/8 around N(0, 1) and N(0, 4); at 10M rows
+    # values in {-1/8, 0, 1/8}, so that every coordinate sum stays exact
+    # in f32, and most rows tie: argmin's lowest-index rule decides
+    # them); Gaussian draws held by km_gauss_check.  Masks at p = 0.9.
+    errs["kmeans_assign"] = 0.0
+
+    def dyadic_normal(shape, scale):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                * 8).round() / 8
+
+    for n, d, k, case in ((256, 2, 4, ""), (777, 17, 9, ""),
+                          (1024, 64, 32, ""), (100, 3, 5, ""),
+                          (5000, 8, 6, "duplicate centroids"),
+                          (3000, 5, 1, "K = 1"),
+                          (1_000_000, 256, 1024, "envelope edge"),
+                          (N_MAIN, D_KM, K_KM, "main path")):
+        m = (torch.rand((n,), generator=gen, device=dev) < 0.9).float()
+        if n > 2_000_000:
+            x, c = dyadic(torch, gen, (n, d), dev), 2 * dyadic(
+                torch, gen, (k, d), dev)
+        else:
+            x, c = dyadic_normal((n, d), 1.0), dyadic_normal((k, d), 2.0)
+        if case == "duplicate centroids":  # at the origin: many rows tie
+            c[0] = 0.0
+            c[1] = c[0]
+        got = km_ops.assign_and_reduce(x, c, m)
+        want = assign_and_reduce_ref(x, c, m)
+        torch.cuda.synchronize()
+        require(got[0].dtype == torch.int32, "kmeans_assign: assign dtype")
+        errs["kmeans_assign"] = max(
+            [errs["kmeans_assign"],
+             bitwise(torch, f"kmeans_assign ({n}, {d}, {k}) assign",
+                     got[0].long(), want[0])]
+            + [bitwise(torch, f"kmeans_assign ({n}, {d}, {k}) {q}", a, b)
+               for q, a, b in zip(("mind", "sums", "counts"), got[1:],
+                                  want[1:])])
+        if case == "duplicate centroids":
+            require(not bool((got[0] == 1).any())
+                    and bool((got[0] == 0).any()),
+                    "kmeans_assign: a tie went to the higher index")
+        print(f"[kernels] kmeans_assign ({n}, {d}, {k}) {case} dyadic: "
+              "bitwise")
+        if case in ("", "main path"):
+            x = torch.randn((n, d), generator=gen, device=dev)
+            c = 2.0 * torch.randn((k, d), generator=gen, device=dev)
+            got = km_ops.assign_and_reduce(x, c, m)
+            want = assign_and_reduce_ref(x, c, m)
+            errs["kmeans_assign"] = max(errs["kmeans_assign"], km_gauss_check(
+                torch, f"kmeans_assign ({n}, {d}, {k})", x, c, m, got, want))
+        del x, c, m, got, want
     torch.cuda.empty_cache()
 
     # 4. main path ----------------------------------------------------------
@@ -627,8 +775,6 @@ def main() -> int:
               f"launches {launched}, trace kernel events {engines}, sorts "
               f"{len(tr.sorts)}; fold state bitwise vs use_kernel='ref'")
         del got, want
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[main] max_memory_allocated {peak_gb:.2f} GB")
 
     # d. small input: the card's kernel path against the CPU port
     small, _ = synthetic_regression_table(SEED + 1, 4096, 7, device="cpu")
@@ -715,6 +861,233 @@ def main() -> int:
           + "; ".join(f"{k} {v:.4f} s" for k, v in member_s.items())
           + f" (sum {sum(member_s.values()):.4f} s)")
 
+    # e. k-means on a blobs table made on the card from the seed: 10M
+    # points around K_KM true centers, and the main table's groups g
+    centers = torch.randn((K_KM, D_KM), generator=gen, device=dev) * CENTER_SD
+    lab = torch.randint(0, K_KM, (N_MAIN,), generator=gen, device=dev)
+    bx = centers[lab] + torch.randn((N_MAIN, D_KM), generator=gen,
+                                    device=dev)
+    del lab
+    blobs = Table({"x": bx, "g": t["g"]})
+    seeds, s_seed = timed(torch, lambda: kmeans_pp_seed(blobs, K_KM, SEED))
+    print(f"[main] kmeans++ seeding, k = {K_KM} over {N_MAIN} x {D_KM}: "
+          f"{s_seed:.3f} s ({K_KM - 1} fused scans)")
+    km = {}
+    for name, kw in (("kernel, from k-means++", {"seed": SEED,
+                                                 "use_kernel": True}),
+                     ("kernel, repeated", {"init_centroids": seeds,
+                                           "use_kernel": True}),
+                     ("plain", {"init_centroids": seeds})):
+        counters.zero()
+        with trace_execution() as tr:
+            km[name], s = timed(torch, lambda: kmeans_fit(
+                blobs, K_KM, max_iters=KM_MAX_ITERS,
+                reassign_frac_tol=KM_REASSIGN_TOL, **kw))
+        launched = counters.read()
+        res = km[name]
+        engines = {e.engine for e in tr.kernels}
+        require(res.converged, f"kmeans_fit {name}: not converged in "
+                f"{KM_MAX_ITERS} rounds (sse trace tail "
+                f"{res.sse_trace[-4:]})")
+        want = 2 * res.n_iters if kw.get("use_kernel") else 0
+        require(launched["kmeans_assign"] == want,
+                f"kmeans_fit {name}: {launched['kmeans_assign']} "
+                f"kmeans_assign launches, want {want} (2 per round)")
+        require(engines == ({"cuda"} if kw.get("use_kernel") else set()),
+                f"kmeans_fit {name}: trace kernel engines {engines}")
+        seconds[f"kmeans_fit {name}"] = [s, s / res.n_iters]
+        print(f"[main] kmeans_fit ({name}): {s:.3f} s, {res.n_iters} rounds, "
+              f"{s / res.n_iters * 1e3:.2f} ms per round (host clock, "
+              f"synchronized); kmeans_assign launches "
+              f"{launched['kmeans_assign']}, sse {res.sse:.6e}")
+    km_kern, plain_fit = km["kernel, repeated"], km["plain"]
+    require(torch.equal(km_kern.centroids, km["kernel, from k-means++"]
+                        .centroids), "kmeans_fit: the k-means++ fit and the "
+            "fit from its seeds differ")
+    d_km = float((km_kern.centroids - plain_fit.centroids).abs().max())
+    require(torch.allclose(km_kern.centroids, plain_fit.centroids, rtol=1e-4,
+                           atol=1e-3),
+            f"kmeans_fit: kernel vs plain centroids differ by {d_km}")
+    require(abs(km_kern.n_iters - plain_fit.n_iters) <= 2,
+            f"kmeans_fit: rounds {km_kern.n_iters} (kernel) vs "
+            f"{plain_fit.n_iters} (plain)")
+    ones = torch.ones((N_MAIN,), device=dev)
+    round_ms = 2 * cuda_ms(torch, lambda: km_ops.assign_and_reduce(
+        bx, km_kern.centroids, ones), 10)
+    share = round_ms / (seconds["kmeans_fit kernel, repeated"][1] * 1e3)
+    print(f"[main] kmeans_fit: kernel vs plain centroids max diff "
+          f"{d_km:.3e}, rounds {km_kern.n_iters} vs {plain_fit.n_iters}; "
+          f"kmeans_assign takes {round_ms:.3f} ms of a round (2 launches, "
+          f"CUDA events), {share:.1%} of the repeated fit's round")
+
+    # the paper-faithful two-pass variant on the first N_TWO_PASS rows:
+    # no kernel on its path.  Its round r ends with the centroids c_r, as
+    # the fused round r does, but it counts the moves of the assignment to
+    # c_r where the fused round counts those to c_(r-1): above a zero
+    # tolerance it stops one round earlier.  So the fused fit is held to
+    # the same number of rounds, on the plain path, whose argmin the
+    # two-pass statements share (kernel and cuBLAS split a few near-tie
+    # rows apart, and a blob shared by two seeds splits along a neutrally
+    # stable direction, which such rows move over the rounds).
+    t1 = Table({"x": bx[:N_TWO_PASS]})
+    counters.zero()
+    (two, s_two) = timed(torch, lambda: kmeans_fit(
+        t1, K_KM, init_centroids=seeds, variant="two_pass",
+        max_iters=KM_MAX_ITERS, reassign_frac_tol=KM_REASSIGN_TOL))
+    require(counters.read()["kmeans_assign"] == 0, "two-pass launched")
+    fused1 = kmeans_fit(t1, K_KM, init_centroids=seeds,
+                        max_iters=two.n_iters,
+                        reassign_frac_tol=KM_REASSIGN_TOL)
+    kern1 = kmeans_fit(t1, K_KM, init_centroids=seeds, use_kernel=True,
+                       max_iters=two.n_iters,
+                       reassign_frac_tol=KM_REASSIGN_TOL)
+    d_two = float((two.centroids - fused1.centroids).abs().max())
+    require(two.converged and fused1.n_iters == two.n_iters
+            and torch.allclose(two.centroids, fused1.centroids, rtol=1e-4,
+                               atol=1e-3),
+            f"kmeans_fit two_pass vs fused at {N_TWO_PASS} rows: converged "
+            f"{two.converged}, rounds {two.n_iters}/{fused1.n_iters}, "
+            f"centroids differ by {d_two}")
+    print(f"[main] kmeans_fit two_pass, {N_TWO_PASS} rows: {s_two:.3f} s, "
+          f"{two.n_iters} rounds, {s_two / two.n_iters * 1e3:.1f} ms per "
+          f"round; centroids vs the fused fit (plain) after as many rounds "
+          f"max diff {d_two:.3e}, vs the fused fit through the kernel "
+          f"{float((two.centroids - kern1.centroids).abs().max()):.3e}")
+
+    # GROUP BY: one k = K_KM_GROUPED model per group g, a shared seeding
+    gseeds = kmeans_pp_seed(blobs, K_KM_GROUPED, SEED)
+    gkw = {"init_centroids": gseeds, "max_iters": KM_MAX_ITERS,
+           "reassign_frac_tol": KM_REASSIGN_TOL}
+    counters.zero()
+    with trace_execution() as tr:
+        kg, s_first = timed(torch, lambda: kmeans_grouped(
+            blobs, "g", K_KM_GROUPED, G_MAIN, use_kernel=True, **gkw))
+    launched = counters.read()
+    n_it = np.asarray(kg.n_iters)
+    print(f"[main] kmeans_grouped rounds per group: {n_it.tolist()}")
+    require(bool(np.all(kg.converged)), f"kmeans_grouped: groups "
+            f"{np.nonzero(~kg.converged)[0].tolist()} not converged")
+    require(launched["kmeans_assign"] == 2 * int(n_it.sum()),
+            f"kmeans_grouped: {launched['kmeans_assign']} launches, want "
+            f"{2 * int(n_it.sum())} (2 per active group and round)")
+    require({e.engine for e in tr.kernels} == {"cuda"},
+            "kmeans_grouped: trace kernel engines")
+    # the same fit through fit_grouped, for its stats (the repeated call)
+    task = KMeansTask(gseeds, use_kernel=True)
+    bg = Table({"x": bx, "g": t["g"]})
+    fg, s_again = timed(torch, lambda: fit_grouped(
+        task, bg, "g", G_MAIN, max_iters=KM_MAX_ITERS,
+        tol=KM_REASSIGN_TOL + 0.5 / N_MAIN))
+    require(np.array_equal(fg.n_iters, n_it), "kmeans_grouped vs "
+            "fit_grouped: rounds differ")
+    st = fg.stats
+    gcounts = torch.bincount(t["g"].long(), minlength=G_MAIN).cpu().numpy()
+    gbs = segment_block_size(N_MAIN, G_MAIN)
+    nblk = -(-gcounts // gbs)
+    rounds = int(n_it.max())
+    act = [int(gcounts[n_it > i].sum()) for i in range(rounds)]
+    require(st["layout"] == "segment" and st["block_size"] == gbs
+            and st["rounds"] == rounds
+            and st["blocks"] == int((n_it * nblk).sum())
+            and st["blocks_full_scan"] == rounds * int(nblk.sum())
+            and list(st["active_rows"]) == act and act[0] == N_MAIN,
+            f"kmeans_grouped stats {st}")
+    plain_g = kmeans_grouped(blobs, "g", K_KM_GROUPED, G_MAIN, **gkw)
+    d_it = int(np.abs(np.asarray(plain_g.n_iters) - n_it).max())
+    d_g = float((kg.centroids - plain_g.centroids).abs().max())
+    require(bool(np.all(plain_g.converged)) and d_it <= 2,
+            f"kmeans_grouped: plain rounds differ by up to {d_it}")
+    print(f"[main] kmeans_grouped, G = {G_MAIN}, k = {K_KM_GROUPED}: first "
+          f"{s_first:.3f} s, again (fit_grouped) {s_again:.3f} s (host "
+          f"clock, synchronized); {rounds} rounds, {int(n_it.sum())} group "
+          f"rounds ({(s_again / rounds) * 1e3:.1f} ms per round); launches "
+          f"{launched['kmeans_assign']}; stats blocks {st['blocks']} of "
+          f"{st['blocks_full_scan']} (full scans), block {gbs}; every group "
+          f"converged; rounds vs plain differ by at most {d_it}, centroids "
+          f"by {d_g:.3e}")
+    seconds["kmeans_grouped"] = [s_first, s_again]
+
+    # f. logistic regression (IRLS) over x with a 0/1 label from
+    # sigmoid(x b), b ~ N(0, 1/K) so that the logits stay near unit scale
+    b_l = torch.randn((K_MAIN,), generator=gen, device=dev) / K_MAIN ** 0.5
+    yl = (torch.rand((N_MAIN,), generator=gen, device=dev)
+          < torch.sigmoid(t["x"] @ b_l)).float()
+    tl = Table({"x": t["x"], "y": yl, "g": t["g"]})
+    for name, stmt in (("logregr", lambda: logregr(tl)),
+                       ("logregr_grouped",
+                        lambda: logregr_grouped(tl, "g", G_MAIN))):
+        seconds[name] = []
+        for _ in range(2):
+            results[name], s = timed(torch, stmt)
+            seconds[name].append(s)
+        res = results[name]
+        n_it = np.asarray(res.n_iters)
+        require(bool(np.all(res.converged)), f"{name}: not converged")
+        require(bool(torch.isfinite(res.coef).all()), f"{name}: coef")
+        print(f"[main] {name}: first {seconds[name][0]:.3f} s, again "
+              f"{seconds[name][1]:.3f} s (host clock, synchronized); rounds "
+              f"{int(n_it.max())}, {seconds[name][1] / n_it.max() * 1e3:.1f} "
+              "ms per round")
+    lr64, s64 = timed(torch, lambda: logregr(
+        Table({"x": t["x"].double(), "y": yl.double()}),
+        block_size=1_000_000))
+    solo = results["logregr"]
+    d_lr = float((solo.coef.double() - lr64.coef).abs().max())
+    require(lr64.converged and torch.allclose(
+        solo.coef.double(), lr64.coef, rtol=IRLS_RTOL, atol=IRLS_ATOL),
+        f"logregr: f32 vs float64 coef differ by {d_lr}")
+    require(results["logregr_grouped"].coef.shape == (G_MAIN, K_MAIN),
+            "logregr_grouped shape")
+    print(f"[main] logregr: coef vs the float64 IRLS max diff {d_lr:.3e} "
+          f"(float64 fit {s64:.3f} s, {lr64.n_iters} rounds); vs the true b "
+          f"{float((solo.coef - b_l).abs().max()):.3e}")
+    del yl, tl, lr64
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[main] max_memory_allocated {peak_gb:.2f} GB")
+    torch.cuda.empty_cache()
+
+    # the fits' states on a small dyadic input: the card (kernel) against
+    # the CPU port (plain version), bitwise; the fits themselves allclose
+    # with equal rounds; k-means++ picks the same rows
+    sgen = torch.Generator().manual_seed(SEED)
+    sc = (torch.randn((5, 8), generator=sgen) * 32).round() / 8
+    sx = sc[torch.randint(0, 5, (4096,), generator=sgen)] + (
+        torch.randn((4096, 8), generator=sgen) * 4).round() / 8
+    sy = (torch.rand(4096, generator=sgen) < torch.sigmoid(
+        sx @ torch.full((8,), 0.1))).float()
+    small_cpu = Table({"x": sx, "y": sy})
+    small_gpu = Table({"x": sx.to(dev), "y": sy.to(dev)})
+    c0 = sc + 0.5
+    for name, agg in (
+            ("KMeansAggregate", lambda d_: KMeansAggregate(
+                c0.to(d_), c0.flip(0).to(d_), use_kernel=True)),
+            ("IRLSAggregate", lambda d_: IRLSAggregate(
+                torch.zeros(8, device=d_)))):
+        got = state_to_numpy(run_local(agg(dev), small_gpu, finalize=False))
+        want = state_to_numpy(run_local(agg("cpu"), small_cpu,
+                                        finalize=False))
+        for q in want:
+            same = np.array_equal(got[q], want[q]) if q != "ll" \
+                else np.allclose(got[q], want[q], rtol=1e-6)
+            require(same, f"small {name} state {q}: card vs CPU")
+    require(torch.equal(kmeans_pp_seed(small_gpu, 5, SEED).cpu(),
+                        kmeans_pp_seed(small_cpu, 5, SEED)),
+            "small k-means++: card and CPU pick different seeds")
+    for name, fn in (("kmeans_fit", lambda tb: kmeans_fit(
+            tb, 5, init_centroids=c0.to(tb.device), use_kernel=True)),
+                     ("logregr", lambda tb: logregr(tb))):
+        got, want = fn(small_gpu), fn(small_cpu)
+        a = got.centroids if name == "kmeans_fit" else got.coef
+        b = want.centroids if name == "kmeans_fit" else want.coef
+        require(got.n_iters == want.n_iters and torch.allclose(
+            a.cpu(), b, rtol=1e-4, atol=1e-5),
+            f"small {name}: card vs CPU rounds {got.n_iters}/"
+            f"{want.n_iters}, max diff {float((a.cpu() - b).abs().max())}")
+    print("[main] small input: KMeansAggregate (through kmeans_assign) and "
+          "IRLSAggregate states bitwise equal to the CPU port's (ll within "
+          "1e-6), the same k-means++ seeds, kmeans_fit and logregr with "
+          "equal rounds and within 1e-4")
+
     # 5. timing at the main path's shapes -----------------------------------
     x, y = t["x"], t["y"]
     xs, ys = cols["x"], cols["y"]
@@ -726,6 +1099,12 @@ def main() -> int:
     sk_n2, sk_nb = sk_items.shape[0], sk_bgids.shape[0]
     sk_valid_n = int(sk_valid.sum())
     cm_kw = {"depth": 4, "width": 1024, "num_groups": G_MAIN}
+    km_cents = km_kern.centroids
+    # a point of reference, not the yardstick: the cuBLAS distance product
+    # x c^T alone (no single PyTorch call assigns and reduces)
+    xc_ms = cuda_ms(torch, lambda: torch.matmul(bx, km_cents.T), 20)
+    print(f"[timing] kmeans_assign reference: cuBLAS x @ c.T alone at "
+          f"({N_MAIN}, {D_KM}) x ({D_KM}, {K_KM}) f32: {xc_ms:.4f} ms")
     fm_kw = {"num_hashes": 8, "bits": 32, "num_groups": G_MAIN}
     # Operations the function needs: X^T X is symmetric, so only its
     # k (k + 1) / 2 distinct entries, plus X^T y (and, per group, y^2),
@@ -779,6 +1158,16 @@ def main() -> int:
                          clock_hz),
          5.0 * sk_n2 + 4.0 * sk_nb + 4.0 * G_MAIN * 8 * 32, 20, 1,
          [sk_n2, sk_nb, G_MAIN, 8, 32], ("segment_fm_kernel",)),
+        # a multiply and an add per row, centroid and feature; x and the
+        # mask in, assign and mind out, the centroids in and the sums out
+        ("kmeans_assign", "src/repro_torch/csrc/kmeans_assign.cu",
+         "src/repro/kernels/kmeans_assign/kernel.py:26",
+         lambda: km_ops.assign_and_reduce(bx, km_cents, ones),
+         lambda: assign_and_reduce_ref(bx, km_cents, ones), None,
+         2.0 * N_MAIN * K_KM * D_KM / PEAK_F32_FLOPS,
+         4.0 * N_MAIN * D_KM + 12.0 * N_MAIN + 8.0 * K_KM * D_KM, 20, 2,
+         [N_MAIN, D_KM, K_KM],
+         ("kmeans_assign_kernel", "kmeans_reduce_kernel")),
     )
     rows = []
     for (name, source, replaces, kern, plain, lib, op_s, nbytes, reps,

@@ -7,8 +7,12 @@ execution tracing.
 - Aggregate / FusedAggregate / run_many — the (init, transition, merge,
   final) pattern and the shared scan
 - run_local / run_grouped / segment_fold — the local and grouped engines
-- ScanAgg / GroupedScanAgg / plan / execute — logical statements and the
-  planner that fuses them
+- IterativeTask / fit / fit_grouped / FitResult — the §3.1.2 driver
+  pattern: one host loop around a UDA pass per round, solo or one model
+  per group; host_driver / device_driver / counted_driver for step
+  functions with no table scan
+- ScanAgg / GroupedScanAgg / IterativeFit / plan / execute — logical
+  statements and the planner that fuses them
 - Session / Handle — batch statements; one run() plans them together
 - ProfileAggregate / map_columns / one_hot_encode — templated queries
 - trace_execution — count scans, sorts and kernel dispatches
@@ -19,11 +23,20 @@ from .aggregates import (  # noqa: F401
     probe_segment_ops, run_grouped, run_local, run_many, segment_block_size,
     segment_block_update, segment_fold,
 )
+from .driver import (  # noqa: F401
+    IterationResult, counted_driver, device_driver, host_driver,
+)
+from .iterative import (  # noqa: F401
+    FitResult, IterativeTask, PassRunner, fit, fit_grouped, relative_change,
+)
 from .plan import (  # noqa: F401
-    GroupedScanAgg, PhysicalPlan, ScanAgg, execute, plan,
+    GroupedScanAgg, IterativeFit, PhysicalPlan, ScanAgg, execute, plan,
 )
 from .session import Handle, Session  # noqa: F401
-from .table import GroupedView, Table, synthetic_regression_table  # noqa: F401
+from .table import (  # noqa: F401
+    GroupedView, Table, synthetic_classification_table,
+    synthetic_regression_table,
+)
 from .templates import (  # noqa: F401
     ProfileAggregate, map_columns, one_hot_encode,
 )

@@ -1,0 +1,435 @@
+"""Unified iterative executor: ONE driver loop for every multipass method.
+
+The port's counterpart of the reference ``core/iterative.py``, local
+engine only.  MADlib's §3.1.2 driver pattern is a state-resident outer
+loop around a bulk UDA inner pass::
+
+    state_0 = init ;  repeat:  agg_out = ONE shared scan (a UDA pass)
+                               state   = update(state, agg_out)   # driver
+                               m       = metric(...)              # scalar
+              until m < tol or max_iters
+
+The **task contract** is :class:`IterativeTask`:
+
+* ``init_state(columns)``   — driver-side model state (small, on the device)
+* ``make_aggregate(state)`` — the per-iteration UDA pass, any
+  :class:`~repro_torch.core.aggregates.Aggregate`
+* ``update(state, agg_out)``— the driver-side step (solve, renormalize, …)
+* ``metric(prev, new, agg_out)`` — scalar convergence criterion (< tol stops)
+* ``finalize(state, agg_out)``   — shape the last state/pass into the result
+* ``trace_record(state, agg_out, m)`` — small per-iteration record
+
+Tasks whose iteration is not a single pure scan (two-pass k-means)
+override :meth:`IterativeTask.iteration` and call the supplied
+``run_pass`` runner as many times as their dataflow needs.
+
+:func:`fit` runs a task on one table and :func:`fit_grouped` fits one
+model per group (``GROUP BY``), on the group-aligned segment layout or
+the masked fallback.  PyTorch runs eagerly, so every engine is a host
+loop that pulls the metric once per round.  ``mode="compiled"`` is
+accepted and folds through :class:`PassRunner` (no scan event per
+round) where ``mode="host"`` calls the recorded ``run_local`` engine;
+neither fuses the loop on the device yet (a CUDA-graph body is later
+work).  ``tol=None`` runs exactly ``max_iters`` rounds.  The streaming
+engine (``fit_stream``), the sharded engine and ``jit=False`` are not
+ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..tree import tree_index, tree_leaves, tree_map, tree_stack
+from .aggregates import (
+    Aggregate, _blocked_fold, _combine_leaf, probe_segment_ops, run_local,
+    segment_block_size,
+)
+from .table import Columns, Table
+from .trace import record as _record
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP Queue 1 item "
+        f"{item})")
+
+
+def _check_local(mesh, row_axes, jit: bool, engine: str = "local") -> None:
+    """The arguments that only the unported engines give meaning to."""
+    if mesh is not None or row_axes is not None or engine == "sharded":
+        _not_ported("the sharded engine (mesh=, row_axes=, "
+                    "engine='sharded')", "3 (run_sharded)")
+    if not jit:
+        _not_ported("jit=False (there is no compiled program to skip; a "
+                    "CUDA-graph loop body would be one)",
+                    "7 (CUDA-graph 'compiled' loop)")
+
+
+def relative_change(prev, new) -> torch.Tensor:
+    """Default convergence metric: ||new - prev|| / (||prev|| + eps)."""
+    dn = sum(torch.sum((n - p) ** 2)
+             for p, n in zip(tree_leaves(prev), tree_leaves(new)))
+    pn = sum(torch.sum(p ** 2) for p in tree_leaves(prev))
+    return torch.sqrt(dn) / (torch.sqrt(pn) + 1e-12)
+
+
+# ---------------------------------------------------------------------------
+# Pass runners — how one UDA pass executes.
+# ---------------------------------------------------------------------------
+
+class PassRunner:
+    """Executes ONE shared scan: the blocked fold of the aggregate over
+    ``columns`` under ``mask``, then its ``final``.  ``columns``/``mask``
+    are exposed to tasks that are not pure folds."""
+
+    def __init__(self, columns: Columns, mask=None,
+                 block_size: int | None = None):
+        self.columns = columns
+        self.mask = mask
+        self.block_size = block_size
+
+    def __call__(self, agg: Aggregate):
+        return agg.final(_blocked_fold(agg, self.columns, self.mask,
+                                       self.block_size))
+
+
+class _EagerRunner:
+    """Host-mode runner: one recorded ``run_local`` engine call per
+    pass."""
+
+    def __init__(self, table: Table, mask=None, block_size: int | None = None):
+        self.table = table
+        self.mask = mask
+        self.block_size = block_size
+
+    def __call__(self, agg: Aggregate):
+        return run_local(agg, self.table, block_size=self.block_size,
+                         mask=self.mask)
+
+
+# ---------------------------------------------------------------------------
+# The task protocol.
+# ---------------------------------------------------------------------------
+
+class IterativeTask:
+    """Base class for iterative fits (see module docstring for the contract).
+
+    Subclasses implement ``init_state`` / ``make_aggregate`` / ``update``
+    (and usually ``metric`` / ``finalize``); tasks whose iteration is not a
+    single scan override :meth:`iteration`.
+    """
+
+    def init_state(self, columns: Columns) -> Any:
+        raise NotImplementedError
+
+    def make_aggregate(self, state) -> Aggregate:
+        raise NotImplementedError
+
+    def update(self, state, agg_out) -> Any:
+        raise NotImplementedError
+
+    def metric(self, prev_state, new_state, agg_out) -> torch.Tensor:
+        return relative_change(prev_state, new_state)
+
+    def finalize(self, state, agg_out) -> Any:
+        return state
+
+    def trace_record(self, state, agg_out, metric) -> Any:
+        return metric
+
+    def iteration(self, state, run_pass) -> tuple[Any, Any, torch.Tensor]:
+        """One driver round: (new_state, agg_out, metric).  Override for
+        multi-statement iterations; call ``run_pass(aggregate)`` once per
+        data pass your dataflow needs."""
+        out = run_pass(self.make_aggregate(state))
+        new = self.update(state, out)
+        return new, out, self.metric(state, new, out)
+
+
+@dataclasses.dataclass
+class FitResult:
+    """Outcome of an iterative fit.
+
+    ``state`` is the final driver state, ``result`` is
+    ``task.finalize(state, last agg_out)``.  ``trace`` is the tree of
+    stacked per-iteration :meth:`IterativeTask.trace_record` values
+    (leading axis = iterations actually run; for grouped fits the group
+    axis leads).  ``n_iters``/``converged`` are scalars — per-group numpy
+    vectors for :func:`fit_grouped`.  ``stats`` carries engine
+    diagnostics (grouped fits record the layout, per-round active-row
+    counts and total row blocks scanned); None for engines that report
+    nothing.
+    """
+
+    state: Any
+    result: Any
+    n_iters: Any
+    converged: Any
+    trace: Any
+    stats: Any = None
+
+
+def _as_state(tree, device: torch.device):
+    """A caller's state tree (tensors, numpy arrays, numbers) as tensors
+    on ``device``."""
+    return tree_map(lambda v: torch.as_tensor(v, device=device), tree)
+
+
+# ---------------------------------------------------------------------------
+# The controller.
+# ---------------------------------------------------------------------------
+
+def fit(task: IterativeTask, table: Table, *, max_iters: int = 100,
+        tol: float | None = 1e-6, engine: str = "auto",
+        mode: str = "compiled", block_size: int | None = None,
+        mask: torch.Tensor | None = None, warm_start: Any = None,
+        mesh=None, row_axes=None, jit: bool = True) -> FitResult:
+    """Execute an :class:`IterativeTask` to convergence on the local
+    engine.
+
+    ``engine``: "auto" or "local".  ``mode``: "compiled" folds through
+    :class:`PassRunner`, "host" through the recorded ``run_local``; both
+    are one host loop that pulls the metric once per round (there is no
+    fused device loop yet).  ``tol=None`` runs exactly ``max_iters``
+    rounds.  ``warm_start`` seeds the driver state (skips
+    ``task.init_state``)."""
+    if engine not in ("auto", "local", "sharded"):
+        raise ValueError(f"unknown engine {engine!r} (use 'auto' or "
+                         "'local')")
+    if mode not in ("host", "compiled"):
+        raise ValueError(f"unknown mode {mode!r}")
+    _check_local(mesh, row_axes, jit, engine)
+    columns = dict(table.columns)
+    state0 = warm_start if warm_start is not None \
+        else task.init_state(columns)
+    state0 = _as_state(state0, table.device)
+    _record("fit", engine="local", mode=mode)
+    runner = _EagerRunner(table, mask, block_size) if mode == "host" \
+        else PassRunner(columns, mask, block_size)
+    return _host_loop(task, runner, state0, max_iters, tol)
+
+
+def _host_loop(task, runner, state0, max_iters, tol) -> FitResult:
+    """The paper-faithful driver: one engine call per pass, one scalar
+    (the metric) pulled to the host per round."""
+    state = state0
+    aux = None
+    recs = []
+    converged = False
+    n = 0
+    for n in range(1, max_iters + 1):
+        state, aux, m = task.iteration(state, runner)
+        recs.append(task.trace_record(state, aux, m))
+        if tol is not None and float(m) < tol:
+            converged = True
+            break
+    return FitResult(state, task.finalize(state, aux), n, converged,
+                     tree_stack(recs) if recs else None)
+
+
+# ---------------------------------------------------------------------------
+# GROUP BY model fitting — one model per group, shared scans.
+# ---------------------------------------------------------------------------
+
+def fit_grouped(task: IterativeTask, table: Table, key_col: str,
+                num_groups: int | None = None, *, max_iters: int = 100,
+                tol: float | None = 1e-6, block_size: int | None = None,
+                mask: torch.Tensor | None = None, warm_start: Any = None,
+                layout: str = "auto", mesh=None, row_axes=None,
+                jit: bool = True) -> FitResult:
+    """Fit one model per group of ``key_col`` — MADlib's ``GROUP BY``
+    model fitting, for every registered task.
+
+    Two layouts share the controller:
+
+    * ``layout="segment"`` — rows are permuted into group-aligned blocks
+      once (:meth:`Table.group_by` + ``aligned_blocks``; the blocks of a
+      group are contiguous), and every round folds each still-ACTIVE
+      group's block range with one transition of that group's aggregate,
+      merged into its init with the leaf combinators.  Per-round cost is
+      O(active rows).  Requires the default single-scan ``iteration`` and
+      leaf-wise merge combinators.
+    * ``layout="masked"`` — the fallback (multi-statement ``iteration``
+      overrides, generic-merge aggregates): every active group runs the
+      task's pass over the full table under its group mask (O(G·n)).
+
+    ``layout="auto"`` picks segment whenever the task supports it.
+    Converged groups are frozen under both layouts; empty groups keep
+    their init and still run ``final``, ``update`` and ``metric``.
+    Returns a :class:`FitResult` whose ``state``/``result``/``trace``
+    carry a leading group axis, whose ``n_iters``/``converged`` are
+    per-group numpy vectors, and whose ``stats`` records the layout plus
+    (segment) the per-round active-row counts and total blocks scanned.
+    ``warm_start``, when given, must already be stacked per group."""
+    _check_local(mesh, row_axes, jit)
+    cols = dict(table.columns)
+    gids = cols.pop(key_col).to(torch.int32)
+    if num_groups is None:
+        num_groups = int(gids.max()) + 1
+    G = num_groups
+    if warm_start is not None:
+        warm = _as_state(warm_start, table.device)
+        states0 = [tree_index(warm, g) for g in range(G)]
+    else:
+        s0 = _as_state(task.init_state(cols), table.device)
+        states0 = [s0] * G
+
+    if layout == "auto":
+        layout = "segment" if _segment_task_ok(task, states0, cols) \
+            else "masked"
+    _record("fit", engine=f"grouped-{layout}", sharded=False, groups=G)
+    if layout == "segment":
+        return _fit_grouped_segment(task, table, key_col, G, states0,
+                                    max_iters, tol, block_size, mask)
+    if layout != "masked":
+        raise ValueError(f"unknown layout {layout!r} "
+                         "(use 'auto', 'segment' or 'masked')")
+    return _fit_grouped_masked(task, cols, gids, G, states0, max_iters,
+                               tol, block_size, mask)
+
+
+def _segment_task_ok(task: IterativeTask, states0, cols) -> bool:
+    """Segment layout needs the default single-scan iteration (multi-
+    statement rounds drive the pass runner themselves) and an aggregate
+    with leaf-wise merge combinators."""
+    if type(task).iteration is not IterativeTask.iteration:
+        return False
+    try:
+        agg = task.make_aggregate(states0[0])
+        return probe_segment_ops(agg, cols) is not None
+    except Exception:
+        # as in the reference: an aggregate that cannot be built or probed
+        # here goes to the masked layout, which surfaces the real error
+        return False
+
+
+def _grouped_loop(task, G, states0, max_iters, tol, device, round_fn,
+                  on_round=None):
+    """The frozen-group driver shared by both layouts.  ``round_fn(g,
+    state)`` runs one round of group ``g``: ``(new, agg_out, metric)``;
+    ``on_round(active)`` (optional) sees each round's active group ids
+    first.  Returns the per-group lists and the round count."""
+    eff_tol = np.inf if tol is None else tol
+    states = list(states0)
+    aux: list = [None] * G
+    recs: list[list] = [[] for _ in range(G)]
+    m_vec = np.full((G,), np.inf, np.float32)
+    it_vec = np.zeros((G,), np.int32)
+    rounds = 0
+    while rounds < max_iters and bool((m_vec >= eff_tol).any()):
+        act = np.nonzero(m_vec >= eff_tol)[0]
+        if on_round is not None:
+            on_round(act)
+        ms = []
+        for g in act:
+            new, out, m = round_fn(int(g), states[g])
+            states[g], aux[g] = new, out
+            recs[g].append(task.trace_record(new, out, m))
+            ms.append(torch.as_tensor(m, dtype=torch.float32,
+                                      device=device))
+        if tol is not None:  # counted mode keeps every group active
+            # the one host pull of the round: every active group's metric
+            m_vec[act] = torch.stack(ms).cpu().numpy()
+        it_vec[act] += 1
+        rounds += 1
+    return states, aux, recs, m_vec, it_vec, rounds
+
+
+def _grouped_result(task, G, tol, states, aux, recs, m_vec, it_vec,
+                    stats) -> FitResult:
+    n_max = int(it_vec.max()) if G else 0
+    trace = None
+    if n_max:
+        # per-group traces, zero past each group's last round, truncated
+        # to the longest-running group
+        rec0 = recs[int(np.argmax(it_vec))][0]
+        rows = [[recs[g][i] if i < it_vec[g]
+                 else tree_map(torch.zeros_like, rec0)
+                 for i in range(n_max)] for g in range(G)]
+        trace = tree_stack([tree_stack(r) for r in rows])
+    results = tree_stack([task.finalize(s, a) for s, a in zip(states, aux)])
+    converged = np.zeros((G,), bool) if tol is None else m_vec < tol
+    return FitResult(tree_stack(states), results, it_vec, converged, trace,
+                     stats)
+
+
+def _fit_grouped_masked(task, cols, gids, G, states0, max_iters, tol,
+                        block_size, mask):
+    """Masked fallback: every active group folds the full table per
+    round."""
+    base = mask if mask is not None \
+        else torch.ones(gids.shape, dtype=torch.bool, device=gids.device)
+
+    def round_fn(g, state):
+        runner = PassRunner(cols, (gids == g) & base, block_size)
+        return task.iteration(state, runner)
+
+    out = _grouped_loop(task, G, states0, max_iters, tol, gids.device,
+                        round_fn)
+    return _grouped_result(task, G, tol, *out[:5], {"layout": "masked"})
+
+
+def _fit_grouped_segment(task, table, key_col, G, states0, max_iters, tol,
+                         block_size, mask):
+    """Partitioned layout: per round, one transition per still-active
+    group over its contiguous range of group-aligned blocks.  Equal to
+    the reference's block-by-block fold under the leaf-wise merge that
+    this layout requires (bitwise on dyadic data)."""
+    if type(task).iteration is not IterativeTask.iteration:
+        raise ValueError("fit_grouped: layout='segment' requires the "
+                         "default single-scan iteration(); multi-statement "
+                         "tasks need layout='masked'")
+    view = table.group_by(key_col, G)
+    n = view.n_rows
+    ops = probe_segment_ops(task.make_aggregate(states0[0]),
+                            dict(view.table.columns))
+    if ops is None:
+        raise ValueError("fit_grouped: layout='segment' needs leaf-wise "
+                         "merge combinators; use layout='masked'")
+
+    # Group-aligned blocked layout, built once; the blocks of group g are
+    # blocks [start[g], start[g] + nblk[g]).
+    pmask = None if mask is None else view.permute(mask)
+    bs = segment_block_size(n, G, block_size)
+    cols, valid, bgids = view.aligned_blocks(bs, pmask)
+    bg = bgids.cpu().numpy()
+    nblk = np.bincount(bg[bg < G], minlength=G)[:G].astype(np.int64)
+    start = np.concatenate([[0], np.cumsum(nblk)])[:-1]
+    counts = view.counts.cpu().numpy().astype(np.int64)
+    active_rows: list[int] = []
+    blocks = [0]
+
+    def on_round(act):
+        # the round's statistics follow from the active set alone
+        active_rows.append(int(counts[act].sum()))
+        blocks[0] += int(nblk[act].sum())
+
+    def round_fn(g, state):
+        agg = task.make_aggregate(state)
+        merged = agg.init(cols)
+        if nblk[g]:
+            rows = slice(int(start[g]) * bs, int(start[g] + nblk[g]) * bs)
+            blk = {k: v[rows] for k, v in cols.items()}
+            bstate = agg.transition(agg.init(blk), blk, valid[rows])
+            merged = tree_map(_combine_leaf, ops, merged, bstate)
+        out = agg.final(merged)
+        new = task.update(state, out)
+        return new, out, task.metric(state, new, out)
+
+    out = _grouped_loop(task, G, states0, max_iters, tol, valid.device,
+                        round_fn, on_round)
+    rounds = out[5]
+    stats = {
+        "layout": "segment",
+        "sharded": False,
+        "block_size": bs,
+        "rounds": rounds,
+        "blocks": blocks[0],
+        "blocks_full_scan": rounds * int(nblk.sum()),
+        "active_rows": np.asarray(active_rows, np.int32),
+    }
+    return _grouped_result(task, G, tol, *out[:5], stats)

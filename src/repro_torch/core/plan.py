@@ -10,8 +10,11 @@ and picks the grouped method from the rows-moved heuristic;
 
 Fusion is refused loudly when it would be wrong: statements with
 different tables, masks or block partitionings never fold together.
-The join, iterative and stream nodes, the measured calibration and
-``explain()`` wait for later slices.
+Iterative fits (:class:`IterativeFit`) are statements too: each owns
+its driver loop and never fuses, but a grouped fit shares the
+partitioning sort with grouped scans of the same ``(table, key)``
+through the ``group_by`` memo.  The join and stream nodes, the measured
+calibration and ``explain()`` wait for later slices.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from .aggregates import (
     Aggregate, FusedAggregate, probe_segment_ops, run_grouped, run_many,
     segment_block_size,
 )
+from .iterative import IterativeTask, fit, fit_grouped
 from .table import GroupedView, Table
 
 
@@ -63,6 +67,35 @@ class GroupedScanAgg:
     block_size: int | None = None
     method: str = "auto"         # "auto" | "segment" | "masked"
     label: str | None = None     # the statement's name in a Session
+
+
+@dataclasses.dataclass(eq=False)
+class IterativeFit:
+    """Iterative model fit (the §3.1.2 driver pattern as a statement).
+
+    ``group_col`` set -> ``fit_grouped``; else ``fit``.  Fit statements
+    never fuse with one another (each owns its driver loop), but they
+    share partitioning sorts with grouped scans through the same
+    ``group_by`` memo.  ``blocks`` (the streaming engine), ``mesh`` and
+    ``row_axes`` (the sharded engine) are not ported yet."""
+
+    task: IterativeTask
+    table: Table | None = None
+    blocks: Callable | None = None
+    group_col: str | None = None
+    num_groups: int | None = None
+    max_iters: int = 100
+    tol: float | None = 1e-6
+    engine: str = "auto"         # fit(): "auto" | "local"
+    mode: str = "compiled"       # fit(): "compiled" | "host"
+    layout: str = "auto"         # fit_grouped(): "auto"|"segment"|"masked"
+    block_size: int | None = None
+    mask: Any = None
+    warm_start: Any = None
+    mesh: Any = None
+    row_axes: Any = None
+    jit: bool = True
+    label: str | None = None
 
 
 # ---------------------------------------------------------------------------
@@ -184,7 +217,7 @@ def _mask_key(mask) -> Any:
 class PhysicalPass:
     """One physical engine execution covering >= 1 statements."""
 
-    kind: str                       # "scan" | "grouped"
+    kind: str                       # "scan" | "grouped" | "fit"
     engine: str
     members: list                   # [(statement index, node), ...]
     cost: float
@@ -305,6 +338,40 @@ def fused_grouped_pass(members: Sequence[tuple[int, GroupedScanAgg]]
         cost=costs[method], run=run)
 
 
+def _fit_pass(index: int, node: IterativeFit) -> PhysicalPass:
+    """The physical pass of ONE fit statement: its own driver loop."""
+    if node.blocks is not None:
+        raise NotImplementedError(
+            "IterativeFit(blocks=...) (fit_stream) is not ported to "
+            "repro_torch yet (ROADMAP Queue 1 item 3: run_stream)")
+    if node.table is None:
+        raise ValueError("IterativeFit needs a table")
+    if node.group_col is not None:
+        engine = f"grouped-{node.layout}"
+    else:
+        engine = "local" if node.engine == "auto" else node.engine
+
+    def run():
+        if node.group_col is not None:
+            res = fit_grouped(node.task, node.table, node.group_col,
+                              node.num_groups, max_iters=node.max_iters,
+                              tol=node.tol, block_size=node.block_size,
+                              mask=node.mask, warm_start=node.warm_start,
+                              layout=node.layout, mesh=node.mesh,
+                              row_axes=node.row_axes, jit=node.jit)
+        else:
+            res = fit(node.task, node.table, max_iters=node.max_iters,
+                      tol=node.tol, engine=node.engine, mode=node.mode,
+                      block_size=node.block_size, mask=node.mask,
+                      warm_start=node.warm_start, mesh=node.mesh,
+                      row_axes=node.row_axes, jit=node.jit)
+        return {index: res}
+
+    return PhysicalPass(kind="fit", engine=engine, members=[(index, node)],
+                        cost=node.max_iters * float(node.table.n_rows),
+                        run=run)
+
+
 @dataclasses.dataclass
 class PhysicalPlan:
     passes: list[PhysicalPass]
@@ -332,12 +399,15 @@ def plan(statements: Sequence[Any]) -> PhysicalPlan:
             key = ("grouped", id(node.table), node.group_col,
                    node.num_groups, _mask_key(node.mask), node.block_size,
                    node.method)
+        elif isinstance(node, IterativeFit):
+            key = ("fit", i)  # fits never fuse
         else:
             raise TypeError(f"not a logical plan node: {node!r}")
         groups.setdefault(key, []).append((i, node))
 
-    passes = [fused_scan_pass(members) if key[0] == "scan"
-              else fused_grouped_pass(members)
+    build = {"scan": fused_scan_pass, "grouped": fused_grouped_pass}
+    passes = [_fit_pass(*members[0]) if key[0] == "fit"
+              else build[key[0]](members)
               for key, members in groups.items()]
     return PhysicalPlan(passes, len(statements))
 

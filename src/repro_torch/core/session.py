@@ -17,19 +17,23 @@ Each statement returns a :class:`Handle`; ``handle.result()`` is there
 after ``run()``.  ``run()`` consumes the batch, whether or not it
 succeeds.
 
+Iterative fits are statements too (``fit``, ``logregr``): each runs its
+own driver loop and never fuses, and a grouped fit shares the
+partitioning sort with grouped scans of the same table and key.
+
 Not ported yet, and raising ``NotImplementedError`` that names the
 ROADMAP item which brings them: server mode (``Session(server=...)``)
-and ``explain()`` with the orchestration and planner items; ``fit``,
-``logregr`` with the iterative executor; ``stream_scan`` with
-``run_stream``; ``joined_grouped_scan`` and ``materialize`` with the
-orchestration item; ``naive_bayes`` with the remaining methods.
+and ``explain()`` with the orchestration and planner items;
+``stream_scan`` with ``run_stream``; ``joined_grouped_scan`` and
+``materialize`` with the orchestration item; ``naive_bayes`` with the
+remaining methods.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable
 
-from .plan import GroupedScanAgg, ScanAgg, plan
+from .plan import GroupedScanAgg, IterativeFit, ScanAgg, plan
 from .table import Table
 
 _UNSET = object()
@@ -109,8 +113,13 @@ class Session:
     def joined_grouped_scan(self, *args, **kwargs):
         _not_ported("joined_grouped_scan", "8 (core/join.py)")
 
-    def fit(self, *args, **kwargs):
-        _not_ported("fit", "7 (core/iterative.py)")
+    def fit(self, task, table=None, *, label=None, post=None,
+            **kwargs) -> Handle:
+        """An iterative fit (:class:`IterativeFit`) as a statement;
+        ``kwargs`` are the node's fields (``group_col``, ``max_iters``,
+        ``tol``, ...)."""
+        return self.statement(IterativeFit(task, table, label=label,
+                                           **kwargs), post=post)
 
     def stream_scan(self, *args, **kwargs):
         _not_ported("stream_scan", "3 (run_stream, StreamAgg)")
@@ -163,8 +172,14 @@ class Session:
                          table, columns=(item_col,), block_size=block_size,
                          label="fm_distinct")
 
-    def logregr(self, *args, **kwargs):
-        _not_ported("logregr", "7 (core/iterative.py, methods/logregr.py)")
+    def logregr(self, table: Table, *, x_col: str = "x", y_col: str = "y",
+                max_iters: int = 30, tol: float = 1e-6, block_size=None
+                ) -> Handle:
+        from ..methods.logregr import IRLSTask, _result
+        t = Table({"x": table[x_col], "y": table[y_col]})
+        return self.fit(IRLSTask(), t, max_iters=max_iters, tol=tol,
+                        block_size=block_size, label="logregr",
+                        post=_result)
 
     # -- planning & execution ----------------------------------------------
     def explain(self) -> str:

@@ -312,3 +312,30 @@ def synthetic_regression_table(seed: int, n_rows: int, n_vars: int,
     eps = torch.randn((n_rows,), generator=gen, dtype=dtype, device=dev)
     y = x @ b + noise * eps
     return Table({"x": x, "y": y}), b
+
+
+def _generator(seed, device: torch.device) -> torch.Generator:
+    """``seed`` as a generator on ``device``: an int seeds a new one, a
+    ``torch.Generator`` is used as given."""
+    if isinstance(seed, torch.Generator):
+        return seed
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return gen
+
+
+def synthetic_classification_table(seed, n_rows: int, n_vars: int,
+                                   dtype: Any = torch.float32, device=None
+                                   ) -> tuple[Table, torch.Tensor]:
+    """Logistic data, Pr[y = 1 | x] = sigmoid(<b, x>) (§4.2), made on
+    ``device`` (the card unless ``device="cpu"``) from an explicit seed or
+    ``torch.Generator`` (on that device)."""
+    dev = resolve_device(device)
+    gen = _generator(seed, dev)
+    x = torch.randn((n_rows, n_vars), generator=gen, dtype=dtype,
+                    device=dev)
+    b = torch.randn((n_vars,), generator=gen, dtype=dtype, device=dev)
+    p = torch.sigmoid(x @ b)
+    u = torch.rand((n_rows,), generator=gen, dtype=dtype, device=dev)
+    y = (u < p).to(dtype)
+    return Table({"x": x, "y": y}), b

@@ -9,8 +9,12 @@ way, as int32 arrays: a Count-Min ``(depth, width)`` counter matrix or
 an FM ``(num_hashes, bits)`` bitmap, or their ``(G, ...)`` stacks,
 through the same :func:`state_from_numpy` and :func:`state_to_numpy`;
 they merge with the aggregate's own combinator (sum, max) and stay
-exact.  Nothing here imports the reference package: the caller converts
-its arrays with ``numpy.asarray``.
+exact.  A fit's parameters need nothing more: the reference's k-means
+centroids or IRLS coefficients, as numpy arrays, are the port's
+``init_centroids`` and ``warm_start`` as they are, and a ``FitResult``
+state goes back through :func:`state_to_numpy`.  Nothing here imports
+the reference package: the caller converts its arrays with
+``numpy.asarray``.
 """
 
 from __future__ import annotations

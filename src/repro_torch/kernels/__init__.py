@@ -16,6 +16,8 @@ Kernels:
   countmin         — the Count-Min counts of a column (its transition)
   segment_countmin — the whole grouped Count-Min fold
   segment_fm       — the whole grouped Flajolet-Martin fold
+  kmeans_assign    — nearest centroid of every row, with the per-centroid
+                     sums and counts (the fused k-means transition)
 The sketches share one hash family: ``sketch_hash.py`` beside
 ``csrc/sketch_hash.cuh``.
 """

@@ -41,6 +41,9 @@ _SIGNATURES = {
                                 ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
     "madlib_segment_fm": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                           ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+    "madlib_kmeans_assign": [_P, _P, _P, _P, _P, _P, _P, _P,
+                             ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_int, _P],
 }
 
 _LOCK = threading.Lock()

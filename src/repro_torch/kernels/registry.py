@@ -34,6 +34,7 @@ import torch
 from ..core.trace import record
 from ..device import runs_on_card
 from .countmin import ops as _cm_ops, ref as _cm_ref
+from .kmeans_assign import ops as _km_ops, ref as _km_ref
 from .segment_fold import ops as _sf_ops, ref as _sf_ref
 from .xtx import ops as _xtx_ops, ref as _xtx_ref
 
@@ -76,6 +77,9 @@ class KernelEntry:
 
 _REGISTRY: dict[str, KernelEntry] = {
     "xtx": KernelEntry("xtx", _xtx_ref.xtx_xty_ref, _xtx_ops.xtx_xty),
+    "kmeans_assign": KernelEntry(
+        "kmeans_assign", _km_ref.assign_and_reduce_ref,
+        _km_ops.assign_and_reduce),
     "segment_linregr": KernelEntry(
         "segment_linregr", _sf_ref.segment_linregr_ref,
         _sf_ops.segment_linregr),

@@ -21,8 +21,10 @@ from repro_torch.core.plan import ScanAgg, execute
 from repro_torch.core.table import Table
 from repro_torch.kernels import registry
 from repro_torch.kernels.countmin import ops as cm_ops, ref as cm_ref
+from repro_torch.kernels.kmeans_assign import ops as km_ops, ref as km_ref
 from repro_torch.kernels.segment_fold import ops as sf_ops, ref as sf_ref
 from repro_torch.kernels.xtx import ops as xtx_ops, ref as xtx_ref
+from repro_torch.methods.kmeans import kmeans_fit
 from repro_torch.methods.linregr import linregr, linregr_grouped
 from repro_torch.methods.sketches import (
     CountMinAggregate, FMAggregate, countmin_sketch, fm_distinct_count,
@@ -233,3 +235,69 @@ def test_countmin_launches_show_the_blocking(cuda_device, block_size,
     want = countmin_sketch(Table.from_columns(cols, device="cpu"),
                            block_size=block_size)
     assert torch.equal(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# kmeans_assign and the fits that run it.
+# ---------------------------------------------------------------------------
+
+def _km_inputs(draw, n, d, k, cuda_device, dup=False):
+    """Dyadic rows and centroids (every distance exact in f32) and a 0/1
+    mask at p = 0.9; ``dup`` makes centroid 1 a copy of centroid 0."""
+    x = draw.dyadic((n, d))
+    c = draw.dyadic((k, d), scale=2.0)
+    if dup:  # at the origin, nearest to many rows: they tie
+        c[0] = 0.0
+        c[1] = c[0]
+    m = draw.bools((n,), p=0.9).astype("float32")
+    return tuple(torch.from_numpy(a).to(cuda_device) for a in (x, c, m))
+
+
+@pytest.mark.parametrize("n,d,k,dup", [
+    (256, 2, 4, False), (777, 17, 9, False), (1024, 64, 32, False),
+    (100, 3, 5, False), (5000, 8, 6, True), (3000, 5, 1, False),
+    (70_000, 40, 100, False), (2000, 300, 700, False)])
+def test_kmeans_assign_kernel_matches_plain(cuda_device, n, d, k, dup):
+    """Bitwise on dyadic data, duplicate centroids (the lower index wins)
+    and K = 1 included; (2000, 300, 700) keeps its partials in global
+    memory, (70,000, 40, 100) stages x in two column chunks."""
+    draw = Draw(n + d + k)
+    x, c, m = _km_inputs(draw, n, d, k, cuda_device, dup)
+    before = km_ops.kmeans_assign_launches
+    got = km_ops.assign_and_reduce(x, c, m)
+    want = km_ref.assign_and_reduce_ref(x, c, m)
+    torch.cuda.synchronize()
+    assert km_ops.kmeans_assign_launches == before + 1
+    assert got[0].dtype == torch.int32
+    assert torch.equal(got[0].long(), want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
+    if dup:
+        assert not bool((got[0] == 1).any()) and bool((got[0] == 0).any())
+
+
+def test_kmeans_fit_goes_through_the_kernel(cuda_device):
+    draw = Draw(29)
+    centers = draw.normal((5, 3)) * 10.0
+    pts = (centers[draw.ints((20_000,), 0, 4)]
+           + draw.normal((20_000, 3))).astype("float32")
+    seed = torch.from_numpy(centers[:, ::-1].copy() * 0.5 + 1.0)
+    t = Table.from_columns({"x": pts}, device=cuda_device)
+    km_ops.kmeans_assign_launches = 0
+    with trace_execution() as tr:
+        got = kmeans_fit(t, 5, init_centroids=seed, use_kernel=True)
+    assert got.converged
+    # two launches per round: the assignment and the previous round's
+    assert km_ops.kmeans_assign_launches == 2 * got.n_iters
+    assert {e.engine for e in tr.kernels} == {"cuda"}
+    want = kmeans_fit(t, 5, init_centroids=seed)
+    assert want.converged and abs(got.n_iters - want.n_iters) <= 2
+    torch.testing.assert_close(got.centroids, want.centroids, rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_kmeans_assign_forced_cuda_on_cpu_raises(cuda_device):
+    x, c, m = torch.ones((4, 2)), torch.ones((3, 2)), torch.ones(4)
+    with pytest.raises(ValueError, match="only on the card"):
+        registry.dispatch("kmeans_assign", x, c, m, impl="cuda")
+    assert km_ops.assign_and_reduce(x, c, m)[0].dtype == torch.int64

@@ -11,6 +11,9 @@ dispatch registry.
 * The sketch kernels' plain versions against the jnp oracles, bit for
   bit on any data (integer states), on real group-aligned layouts with
   sentinel blocks and empty groups.
+* ``kmeans_assign``'s plain version against the jnp oracle and the
+  Pallas body (interpret mode) on the reference's test shapes: bitwise
+  on dyadic data; on Gaussian data the reference's own tolerances.
 * The registry: ``auto`` on CPU runs ``ref`` and records it, a forced
   ``cuda`` on CPU raises, an unknown impl or kernel raises.
 
@@ -24,11 +27,13 @@ import torch
 
 from repro.core.table import Table as JTable
 from repro.kernels.countmin import ref as jcm_ref
+from repro.kernels.kmeans_assign import ops as jkm_ops, ref as jkm_ref
 from repro.kernels.segment_fold import ref as jsf_ref
 from repro.kernels.xtx import ref as jxtx_ref
 from repro_torch.core import trace_execution
 from repro_torch.kernels import registry
 from repro_torch.kernels.countmin import ops as cm_ops, ref as cm_ref
+from repro_torch.kernels.kmeans_assign import ops as km_ops, ref as km_ref
 from repro_torch.kernels.segment_fold import ops as sf_ops, ref as sf_ref
 from repro_torch.kernels.xtx import ops as xtx_ops, ref as xtx_ref
 from strategies import Draw, group_layout
@@ -192,9 +197,10 @@ def test_registry_rejects_unknown_impl_and_kernel():
     with pytest.raises(ValueError, match="impl must be one of"):
         registry.dispatch("xtx", x, y, impl="pallas")
     with pytest.raises(KeyError):
-        registry.get("kmeans_assign")
-    assert registry.available() == ("countmin", "segment_countmin",
-                                    "segment_fm", "segment_linregr", "xtx")
+        registry.get("flash_attention")
+    assert registry.available() == ("countmin", "kmeans_assign",
+                                    "segment_countmin", "segment_fm",
+                                    "segment_linregr", "xtx")
     assert registry.IMPLS == ("auto", "ref", "cuda")
     assert [registry.resolve_impl(u) for u in (False, True, "ref", "cuda")] \
         == [None, "auto", "ref", "cuda"]
@@ -343,3 +349,89 @@ def test_sketch_kernels_forced_cuda_on_cpu_raise():
         with trace_execution() as t:
             registry.dispatch(name, *args, impl="auto", **kw)
         assert [e.engine for e in t.kernels] == ["ref"]
+
+
+# ---------------------------------------------------------------------------
+# kmeans_assign: the plain version against the jnp oracle and the Pallas
+# body (interpret mode), on the reference's test shapes.
+# ---------------------------------------------------------------------------
+
+KMEANS_SHAPES = [(256, 2, 4), (777, 17, 9), (1024, 64, 32), (100, 3, 5)]
+
+
+def _km_draw(n, d, k, kind, dup=False):
+    """Rows, centroids at twice the rows' scale (as the reference's test
+    draws them) and a 0/1 mask at p = 0.9."""
+    draw = Draw(n + d + k + (kind == "dyadic"))
+    if kind == "dyadic":
+        x, c = draw.dyadic((n, d)), draw.dyadic((k, d), scale=2.0)
+    else:
+        x, c = draw.normal((n, d)), 2.0 * draw.normal((k, d))
+    if dup:  # at the origin, nearest to many rows: they tie
+        c[0] = 0.0
+        c[1] = c[0]
+    return x, c, draw.bools((n,), p=0.9).astype(np.float32)
+
+
+@pytest.mark.parametrize("oracle", ["ref", "pallas"])
+@pytest.mark.parametrize("kind", ["dyadic", "gaussian"])
+@pytest.mark.parametrize("n,d,k", KMEANS_SHAPES)
+def test_kmeans_assign_ref_matches_jax(n, d, k, kind, oracle):
+    x, c, m = _km_draw(n, d, k, kind)
+    got = [a.numpy() for a in km_ref.assign_and_reduce_ref(
+        torch.from_numpy(x), torch.from_numpy(c), torch.from_numpy(m))]
+    fn = jkm_ref.assign_and_reduce_ref if oracle == "ref" \
+        else jkm_ops.assign_and_reduce
+    want = [np.asarray(a) for a in fn(x, c, m)]
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[3], want[3])
+    if kind == "dyadic":
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[2], want[2])
+    else:  # the reference test's tolerances (tests/test_kernels.py)
+        np.testing.assert_allclose(got[1], want[1], rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(got[2], want[2], rtol=1e-4, atol=1e-4)
+
+
+def test_kmeans_assign_ties_take_the_lowest_index():
+    """Centroid 1 is a copy of centroid 0: argmin's tie rule sends every
+    row that would go to either to 0, in both packages."""
+    x, c, m = _km_draw(500, 6, 5, "dyadic", dup=True)
+    got = km_ref.assign_and_reduce_ref(
+        torch.from_numpy(x), torch.from_numpy(c), torch.from_numpy(m))
+    want = jkm_ref.assign_and_reduce_ref(x, c, m)
+    assert not bool((got[0] == 1).any()) and bool((got[0] == 0).any())
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_kmeans_assign_wrapper_on_cpu_and_bad_inputs():
+    x, c, m = (torch.from_numpy(a) for a in _km_draw(64, 3, 4, "dyadic"))
+    before = km_ops.kmeans_assign_launches
+    for g, w in zip(km_ops.assign_and_reduce(x, c, m),
+                    km_ref.assign_and_reduce_ref(x, c, m)):
+        assert torch.equal(g, w)
+    assert km_ops.kmeans_assign_launches == before
+    with pytest.raises(TypeError):
+        km_ops.assign_and_reduce(x.double(), c, m)
+    with pytest.raises(ValueError, match="disagree"):
+        km_ops.assign_and_reduce(x, c[:, :2], m)
+    with pytest.raises(ValueError, match="contiguous"):
+        km_ops.assign_and_reduce(torch.zeros((3, 64)).T, c, m)
+    with pytest.raises(ValueError, match="must lie in"):
+        km_ops.assign_and_reduce(x, torch.zeros((0, 3)), m)
+    with pytest.raises(ValueError, match="only on the card"):
+        registry.dispatch("kmeans_assign", x, c, m, impl="cuda")
+    with trace_execution() as t:
+        registry.dispatch("kmeans_assign", x, c, m, impl="auto")
+    assert [e.engine for e in t.kernels] == ["ref"]
+
+
+def test_kmeans_assign_splits_bound_the_scratch():
+    """The persistent grid never exceeds the row tiles, fills the card
+    otherwise, and keeps the partials within the scratch cap."""
+    assert km_ops.splits_for(100, 64, 32, 132) == 1
+    assert km_ops.splits_for(10_000_000, 64, 32, 132) == 4 * 132
+    big = km_ops.splits_for(1_000_000, 1024, 256, 132)
+    assert big * 4 * (1024 * 256 + 1024) <= km_ops.SCRATCH_BYTES
+    assert big >= 100

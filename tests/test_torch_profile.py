@@ -253,15 +253,22 @@ def test_handle_before_run_says_so():
         h.result()
 
 
+def _tiny():
+    return Table.from_columns({"x": np.zeros((2, 1), np.float32)},
+                              device="cpu")
+
+
+# fit and logregr are ported: their cases now take the fit engines that
+# are not (a streaming fit, a sharded fit), raising when the batch runs
 @pytest.mark.parametrize("call", [
     lambda s: Session(server=object()),
     lambda s: s.explain(),
-    lambda s: s.fit(None),
+    lambda s: (s.fit(None, _tiny(), blocks=lambda: []), s.run()),
     lambda s: s.stream_scan(None, []),
     lambda s: s.joined_grouped_scan(None, None),
     lambda s: s.materialize(),
     lambda s: s.naive_bayes(None, 2),
-    lambda s: s.logregr(None),
+    lambda s: (s.fit(None, _tiny(), mesh=object()), s.run()),
 ])
 def test_unported_session_methods_raise(call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
