@@ -37,7 +37,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
       fits' states on a small input against the CPU port;
 5. timing  — CUDA-event times of each kernel (and its device time from
    torch.profiler), its plain version and the library call at the main
-   path's shapes, beside the bound.
+   path's shapes, beside the bound;
+g. then, with the analytics tables dropped, the LM serving path:
+   the flash_attention kernel against its plain version (f32 at the
+   reference's test shapes and a ragged S, bf16 at qwen3-8b's layer
+   shape, causality); the prefill forward of qwen3-8b at full width and
+   depth (bf16, weights drawn on the card from a seed, 2 x 4096 tokens)
+   through flash_attention, one launch per layer, against the
+   ``use_flash=False`` path; two full-width layers in f32, where the two
+   agree within 1e-3 and teacher-forced decode reproduces the forward;
+   ``serve("qwen3-8b", reduced=False)``; the kernel's timing at
+   (2, 32, 8, 4096, 128) and at prefill_32k's (1, 32, 8, 32768, 128)
+   beside its bound, the plain version and scaled_dot_product_attention.
 
 The last line is ``{"ok": true, "device": {...}}``.  Imports neither JAX
 nor the JAX package.
@@ -45,6 +56,7 @@ nor the JAX package.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -104,6 +116,42 @@ GAUSS_RTOL = 1e-5
 # profile's f32 sums and sums of squares against float64 sums: within
 # PROFILE_RTOL of the float64 sum of the terms' absolute values.
 PROFILE_RTOL = 1e-5
+# g. the LM path: qwen3-8b at full width and depth, prefill of (2, 4096)
+# tokens (train_4k's sequence length); the flash_attention kernel at its
+# layer shape (B, Hq, Hk, S, D) and at prefill_32k's sequence length
+LM_ARCH, LM_BATCH, LM_SEQ = "qwen3-8b", 2, 4096
+FLASH_MAIN = (LM_BATCH, 32, 8, LM_SEQ, 128)
+FLASH_LONG = (1, 32, 8, 32768, 128)
+PEAK_BF16_FLOPS = 989e12   # H100 SXM, bf16 dense tensor cores
+# f32 checks at the reference's test shapes (tests/test_kernels.py) and a
+# ragged S.  Kernel and plain version sum the same f32 products in other
+# orders and take the same exp: on unit-normal inputs their outputs (of
+# magnitude about 1) differ by a few f32 ulps, far below 1e-4.
+FLASH_F32_SHAPES = [(1, 2, 1, 128, 64, True), (2, 4, 2, 256, 64, True),
+                    (1, 8, 1, 128, 128, False), (1, 2, 2, 64, 32, True),
+                    (1, 4, 4, 128, 64, True), (2, 4, 2, 1000, 128, True)]
+FLASH_F32_ATOL = 1e-4
+# bf16: both compute in f32 from the same bf16 inputs and round the output
+# to bf16 once, so they may differ by one bf16 step (8 significant bits):
+# 2^-7 x max |plain|
+FLASH_BF16_RTOL = 2.0 ** -7
+# The bf16 forward, flash against use_flash=False (attention_chunked, which
+# rounds the pre-scaled q and p to bf16 where the kernel keeps f32) and
+# against the same forward with the kernel's plain version in its place.
+# The logits are bf16 over 151,936 tokens of a random model: at about 7% of
+# positions the top two are equal in bf16 and at about 19% within one bf16
+# step, so any difference in summation order flips the argmax there (at
+# this seed on an H100 the kernel against its own plain version agrees on
+# 93.4% of positions).  So top-1 tokens must agree on >= TOP1_AGREE of the
+# positions whose top two logits (use_flash=False) lie more than
+# TOP1_GAP_STEPS bf16 steps apart, the overall share is printed, and the
+# logits differ by at most LOGIT_STEPS bf16 steps at the largest logit (the
+# paths' roundings differ in every layer and reach the logits through 36
+# bf16 residual adds).  In f32, at full depth, top-1 must agree on >=
+# TOP1_AGREE of all positions and the logits within 1e-3 of the largest.
+TOP1_AGREE, TOP1_GAP_STEPS, LOGIT_STEPS = 0.99, 4, 16
+# teacher-forced decode against forward on the 2-layer f32 model: positions
+DECODE_CHECK_LEN = 32
 
 
 def require(cond: bool, what: str) -> None:
@@ -332,6 +380,279 @@ def timed(torch, fn):
     return out, time.perf_counter() - t0
 
 
+def flash_ptxas(lines: list[str]) -> list[str]:
+    """ptxas' lines (registers, spills) for the flash_attention entries."""
+    out, keep = [], False
+    for line in lines:
+        if "Compiling entry" in line:
+            keep = "flash_attention" in line
+            if keep:
+                out.append(line)
+        elif keep:
+            out.append(line)
+    return out
+
+
+def flash_bound_ms(b, hq, hk, s, d) -> tuple[float, float]:
+    """(operations ms, bytes ms) of causal attention at (B, Hq, Hk, S, D)
+    in bf16: 4 B Hq D S (S + 1) / 2 operations (the two products over the
+    unmasked pairs) over the bf16 tensor-core peak; q and o, k and v each
+    read or written once, 2 bytes an element, over the memory rate."""
+    ops = 4.0 * b * hq * d * s * (s + 1) / 2
+    nbytes = 2.0 * (2 * b * hq * s * d + 2 * b * hk * s * d)
+    return ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def lm_section(torch, dev, counters, errs) -> dict:
+    """Section g, the LM serving path at qwen3-8b's full width: the
+    flash_attention kernel against its plain version, the prefill forward
+    through it (every layer), decode through ``serve``, and the kernel's
+    timing.  Returns the kernel's row."""
+    import dataclasses
+    import math
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 14)
+
+    def qkv(b, hq, hk, s, d, dtype=torch.float32):
+        return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+                for shape in ((b, hq, s, d), (b, hk, s, d), (b, hk, s, d))]
+
+    # the kernel against its plain version: f32 at the reference's test
+    # shapes and a ragged S; bf16 at qwen3-8b's layer shape; causality
+    err = 0.0
+    for b, hq, hk, s, d, causal in FLASH_F32_SHAPES:
+        q, k, v = qkv(b, hq, hk, s, d)
+        got = fa_ops.flash_attention(q, k, v, causal=causal)
+        want = flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        require(e <= FLASH_F32_ATOL,
+                f"flash_attention f32 {(b, hq, hk, s, d, causal)}: "
+                f"max |kernel - plain| {e} > {FLASH_F32_ATOL}")
+        err = max(err, e)
+        print(f"[lm] flash_attention f32 (B, Hq, Hk, S, D) = "
+              f"{(b, hq, hk, s, d)}, causal {causal}: max |kernel - plain| "
+              f"{e:.3e}")
+    q, k, v = qkv(*FLASH_MAIN, torch.bfloat16)
+    got = fa_ops.flash_attention(q, k, v)
+    want = flash_attention_ref(q, k, v)
+    e = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    require(e <= FLASH_BF16_RTOL * scale, f"flash_attention bf16 "
+            f"{FLASH_MAIN}: max |kernel - plain| {e} > 2^-7 x {scale}")
+    del want
+    strided = [t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in (q, k, v)]
+    require(torch.equal(fa_ops.flash_attention(*strided), got),
+            "flash_attention: (B, S, H, D) strides change the result")
+    print(f"[lm] flash_attention bf16 {FLASH_MAIN}: max |kernel - plain| "
+          f"{e:.3e} (max |plain| {scale:.3e}; limit 2^-7 of it); the same "
+          f"bits from (B, S, H, D) storage through its strides")
+    err = max(err, e)
+    del q, k, v, got, strided
+    q, k, v = qkv(1, 2, 1, 64, 32)
+    base = fa_ops.flash_attention(q, k, v)
+    k[:, :, 40:] += 10.0
+    v[:, :, 40:] += 10.0
+    pert = fa_ops.flash_attention(q, k, v)
+    require(torch.equal(base[:, :, :40], pert[:, :, :40])
+            and float((base[:, :, 41:] - pert[:, :, 41:]).abs().max())
+            > 1e-3, "flash_attention: causality")
+    print("[lm] flash_attention causality: keys and values from position "
+          "40 on moved, outputs before 40 bitwise the same")
+    errs["flash_attention"] = err
+    torch.cuda.empty_cache()
+
+    # timing, before the forward's profile: the main path's layer shape
+    # and prefill_32k's sequence
+    out = {}
+    for shape, reps in ((FLASH_MAIN, 10), (FLASH_LONG, 2)):
+        q, k, v = qkv(*shape, torch.bfloat16)
+        t_ops, t_bytes = flash_bound_ms(*shape)
+        ms = cuda_ms(torch, lambda: fa_ops.flash_attention(q, k, v), reps)
+        dev_ms = device_ms(torch, lambda: fa_ops.flash_attention(q, k, v),
+                           1, ("flash_attention_kernel",))
+        plain_ms = (cuda_ms(torch, lambda: flash_attention_ref(q, k, v), 2)
+                    if shape == FLASH_MAIN else None)
+        lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), reps)
+        out[shape] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "ops_ms": t_ops,
+                      "bytes_ms": t_bytes}
+        plain_txt = (f"{plain_ms:.3f} ms" if plain_ms is not None else
+                     "not run (its (S, S) f32 scores take "
+                     f"{4.0 * shape[0] * shape[1] * shape[3] ** 2 / 1e9:.0f}"
+                     " GB)")
+        print(f"[timing] flash_attention {shape} bf16 causal: {ms:.3f} ms "
+              f"(CUDA events), device {dev_ms} ms; bound "
+              f"{max(t_ops, t_bytes):.4f} ms (operations {t_ops:.4f}, bytes "
+              f"{t_bytes:.4f}); plain {plain_txt}; "
+              f"scaled_dot_product_attention {lib_ms:.3f} ms")
+        del q, k, v
+    torch.cuda.empty_cache()
+
+    # the prefill forward at full width and depth, bf16, random weights
+    cfg = get_config(LM_ARCH)
+    model, s_init = timed(torch, lambda: M.init_model(cfg, generator=gen,
+                                                      device=dev))
+    toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ), generator=gen,
+                         device=dev)
+    print(f"[lm] {LM_ARCH}: {sum(p.numel() for p in model.parameters())} "
+          f"parameters ({cfg.dtype}) drawn on the card in {s_init:.2f} s; "
+          f"tokens ({LM_BATCH}, {LM_SEQ})")
+    counters.zero()
+    (logits, _), s_first = timed(torch, lambda: M.forward(model, toks))
+    launched = counters.read()
+    require(launched["flash_attention"] == cfg.n_layers,
+            f"forward: {launched['flash_attention']} flash_attention "
+            f"launches, want {cfg.n_layers} (one per layer)")
+    require(logits.shape == (LM_BATCH, LM_SEQ, cfg.vocab)
+            and bool(torch.isfinite(logits).all()), "forward: logits")
+    (plain, _), s_plain = timed(torch, lambda: M.forward(
+        model, toks, use_flash=False))
+    top2 = torch.topk(plain, 2, dim=-1).values.float()
+    gap = top2[..., 0] - top2[..., 1]
+    step = 2.0 ** (torch.floor(torch.log2(top2[..., 0].abs())) - 7)
+    decided = gap > TOP1_GAP_STEPS * step
+    top = float(plain.abs().max())
+    limit = LOGIT_STEPS * 2.0 ** (math.floor(math.log2(top)) - 7)
+    print(f"[lm] forward, bf16: use_flash=False's top two logits equal at "
+          f"{float((gap == 0).float().mean()):.2%} of positions, within "
+          f"{TOP1_GAP_STEPS} bf16 steps at "
+          f"{1 - float(decided.float().mean()):.2%}")
+    # the same forward with the kernel's plain version in its place
+    entry = registry.get("flash_attention")
+    registry._REGISTRY["flash_attention"] = dataclasses.replace(
+        entry, cuda=entry.ref)
+    try:
+        ref_logits, _ = M.forward(model, toks)
+    finally:
+        registry._REGISTRY["flash_attention"] = entry
+    for name, other in (("use_flash=False (chunked)", plain),
+                        ("the kernel's plain version", ref_logits)):
+        same = logits.argmax(-1) == other.argmax(-1)
+        agree, agree_dec = (float(same.float().mean()),
+                            float(same[decided].float().mean()))
+        d_logit = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(logits.split(512, 1),
+                                      other.split(512, 1)))
+        print(f"[lm] forward, bf16: flash vs {name}: top-1 agree on "
+              f"{agree:.4%} of positions, {agree_dec:.4%} where the top two "
+              f"lie over {TOP1_GAP_STEPS} steps apart; max |dlogit| "
+              f"{d_logit:.4f} (max |logit| {top:.3f}; limit {LOGIT_STEPS} "
+              f"bf16 steps there, {limit:.4f})")
+        require(agree_dec >= TOP1_AGREE,
+                f"forward vs {name}: top-1 agreement {agree_dec}")
+        require(d_logit <= limit, f"forward vs {name}: max |dlogit| "
+                f"{d_logit}")
+    del logits, plain, ref_logits, top2, gap, step, decided
+
+    def fwd():
+        return M.forward(model, toks)[0]
+
+    ms = cuda_ms(torch, fwd, 3)
+    flash_dev = device_ms(torch, fwd, 1, ("flash_attention_kernel",))
+    share = "not measured" if flash_dev is None else f"{flash_dev / ms:.1%}"
+    by_events = cfg.n_layers * out[FLASH_MAIN]["ms"]
+    print(f"[lm] forward ({LM_BATCH} x {LM_SEQ} tokens, {cfg.n_layers} "
+          f"layers): first {s_first:.3f} s, use_flash=False {s_plain:.3f} s "
+          f"(host clock, synchronized); repeated {ms:.2f} ms (CUDA events), "
+          f"{LM_BATCH * LM_SEQ / ms * 1e3:.0f} prefill tokens/s; "
+          f"flash_attention device time {flash_dev} ms per forward "
+          f"(torch.profiler), {share} of it; {cfg.n_layers} x the timed "
+          f"launch = {by_events:.1f} ms, {by_events / ms:.1%}")
+    del model
+    torch.cuda.empty_cache()
+
+    # f32 at full depth: flash against use_flash=False
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = M.init_model(cfg32, generator=gen, device=dev)
+    logits, _ = M.forward(model, toks)
+    plain, _ = M.forward(model, toks, use_flash=False)
+    agree = float((logits.argmax(-1) == plain.argmax(-1)).float().mean())
+    d32 = max(float((a - b).abs().max())
+              for a, b in zip(logits.split(512, 1), plain.split(512, 1)))
+    top = float(plain.abs().max())
+    print(f"[lm] forward, f32, {cfg32.n_layers} layers: flash vs "
+          f"use_flash=False top-1 agree on {agree:.4%} of positions, max "
+          f"|dlogit| {d32:.3e} (max |logit| {top:.3f}, limit 1e-3 of it)")
+    require(agree >= TOP1_AGREE and d32 <= 1e-3 * top,
+            f"f32 forward: agreement {agree}, max |dlogit| {d32}")
+    del model, logits, plain
+    torch.cuda.empty_cache()
+
+    # two layers at full width in f32: flash against use_flash=False, and
+    # teacher-forced decode against the flash forward
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    model = M.init_model(cfg2, generator=gen, device=dev)
+    logits, _ = M.forward(model, toks)
+    plain, _ = M.forward(model, toks, use_flash=False)
+    d32 = max(float((a - b).abs().max())
+              for a, b in zip(logits.split(512, 1), plain.split(512, 1)))
+    top = float(plain.abs().max())
+    require(d32 <= 1e-3 * top, f"f32 forward: flash vs use_flash=False "
+            f"differ by {d32} (max |logit| {top})")
+    del logits, plain
+    short = toks[:, :DECODE_CHECK_LEN]
+    fwd32, _ = M.forward(model, short)
+    state = M.init_decode_state(cfg2, LM_BATCH, DECODE_CHECK_LEN, device=dev)
+    steps = []
+    for t in range(DECODE_CHECK_LEN):
+        lg, state = M.decode_step(model, state, short[:, t:t + 1], t)
+        steps.append(lg)
+    dec = torch.stack(steps, 1)
+    d_dec = float((dec - fwd32).abs().max())
+    require(torch.allclose(dec, fwd32, rtol=2e-3, atol=2e-4),
+            f"f32 decode vs forward: max diff {d_dec}")
+    print(f"[lm] {cfg2.n_layers} layers at full width, f32: flash vs "
+          f"use_flash=False max |dlogit| {d32:.3e} (max |logit| {top:.3f}, "
+          f"limit 1e-3 of it); teacher-forced decode_step vs forward over "
+          f"{DECODE_CHECK_LEN} positions max diff {d_dec:.3e} (rtol 2e-3, "
+          "atol 2e-4)")
+    del model, fwd32, dec, state, steps, toks
+    torch.cuda.empty_cache()
+
+    # decode at full width through serve (the JAX defaults)
+    counters.zero()
+    (gen_toks, timing), s_serve = timed(torch, lambda: serve(
+        LM_ARCH, reduced=False, seed=SEED))
+    launched = counters.read()
+    require(tuple(gen_toks.shape) == (4, 32) and int(gen_toks.min()) >= 0
+            and int(gen_toks.max()) < cfg.vocab, "serve: tokens")
+    require(launched["flash_attention"] == 0, "serve: decode launched flash")
+    print(f"[lm] serve({LM_ARCH!r}, reduced=False): batch 4, prompt 16, "
+          f"generate 32: prefill {timing['prefill_s']:.3f} s "
+          f"({timing['prefill_tok_s']:.1f} tok/s), decode "
+          f"{timing['decode_tok_s']:.1f} tok/s; {s_serve:.2f} s in all, "
+          "with the model's draw")
+    torch.cuda.empty_cache()
+
+    main = out[FLASH_MAIN]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:29",
+            "launches": counters.total["flash_attention"],
+            "max_abs_err": errs["flash_attention"], "ms": main["ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": max(main["ops_ms"], main["bytes_ms"]),
+            "bound_by": ("operations" if main["ops_ms"] >= main["bytes_ms"]
+                         else "bytes"),
+            "library_ms": main["library_ms"], "launches_per_call": 1,
+            "device_ms": main["device_ms"], "ops_ms": main["ops_ms"],
+            "bytes_ms": main["bytes_ms"], "shape": list(FLASH_MAIN),
+            "prefill_32k": {"shape": list(FLASH_LONG), **out[FLASH_LONG]}}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -354,6 +675,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.countmin import ops as cm_ops
     from repro_torch.kernels.countmin.ref import countmin_block_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.kmeans_assign import ops as km_ops
     from repro_torch.kernels.kmeans_assign.ref import assign_and_reduce_ref
     from repro_torch.kernels.segment_fold import ops as sf_ops
@@ -382,7 +704,8 @@ def main() -> int:
     gen.manual_seed(SEED)
     counters = Counters({"xtx": xtx_ops, "segment_linregr": sf_ops,
                          "countmin": cm_ops, "segment_countmin": sf_ops,
-                         "segment_fm": sf_ops, "kmeans_assign": km_ops})
+                         "segment_fm": sf_ops, "kmeans_assign": km_ops,
+                         "flash_attention": fa_ops})
 
     # 1. device -------------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -405,6 +728,10 @@ def main() -> int:
     print(f"[build] {_build.last_build['seconds']:.1f} s -> {_build.LIB_PATH}")
     for line in _build.last_build["ptxas"]:
         print(f"[build] {line}")
+    flash_lines = flash_ptxas(_build.last_build["ptxas"])
+    require(bool(flash_lines), "build: no ptxas lines for flash_attention")
+    for line in flash_lines:
+        print(f"[build] flash_attention: {line}")
     _build.lib()
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     for src in ("countmin", "segment_sketch"):
@@ -1187,6 +1514,19 @@ def main() -> int:
                "shape": shape}
         print(json.dumps({"kernel": row}))
         rows.append(row)
+
+    # g. the LM path, once the analytics tables of a-f are dropped
+    del (t, cols, valid, bgids, sk_cols, sk_valid, sk_bgids, bx, blobs, bg,
+         view, x, y, xs, ys, items, all_rows, sk_items, ones, specs, results,
+         km, km_kern, plain_fit, km_cents, t1, fg, kg, plain_g, two, fused1,
+         kern1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[lm] memory held after dropping the analytics tables: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    row = lm_section(torch, dev, counters, errs)
+    print(json.dumps({"kernel": row}))
+    rows.append(row)
 
     # 6. summary ------------------------------------------------------------
     print(json.dumps({"kernels": [

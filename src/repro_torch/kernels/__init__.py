@@ -18,6 +18,8 @@ Kernels:
   segment_fm       — the whole grouped Flajolet-Martin fold
   kmeans_assign    — nearest centroid of every row, with the per-centroid
                      sums and counts (the fused k-means transition)
+  flash_attention  — causal GQA attention forward with an online softmax
+                     (the LM prefill's attention)
 The sketches share one hash family: ``sketch_hash.py`` beside
 ``csrc/sketch_hash.cuh``.
 """

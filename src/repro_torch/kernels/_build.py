@@ -44,6 +44,10 @@ _SIGNATURES = {
     "madlib_kmeans_assign": [_P, _P, _P, _P, _P, _P, _P, _P,
                              ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                              ctypes.c_int, _P],
+    "madlib_flash_attention": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_int, *[ctypes.c_longlong] * 12,
+                               ctypes.c_float, ctypes.c_int, _P],
 }
 
 _LOCK = threading.Lock()

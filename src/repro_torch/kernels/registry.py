@@ -34,6 +34,7 @@ import torch
 from ..core.trace import record
 from ..device import runs_on_card
 from .countmin import ops as _cm_ops, ref as _cm_ref
+from .flash_attention import ops as _fa_ops, ref as _fa_ref
 from .kmeans_assign import ops as _km_ops, ref as _km_ref
 from .segment_fold import ops as _sf_ops, ref as _sf_ref
 from .xtx import ops as _xtx_ops, ref as _xtx_ref
@@ -90,6 +91,9 @@ _REGISTRY: dict[str, KernelEntry] = {
         _sf_ops.segment_countmin),
     "segment_fm": KernelEntry("segment_fm", _sf_ref.segment_fm_ref,
                               _sf_ops.segment_fm),
+    "flash_attention": KernelEntry(
+        "flash_attention", _fa_ref.flash_attention_ref,
+        _fa_ops.flash_attention),
 }
 
 

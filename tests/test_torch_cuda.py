@@ -20,15 +20,19 @@ from repro_torch.core import Session, run_grouped, trace_execution
 from repro_torch.core.plan import ScanAgg, execute
 from repro_torch.core.table import Table
 from repro_torch.kernels import registry
+from repro_torch.configs import reduced_config
 from repro_torch.kernels.countmin import ops as cm_ops, ref as cm_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
 from repro_torch.kernels.kmeans_assign import ops as km_ops, ref as km_ref
 from repro_torch.kernels.segment_fold import ops as sf_ops, ref as sf_ref
 from repro_torch.kernels.xtx import ops as xtx_ops, ref as xtx_ref
 from repro_torch.methods.kmeans import kmeans_fit
 from repro_torch.methods.linregr import linregr, linregr_grouped
+from repro_torch.launch.serve import serve
 from repro_torch.methods.sketches import (
     CountMinAggregate, FMAggregate, countmin_sketch, fm_distinct_count,
 )
+from repro_torch.models import model as M
 from strategies import Draw, group_layout
 
 pytestmark = pytest.mark.cuda
@@ -301,3 +305,102 @@ def test_kmeans_assign_forced_cuda_on_cpu_raises(cuda_device):
     with pytest.raises(ValueError, match="only on the card"):
         registry.dispatch("kmeans_assign", x, c, m, impl="cuda")
     assert km_ops.assign_and_reduce(x, c, m)[0].dtype == torch.int64
+
+
+# -- flash_attention and the LM serving path -----------------------------------
+# f32: kernel and plain version both sum f32 products, in other orders, and
+# exp is the same function: max abs error 1e-4 on unit-normal inputs.
+# bf16: both compute in f32 from the same bf16 inputs and round the output
+# to bf16 once, so they may differ by one bf16 step: 2^-7 x max |plain|.
+
+
+def _flash_inputs(cuda_device, b, hq, hk, s, d, dtype=torch.float32):
+    draw = Draw(b * 1000 + hq * 100 + s + d)
+    return [torch.from_numpy(draw.normal(shape)).to(cuda_device, dtype)
+            for shape in ((b, hq, s, d), (b, hk, s, d), (b, hk, s, d))]
+
+
+@pytest.mark.parametrize("b,hq,hk,s,d,causal", [
+    (1, 2, 1, 128, 64, True), (2, 4, 2, 256, 64, True),
+    (1, 8, 1, 128, 128, False), (1, 2, 2, 64, 32, True),
+    (1, 4, 4, 128, 64, True), (2, 4, 2, 1000, 128, True),
+    (1, 2, 1, 1, 16, True), (3, 6, 2, 77, 80, False)])
+def test_flash_attention_kernel_matches_plain(cuda_device, b, hq, hk, s, d,
+                                              causal):
+    q, k, v = _flash_inputs(cuda_device, b, hq, hk, s, d)
+    before = fa_ops.flash_attention_launches
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    want = fa_ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention_launches == before + 1
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+def test_flash_attention_kernel_bf16_and_strided(cuda_device):
+    q, k, v = _flash_inputs(cuda_device, 2, 8, 2, 300, 128, torch.bfloat16)
+    got = fa_ops.flash_attention(q, k, v)
+    want = fa_ref.flash_attention_ref(q, k, v)
+    assert got.dtype == torch.bfloat16
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 2.0 ** -7 * float(want.float().abs().max())
+    # (B, S, H, D) storage seen through transpose(1, 2): the same bits
+    qt, kt, vt = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                  for t in (q, k, v))
+    assert not qt.is_contiguous()
+    assert torch.equal(fa_ops.flash_attention(qt, kt, vt), got)
+
+
+def test_flash_attention_kernel_causality(cuda_device):
+    q, k, v = _flash_inputs(cuda_device, 1, 2, 1, 64, 32)
+    base = fa_ops.flash_attention(q, k, v)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, 40:] += 10.0
+    v2[:, :, 40:] += 10.0
+    pert = fa_ops.flash_attention(q, k2, v2)
+    assert torch.equal(base[:, :, :40], pert[:, :, :40])
+    assert float((base[:, :, 41:] - pert[:, :, 41:]).abs().max()) > 1e-3
+
+
+def test_flash_attention_rejects_on_card(cuda_device):
+    q = torch.zeros((1, 4, 8, 160), device=cuda_device)
+    k = torch.zeros((1, 2, 8, 160), device=cuda_device)
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q, k, k)
+    q = torch.zeros((1, 4, 8, 16), device=cuda_device)
+    k = torch.zeros((1, 3, 8, 16), device=cuda_device)
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q, k, k)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "stablelm-1.6b"])
+def test_forward_goes_through_flash_attention(cuda_device, arch):
+    """One launch per layer; the logits as the use_flash=False path gives
+    them, within 1e-4 (f32 reduced configs), and as decode gives them
+    within the reference's decode-vs-forward bounds."""
+    cfg = reduced_config(arch)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    model = M.init_model(cfg, generator=gen, device=cuda_device)
+    toks = torch.randint(0, cfg.vocab, (2, 40), generator=gen,
+                         device=cuda_device)
+    fa_ops.flash_attention_launches = 0
+    with trace_execution() as tr:
+        fwd, _ = M.forward(model, toks)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention_launches == cfg.n_layers
+    assert [e.engine for e in tr.kernels] == ["cuda"] * cfg.n_layers
+    plain, _ = M.forward(model, toks, use_flash=False)
+    torch.testing.assert_close(fwd, plain, rtol=1e-4, atol=1e-4)
+    state = M.init_decode_state(cfg, 2, 40, device=cuda_device)
+    outs = []
+    for t in range(40):
+        lg, state = M.decode_step(model, state, toks[:, t:t + 1], t)
+        outs.append(lg)
+    torch.testing.assert_close(torch.stack(outs, 1), fwd, rtol=2e-3,
+                               atol=2e-4)
+
+
+def test_serve_on_card(cuda_device):
+    toks, timings = serve("qwen3-8b", batch=2, prompt_len=4, gen_len=5)
+    assert toks.shape == (2, 5) and toks.device.type == "cuda"
+    assert timings["decode_tok_s"] > 0
