@@ -39,16 +39,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
    torch.profiler), its plain version and the library call at the main
    path's shapes, beside the bound;
 g. then, with the analytics tables dropped, the LM serving path:
-   the flash_attention kernel against its plain version (f32 at the
-   reference's test shapes and a ragged S, bf16 at qwen3-8b's layer
-   shape, causality); the prefill forward of qwen3-8b at full width and
-   depth (bf16, weights drawn on the card from a seed, 2 x 4096 tokens)
-   through flash_attention, one launch per layer, against the
-   ``use_flash=False`` path; two full-width layers in f32, where the two
-   agree within 1e-3 and teacher-forced decode reproduces the forward;
+   the flash_attention kernels against their plain version, each call
+   held to the kernel the wrapper must pick (f32 at the reference's test
+   shapes and a ragged S through the FFMA kernel; bf16 at every D of the
+   repo's configs and at qwen3-8b's layer shape through the tensor-core
+   kernel, bf16 with D % 8 != 0 through the FFMA kernel; causality in
+   both); the prefill forward of qwen3-8b at full width and depth (bf16,
+   weights drawn on the card from a seed, 2 x 4096 tokens) through the
+   tensor-core kernel, one launch per layer, against the
+   ``use_flash=False`` path; the f32 forward at full depth through the
+   FFMA kernel; two full-width layers in f32, where the two agree within
+   1e-3 and teacher-forced decode reproduces the forward;
    ``serve("qwen3-8b", reduced=False)``; the kernel's timing at
    (2, 32, 8, 4096, 128) and at prefill_32k's (1, 32, 8, 32768, 128)
-   beside its bound, the plain version and scaled_dot_product_attention.
+   beside its bound, the FFMA kernel on the same inputs, the plain
+   version and scaled_dot_product_attention.
 
 The last line is ``{"ok": true, "device": {...}}``.  Imports neither JAX
 nor the JAX package.
@@ -84,6 +89,8 @@ NEAR_TIE_RTOL = 1e-5
 IRLS_RTOL, IRLS_ATOL = 1e-3, 1e-4
 PEAK_F32_FLOPS = 67e12     # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
+# the kernels whose bound counts f32 operations (TFLOP/s printed for them)
+F32_OPS_KERNELS = ("xtx", "segment_linregr", "kmeans_assign")
 # Integer instructions per SM per clock on compute capability 9.0, by the
 # pipe that issues them.  The CUDA C++ Programming Guide's arithmetic
 # instruction throughput table gives 64 for 32-bit integer add, shift,
@@ -131,9 +138,21 @@ FLASH_F32_SHAPES = [(1, 2, 1, 128, 64, True), (2, 4, 2, 256, 64, True),
                     (1, 8, 1, 128, 128, False), (1, 2, 2, 64, 32, True),
                     (1, 4, 4, 128, 64, True), (2, 4, 2, 1000, 128, True)]
 FLASH_F32_ATOL = 1e-4
+# bf16 beside the main shape: every D of the repo's configs (16 reduced,
+# 64, 96, 128) with ragged S and GQA through the tensor-core kernel, and a
+# D % 8 != 0 that the wrapper sends to the FFMA kernel by rule
+FLASH_BF16_SHAPES = [(1, 4, 1, 1, 16, True, "tc"),
+                     (3, 6, 2, 77, 64, True, "tc"),
+                     (2, 8, 2, 300, 96, False, "tc"),
+                     (1, 4, 2, 1000, 128, True, "tc"),
+                     (3, 6, 2, 300, 128, False, "tc"),
+                     (1, 4, 2, 77, 20, True, "ffma")]
 # bf16: both compute in f32 from the same bf16 inputs and round the output
 # to bf16 once, so they may differ by one bf16 step (8 significant bits):
-# 2^-7 x max |plain|
+# 2^-7 x max |plain|.  The same limit holds row by row (max over D of each
+# row (b, h, s), bf16_row_ratio): the late causal rows average over
+# thousands of keys and lie far below the first rows' values, which set
+# the overall max |plain|.
 FLASH_BF16_RTOL = 2.0 ** -7
 # The bf16 forward, flash against use_flash=False (attention_chunked, which
 # rounds the pre-scaled q and p to bf16 where the kernel keeps f32) and
@@ -380,12 +399,13 @@ def timed(torch, fn):
     return out, time.perf_counter() - t0
 
 
-def flash_ptxas(lines: list[str]) -> list[str]:
-    """ptxas' lines (registers, spills) for the flash_attention entries."""
+def ptxas_for(lines: list[str], key: str) -> list[str]:
+    """ptxas' lines (registers, shared memory, spills) for the entries
+    whose mangled names contain ``key``."""
     out, keep = [], False
     for line in lines:
         if "Compiling entry" in line:
-            keep = "flash_attention" in line
+            keep = key in line
             if keep:
                 out.append(line)
         elif keep:
@@ -422,17 +442,48 @@ def lm_section(torch, dev, counters, errs) -> dict:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 14)
+    # the bf16 checks beside the main shape draw from a generator of their
+    # own, so that the main path's inputs and weights stay
+    gen_bf16 = torch.Generator(device=dev)
+    gen_bf16.manual_seed(SEED + 15)
 
-    def qkv(b, hq, hk, s, d, dtype=torch.float32):
-        return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+    def qkv(b, hq, hk, s, d, dtype=torch.float32, g=gen):
+        return [torch.randn(shape, generator=g, device=dev).to(dtype)
                 for shape in ((b, hq, s, d), (b, hk, s, d), (b, hk, s, d))]
 
     # the kernel against its plain version: f32 at the reference's test
     # shapes and a ragged S; bf16 at qwen3-8b's layer shape; causality
+    def path_launches():
+        return (fa_ops.flash_attention_tc_launches,
+                fa_ops.flash_attention_ffma_launches)
+
+    def bf16_row_ratio(got, want):
+        """The worst row (b, h, s): max |got - want| along D over max
+        |want| along D (0 where both are 0)."""
+        want = want.float()
+        err_ = (got.float() - want).abs().amax(-1)
+        scale_ = want.abs().amax(-1)
+        ratio = torch.where(err_ == 0, torch.zeros_like(err_),
+                            err_ / scale_)
+        return float(ratio.max())
+
+    def through(kernel, fn):
+        """fn() once; require that it launched ``kernel`` ("tc" or
+        "ffma") once and the other kernel never."""
+        tc0, ffma0 = path_launches()
+        out_ = fn()
+        tc1, ffma1 = path_launches()
+        want_ = (1, 0) if kernel == "tc" else (0, 1)
+        require((tc1 - tc0, ffma1 - ffma0) == want_,
+                f"flash_attention: want one {kernel} launch, got tc "
+                f"{tc1 - tc0}, ffma {ffma1 - ffma0}")
+        return out_
+
     err = 0.0
     for b, hq, hk, s, d, causal in FLASH_F32_SHAPES:
         q, k, v = qkv(b, hq, hk, s, d)
-        got = fa_ops.flash_attention(q, k, v, causal=causal)
+        got = through("ffma", lambda: fa_ops.flash_attention(
+            q, k, v, causal=causal))
         want = flash_attention_ref(q, k, v, causal=causal)
         torch.cuda.synchronize()
         e = float((got - want).abs().max())
@@ -441,23 +492,50 @@ def lm_section(torch, dev, counters, errs) -> dict:
                 f"max |kernel - plain| {e} > {FLASH_F32_ATOL}")
         err = max(err, e)
         print(f"[lm] flash_attention f32 (B, Hq, Hk, S, D) = "
-              f"{(b, hq, hk, s, d)}, causal {causal}: max |kernel - plain| "
-              f"{e:.3e}")
+              f"{(b, hq, hk, s, d)}, causal {causal}, FFMA kernel: max "
+              f"|kernel - plain| {e:.3e}")
+    # bf16 through the tensor-core kernel: every D of the repo's configs,
+    # a ragged S, GQA, causal or not; and bf16 with D % 8 != 0 (FFMA)
+    for b, hq, hk, s, d, causal, kernel in FLASH_BF16_SHAPES:
+        q, k, v = qkv(b, hq, hk, s, d, torch.bfloat16, gen_bf16)
+        got = through(kernel, lambda: fa_ops.flash_attention(
+            q, k, v, causal=causal))
+        want = flash_attention_ref(q, k, v, causal=causal)
+        e = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        require(e <= FLASH_BF16_RTOL * scale, f"flash_attention bf16 "
+                f"{(b, hq, hk, s, d, causal)}: max |kernel - plain| {e} > "
+                f"2^-7 x {scale}")
+        row = bf16_row_ratio(got, want)
+        require(row <= FLASH_BF16_RTOL, f"flash_attention bf16 "
+                f"{(b, hq, hk, s, d, causal)}: a row's max |kernel - plain| "
+                f"is {row} of its max |plain| > 2^-7")
+        print(f"[lm] flash_attention bf16 (B, Hq, Hk, S, D) = "
+              f"{(b, hq, hk, s, d)}, causal {causal}, {kernel} kernel: max "
+              f"|kernel - plain| {e:.3e} (max |plain| {scale:.3e}); worst "
+              f"row {row:.3e} of its max |plain|")
+        err = max(err, e)
     q, k, v = qkv(*FLASH_MAIN, torch.bfloat16)
-    got = fa_ops.flash_attention(q, k, v)
+    got = through("tc", lambda: fa_ops.flash_attention(q, k, v))
     want = flash_attention_ref(q, k, v)
     e = float((got.float() - want.float()).abs().max())
     scale = float(want.float().abs().max())
     require(e <= FLASH_BF16_RTOL * scale, f"flash_attention bf16 "
             f"{FLASH_MAIN}: max |kernel - plain| {e} > 2^-7 x {scale}")
+    row = bf16_row_ratio(got, want)
+    require(row <= FLASH_BF16_RTOL, f"flash_attention bf16 {FLASH_MAIN}: "
+            f"a row's max |kernel - plain| is {row} of its max |plain| "
+            f"> 2^-7")
     del want
     strided = [t.transpose(1, 2).contiguous().transpose(1, 2)
                for t in (q, k, v)]
-    require(torch.equal(fa_ops.flash_attention(*strided), got),
+    require(torch.equal(through("tc", lambda: fa_ops.flash_attention(
+        *strided)), got),
             "flash_attention: (B, S, H, D) strides change the result")
     print(f"[lm] flash_attention bf16 {FLASH_MAIN}: max |kernel - plain| "
-          f"{e:.3e} (max |plain| {scale:.3e}; limit 2^-7 of it); the same "
-          f"bits from (B, S, H, D) storage through its strides")
+          f"{e:.3e} (max |plain| {scale:.3e}; limit 2^-7 of it); worst row "
+          f"{row:.3e} of its own max |plain| (limit 2^-7); the same bits "
+          f"from (B, S, H, D) storage through its strides")
     err = max(err, e)
     del q, k, v, got, strided
     q, k, v = qkv(1, 2, 1, 64, 32)
@@ -468,36 +546,69 @@ def lm_section(torch, dev, counters, errs) -> dict:
     require(torch.equal(base[:, :, :40], pert[:, :, :40])
             and float((base[:, :, 41:] - pert[:, :, 41:]).abs().max())
             > 1e-3, "flash_attention: causality")
-    print("[lm] flash_attention causality: keys and values from position "
-          "40 on moved, outputs before 40 bitwise the same")
+    q, k, v = qkv(1, 2, 1, 200, 128, torch.bfloat16, gen_bf16)
+    base = through("tc", lambda: fa_ops.flash_attention(q, k, v))
+    k[:, :, 40:] += 10.0
+    v[:, :, 40:] += 10.0
+    pert = fa_ops.flash_attention(q, k, v)
+    require(torch.equal(base[:, :, :40], pert[:, :, :40])
+            and float((base[:, :, 41:].float() - pert[:, :, 41:].float())
+                      .abs().max()) > 1e-3,
+            "flash_attention: causality (bf16, tensor cores)")
+    print("[lm] flash_attention causality, f32 (FFMA) and bf16 (tensor "
+          "cores): keys and values from position 40 on moved, outputs "
+          "before 40 bitwise the same")
     errs["flash_attention"] = err
     torch.cuda.empty_cache()
+
+    # the FFMA kernel on the same bf16 inputs, through its C entry (the
+    # wrapper sends bf16 to the tensor cores): the earlier design, timed
+    # in the same run
+    from repro_torch.kernels import _build
+
+    def ffma(q, k, v):
+        o = torch.empty_like(q)
+        b, hq, s, d = q.shape
+        _build.check("flash_attention", _build.lib().madlib_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, b, hq,
+            k.shape[1], s, d, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *o.stride()[:3], 1.0 / d ** 0.5, 1,
+            torch.cuda.current_stream().cuda_stream))
+        return o
 
     # timing, before the forward's profile: the main path's layer shape
     # and prefill_32k's sequence
     out = {}
-    for shape, reps in ((FLASH_MAIN, 10), (FLASH_LONG, 2)):
+    for shape, reps in ((FLASH_MAIN, 20), (FLASH_LONG, 3)):
         q, k, v = qkv(*shape, torch.bfloat16)
         t_ops, t_bytes = flash_bound_ms(*shape)
         ms = cuda_ms(torch, lambda: fa_ops.flash_attention(q, k, v), reps)
         dev_ms = device_ms(torch, lambda: fa_ops.flash_attention(q, k, v),
-                           1, ("flash_attention_kernel",))
+                           1, ("flash_attention_tc",))
+        ffma_ms = cuda_ms(torch, lambda: ffma(q, k, v),
+                          5 if shape == FLASH_MAIN else 1)
         plain_ms = (cuda_ms(torch, lambda: flash_attention_ref(q, k, v), 2)
                     if shape == FLASH_MAIN else None)
         lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), reps)
-        out[shape] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-                      "library_ms": lib_ms, "ops_ms": t_ops,
-                      "bytes_ms": t_bytes}
+        ms2 = cuda_ms(torch, lambda: fa_ops.flash_attention(q, k, v), reps)
+        tflops = t_ops * PEAK_BF16_FLOPS / 1e12 / ms
+        out[shape] = {"ms": ms, "ms_again": ms2, "device_ms": dev_ms,
+                      "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "ffma_ms": ffma_ms, "ops_ms": t_ops,
+                      "bytes_ms": t_bytes, "tflops": tflops}
         plain_txt = (f"{plain_ms:.3f} ms" if plain_ms is not None else
                      "not run (its (S, S) f32 scores take "
                      f"{4.0 * shape[0] * shape[1] * shape[3] ** 2 / 1e9:.0f}"
                      " GB)")
-        print(f"[timing] flash_attention {shape} bf16 causal: {ms:.3f} ms "
-              f"(CUDA events), device {dev_ms} ms; bound "
+        print(f"[timing] flash_attention {shape} bf16 causal, tensor-core "
+              f"kernel: {ms:.4f} ms (CUDA events; {ms2:.4f} ms again after "
+              f"the others), device {dev_ms} ms; {tflops:.1f} TFLOP/s, "
+              f"{max(t_ops, t_bytes) / ms:.1%} of the bound "
               f"{max(t_ops, t_bytes):.4f} ms (operations {t_ops:.4f}, bytes "
-              f"{t_bytes:.4f}); plain {plain_txt}; "
-              f"scaled_dot_product_attention {lib_ms:.3f} ms")
+              f"{t_bytes:.4f}); FFMA kernel on the same inputs "
+              f"{ffma_ms:.3f} ms; plain {plain_txt}; "
+              f"scaled_dot_product_attention {lib_ms:.4f} ms; {nvidia_smi()}")
         del q, k, v
     torch.cuda.empty_cache()
 
@@ -513,9 +624,16 @@ def lm_section(torch, dev, counters, errs) -> dict:
     counters.zero()
     (logits, _), s_first = timed(torch, lambda: M.forward(model, toks))
     launched = counters.read()
-    require(launched["flash_attention"] == cfg.n_layers,
-            f"forward: {launched['flash_attention']} flash_attention "
-            f"launches, want {cfg.n_layers} (one per layer)")
+    require(launched["flash_attention"] == cfg.n_layers
+            and launched["flash_attention_tc"] == cfg.n_layers
+            and launched["flash_attention_ffma"] == 0,
+            f"forward: flash_attention launches {launched['flash_attention']}"
+            f" (tensor cores {launched['flash_attention_tc']}, FFMA "
+            f"{launched['flash_attention_ffma']}), want {cfg.n_layers} on "
+            "the tensor cores (one per layer)")
+    print(f"[lm] forward, bf16: {launched['flash_attention_tc']} of "
+          f"{launched['flash_attention']} flash_attention launches on the "
+          "tensor-core kernel, 0 on the FFMA kernel")
     require(logits.shape == (LM_BATCH, LM_SEQ, cfg.vocab)
             and bool(torch.isfinite(logits).all()), "forward: logits")
     (plain, _), s_plain = timed(torch, lambda: M.forward(
@@ -561,7 +679,7 @@ def lm_section(torch, dev, counters, errs) -> dict:
         return M.forward(model, toks)[0]
 
     ms = cuda_ms(torch, fwd, 3)
-    flash_dev = device_ms(torch, fwd, 1, ("flash_attention_kernel",))
+    flash_dev = device_ms(torch, fwd, 1, ("flash_attention",))
     share = "not measured" if flash_dev is None else f"{flash_dev / ms:.1%}"
     by_events = cfg.n_layers * out[FLASH_MAIN]["ms"]
     print(f"[lm] forward ({LM_BATCH} x {LM_SEQ} tokens, {cfg.n_layers} "
@@ -577,7 +695,10 @@ def lm_section(torch, dev, counters, errs) -> dict:
     # f32 at full depth: flash against use_flash=False
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     model = M.init_model(cfg32, generator=gen, device=dev)
+    ffma0 = fa_ops.flash_attention_ffma_launches
     logits, _ = M.forward(model, toks)
+    require(fa_ops.flash_attention_ffma_launches - ffma0 == cfg32.n_layers,
+            "f32 forward: not one FFMA flash_attention launch per layer")
     plain, _ = M.forward(model, toks, use_flash=False)
     agree = float((logits.argmax(-1) == plain.argmax(-1)).float().mean())
     d32 = max(float((a - b).abs().max())
@@ -639,7 +760,11 @@ def lm_section(torch, dev, counters, errs) -> dict:
 
     main = out[FLASH_MAIN]
     return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "source": "src/repro_torch/csrc/flash_attention_tc.cu",
+            "ffma_source": "src/repro_torch/csrc/flash_attention.cu",
+            "ffma_ms": main["ffma_ms"], "tflops": main["tflops"],
+            "launches_tc": counters.total["flash_attention_tc"],
+            "launches_ffma": counters.total["flash_attention_ffma"],
             "replaces": "src/repro/kernels/flash_attention/kernel.py:29",
             "launches": counters.total["flash_attention"],
             "max_abs_err": errs["flash_attention"], "ms": main["ms"],
@@ -705,7 +830,9 @@ def main() -> int:
     counters = Counters({"xtx": xtx_ops, "segment_linregr": sf_ops,
                          "countmin": cm_ops, "segment_countmin": sf_ops,
                          "segment_fm": sf_ops, "kmeans_assign": km_ops,
-                         "flash_attention": fa_ops})
+                         "flash_attention": fa_ops,
+                         "flash_attention_tc": fa_ops,
+                         "flash_attention_ffma": fa_ops})
 
     # 1. device -------------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -728,10 +855,11 @@ def main() -> int:
     print(f"[build] {_build.last_build['seconds']:.1f} s -> {_build.LIB_PATH}")
     for line in _build.last_build["ptxas"]:
         print(f"[build] {line}")
-    flash_lines = flash_ptxas(_build.last_build["ptxas"])
-    require(bool(flash_lines), "build: no ptxas lines for flash_attention")
-    for line in flash_lines:
-        print(f"[build] flash_attention: {line}")
+    for key in ("flash_attention_tc", "flash_attention_kernel", "xtx_"):
+        lines = ptxas_for(_build.last_build["ptxas"], key)
+        require(bool(lines), f"build: no ptxas lines for {key}")
+        for line in lines:
+            print(f"[build] {key}: {line}")
     _build.lib()
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     for src in ("countmin", "segment_sketch"):
@@ -742,6 +870,20 @@ def main() -> int:
 
     # 3. kernels against their plain versions -------------------------------
     errs: dict[str, float] = {}
+    # xtx past one 176-column tile (several units, halves of tile pairs),
+    # from a generator of its own so that the main path's draws stay
+    gen_k = torch.Generator(device=dev)
+    gen_k.manual_seed(SEED + 15)
+    x, y = dyadic(torch, gen_k, (200_000, 300), dev), dyadic(
+        torch, gen_k, (200_000,), dev)
+    got = xtx_ops.xtx_xty(x, y)
+    want = xtx_xty_ref(x, y)
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            and torch.equal(got[0], got[0].T),
+            "xtx (200000, 300) dyadic: not bitwise equal and symmetric")
+    print("[kernels] xtx (200000, 300): dyadic bitwise, X^T X bitwise "
+          "symmetric")
+    del x, y, got, want
     for n, k in ((4096, 7), (1_000_000, 80), (N_MAIN, K_MAIN)):
         x = dyadic(torch, gen, (n, k), dev)
         y = dyadic(torch, gen, (n,), dev)
@@ -751,6 +893,8 @@ def main() -> int:
         require(all(torch.equal(got[q], want[q]) for q in want),
                 f"xtx ({n}, {k}) dyadic: not bitwise equal "
                 f"(max err {max_err(torch, got, want)[0]})")
+        require(torch.equal(got["xtx"], got["xtx"].T),
+                f"xtx ({n}, {k}): not bitwise symmetric")
         x = torch.randn((n, k), generator=gen, device=dev)
         y = torch.randn((n,), generator=gen, device=dev)
         got = dict(zip(("xtx", "xty"), xtx_ops.xtx_xty(x, y)))
@@ -760,7 +904,8 @@ def main() -> int:
         del x64
         errs["xtx"] = gauss_check(torch, f"xtx ({n}, {k})", got, plain,
                                   exact)
-        print(f"[kernels] xtx ({n}, {k}): dyadic bitwise")
+        print(f"[kernels] xtx ({n}, {k}): dyadic bitwise, X^T X bitwise "
+              "symmetric")
         del x, y, got, plain, exact
 
     def segment_layout(cols, num_groups, used, sentinels, base=None):
@@ -1446,7 +1591,7 @@ def main() -> int:
          lambda: torch.matmul(x.T, x),
          float(N_MAIN) * K_MAIN * (K_MAIN + 3) / PEAK_F32_FLOPS,
          4.0 * (N_MAIN * (K_MAIN + 1) + K_MAIN * (K_MAIN + 1)), 5, 2,
-         [N_MAIN, K_MAIN], ("xtx_partial_kernel", "xtx_reduce_kernel")),
+         [N_MAIN, K_MAIN], ("xtx_upper_kernel", "xtx_reduce_kernel")),
         ("segment_linregr", "src/repro_torch/csrc/segment_linregr.cu",
          "src/repro/kernels/segment_fold/kernel.py:52",
          lambda: sf_ops.segment_linregr(xs, ys, valid, bgids,
@@ -1511,7 +1656,9 @@ def main() -> int:
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                "library_ms": lib_ms, "launches_per_call": per_call,
                "device_ms": dev_ms, "ops_ms": t_ops, "bytes_ms": t_bytes,
-               "shape": shape}
+               "shape": shape, "bound_share": max(t_ops, t_bytes) / ms}
+        if name in F32_OPS_KERNELS:
+            row["tflops"] = op_s * PEAK_F32_FLOPS / (ms * 1e-3) / 1e12
         print(json.dumps({"kernel": row}))
         rows.append(row)
 

@@ -1,4 +1,9 @@
-// Causal GQA flash attention, forward, for the H100 (sm_90a).
+// Causal GQA flash attention, forward, for the H100 (sm_90a): the FFMA
+// kernel, for f32 inputs and for bf16 that TMA cannot read (head dimension
+// D not a multiple of 8, or a pointer or stride off 16 bytes).  Other bf16
+// (every config of the repo) goes to the tensor-core kernel in
+// flash_attention_tc.cu; the wrapper (kernels/flash_attention/ops.py,
+// kernel_for) chooses by dtype, D and layout.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py:29
 // (`_kernel`, launched by `flash_attention_padded` at :80 through
@@ -37,9 +42,9 @@
 // It is bound by operations.  This kernel does them as f32 FFMA on the SMs'
 // CUDA cores, whose peak is 67 TFLOP/s: even at that peak it would stand
 // 14.8x from the tensor-core bound, and with the shared-memory loads and
-// the exp of every score beside the FFMA it stands further off.  The
-// tensor-core version (mma.sync / wgmma on bf16 tiles, TMA loads) is later
-// work.
+// the exp of every score beside the FFMA it stands further off.  f32 has
+// no tensor-core product without TF32, which the port does not use, so f32
+// stays here.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -48,6 +48,10 @@ _SIGNATURES = {
                                ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                ctypes.c_int, *[ctypes.c_longlong] * 12,
                                ctypes.c_float, ctypes.c_int, _P],
+    "madlib_flash_attention_tc": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                  *[ctypes.c_longlong] * 12, ctypes.c_float,
+                                  ctypes.c_int, _P],
 }
 
 _LOCK = threading.Lock()

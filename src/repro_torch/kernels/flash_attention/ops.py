@@ -1,16 +1,27 @@
-"""PyTorch wrapper of the CUDA flash_attention kernel
-(``csrc/flash_attention.cu``).
+"""PyTorch wrapper of the CUDA flash_attention kernels.
 
-On a CUDA tensor it checks the inputs and launches the kernel, or
-raises; on a CPU tensor it runs the plain version in ``ref.py``.
-``flash_attention_launches`` counts the wrapper's calls that launch the
-kernel.
+Two hand-written kernels compute the same function; the wrapper picks one
+by dtype, head dimension D and layout (:func:`kernel_for`), never by
+trying one and falling back:
+
+* bfloat16 that TMA can read -> the tensor-core kernel
+  ``csrc/flash_attention_tc.cu`` (wgmma, TMA).  TMA reads rows through
+  16-byte strides: D % 8 == 0 (every D of the repo's configs: 16, 64, 96,
+  128), every data pointer 16-byte aligned and every batch, head and
+  position stride a multiple of 8 elements.
+* float32 (any D), and every other bfloat16 input -> the FFMA kernel
+  ``csrc/flash_attention.cu``, which reads any strides.
+
+On a CPU tensor the wrapper runs the plain version in ``ref.py``.
+``flash_attention_launches`` counts every launch of either kernel;
+``flash_attention_tc_launches`` and ``flash_attention_ffma_launches``
+count each kernel's own.
 
 The layout is the reference wrapper's: q (B, Hq, S, D), k and v
 (B, Hk, S, D), the result (B, Hq, S, D).  Unlike the reference there is
-no tile choice and no padding: the kernel masks the ragged S edge itself,
-so any S is taken.  It reads the inputs through their batch, head and
-position strides, so a ``(B, S, H, D)`` tensor seen through
+no tile choice and no padding: the kernels mask the ragged S edge
+themselves, so any S is taken.  They read the inputs through their batch,
+head and position strides, so a ``(B, S, H, D)`` tensor seen through
 ``transpose(1, 2)`` needs no copy; the result is laid out like q.
 """
 
@@ -23,9 +34,12 @@ from .. import _build
 from .ref import flash_attention_ref
 
 flash_attention_launches = 0
+flash_attention_tc_launches = 0
+flash_attention_ffma_launches = 0
 
 MAX_D = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_TMA_ALIGN = 16   # bytes: TMA's rule for pointers and strides
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -52,12 +66,40 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"[1, {MAX_D}]")
 
 
+def tma_strides(t: torch.Tensor) -> list[int] | None:
+    """The batch, head and position strides of ``t`` as the tensor-core
+    kernel is given them: an axis of size 1 is never stepped, so it gets
+    a contiguous tensor's stride, which is a multiple of 8 elements when D
+    is.  None when a stride that is used, or the data pointer, breaks
+    TMA's 16-byte rule."""
+    _, h, s, d = t.shape
+    dense = (h * s * d, s * d, d)
+    out = [dense[i] if t.shape[i] == 1 else t.stride(i) for i in range(3)]
+    per = _TMA_ALIGN // t.element_size()
+    if any(s % per for s in out) or t.data_ptr() % _TMA_ALIGN:
+        return None
+    return out
+
+
+def kernel_for(*tensors: torch.Tensor) -> str:
+    """Which CUDA kernel takes q, k, v and the output (``tensors``):
+    ``"tc"`` (tensor cores) for bfloat16 with D % 8 == 0 that TMA can read
+    (:func:`tma_strides`), else ``"ffma"``."""
+    t0 = tensors[0]
+    if t0.dtype != torch.bfloat16 or t0.shape[-1] % 8:
+        return "ffma"
+    if any(tma_strides(t) is None for t in tensors):
+        return "ffma"
+    return "tc"
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q (B, Hq, S, D), k/v (B, Hk, S, D) -> (B, Hq, S, D) in q's dtype:
     softmax(q k^T / sqrt(D)) v, causal unless ``causal=False``, query head
     h reading KV head h // (Hq / Hk)."""
-    global flash_attention_launches
+    global flash_attention_launches, flash_attention_tc_launches
+    global flash_attention_ffma_launches
     _check(q, k, v)
     if not runs_on_card(q, "flash_attention"):
         return flash_attention_ref(q, k, v, causal=causal)
@@ -69,11 +111,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out.numel() == 0:
         return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _build.lib().madlib_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], b, hq, k.shape[1], s, d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3], 1.0 / (d ** 0.5), int(causal), stream)
-    _build.check("flash_attention", err)
+    scale = 1.0 / (d ** 0.5)
+    if kernel_for(q, k, v, out) == "tc":
+        strides = [st for t in (q, k, v, out) for st in tma_strides(t)]
+        err = _build.lib().madlib_flash_attention_tc(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
+            k.shape[1], s, d, *strides, scale, int(causal), stream)
+        _build.check("flash_attention_tc", err)
+        flash_attention_tc_launches += 1
+    else:
+        err = _build.lib().madlib_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPES[q.dtype], b, hq, k.shape[1], s, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], scale, int(causal), stream)
+        _build.check("flash_attention", err)
+        flash_attention_ffma_launches += 1
     flash_attention_launches += 1
     return out

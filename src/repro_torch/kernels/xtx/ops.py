@@ -3,6 +3,10 @@
 On a CUDA tensor it checks the inputs and launches the kernel, or
 raises; on a CPU tensor it runs the plain version in ``ref.py``.
 ``xtx_launches`` counts the kernel's launches (one per call on the card).
+
+The kernel computes only the upper triangle of the Gram matrix of
+``A = [x | y]``; ``csrc/xtx.cu`` lays out its work units and micro-tiles.
+:func:`splits_for` chooses its row splits.
 """
 
 from __future__ import annotations
@@ -16,8 +20,9 @@ from .ref import xtx_xty_ref
 # launches of the CUDA kernel pair (partial + fixed-order reduce)
 xtx_launches = 0
 
-_CHUNK = 32          # rows per shared-memory step in the kernel
-_TILE = 64           # output tile edge in the kernel
+_CHUNK = 32          # rows per staged chunk in the kernel
+_TILE = 176          # column tile of [x | y] in the kernel (22 blocks)
+_CTAS_PER_SM = 2     # the kernel's 256-thread CTAs resident on an SM
 # rows per split at most: bounds each f32 accumulation chain in the kernel
 _MAX_SPLIT_ROWS = 8192
 
@@ -37,12 +42,14 @@ def _check(x: torch.Tensor, y: torch.Tensor) -> None:
 
 
 def splits_for(n: int, k: int, sm_count: int) -> tuple[int, int]:
-    """(row splits, rows per split): about four CTAs per SM over the
-    output tiles, each split between one staged chunk and
-    ``_MAX_SPLIT_ROWS`` rows."""
-    edge = -(-(k + 1) // _TILE)
-    want = max(1, -(-4 * sm_count // (edge * edge)))
-    rows = min(_MAX_SPLIT_ROWS, max(_CHUNK, -(-n // want)))
+    """(row splits, rows per split): splits of at most ``_MAX_SPLIT_ROWS``
+    rows and at least one staged chunk, as many as fill whole waves of
+    ``_CTAS_PER_SM`` CTAs per SM over the kernel's T^2 units of a split
+    (T column tiles of ``_TILE``)."""
+    t = -(-(k + 1) // _TILE)
+    per_wave = max(1, _CTAS_PER_SM * sm_count // (t * t))
+    waves = -(-(-(-n // _MAX_SPLIT_ROWS)) // per_wave)
+    rows = min(_MAX_SPLIT_ROWS, max(_CHUNK, -(-n // (waves * per_wave))))
     return max(1, -(-n // rows)), rows
 
 

@@ -60,6 +60,24 @@ def test_xtx_kernel_matches_plain(cuda_device, n, k):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("k", [3, 63, 64, 127, 128, 130, 160, 175, 176,
+                               200, 300])
+def test_xtx_upper_triangle_bitwise_and_symmetric(cuda_device, k):
+    """K around the 8-column micro-tile edges and past the 176-column tile
+    (several units, halves of tile pairs), on dyadic data: bitwise the
+    plain version, X^T X bitwise symmetric; more than one split, so the
+    ordered reduce runs."""
+    n = 20_000 + k
+    draw = Draw(7 * k)
+    x = torch.from_numpy(draw.dyadic((n, k))).to(cuda_device)
+    y = torch.from_numpy(draw.dyadic((n,))).to(cuda_device)
+    got = xtx_ops.xtx_xty(x, y)
+    want = xtx_ref.xtx_xty_ref(x, y)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[0], got[0].T)
+
+
 @pytest.mark.parametrize("pattern,pad_to", [("uniform", None),
                                             ("skewed", 7), ("empty", 3),
                                             ("singleton", None)])
@@ -320,6 +338,18 @@ def _flash_inputs(cuda_device, b, hq, hk, s, d, dtype=torch.float32):
             for shape in ((b, hq, s, d), (b, hk, s, d), (b, hk, s, d))]
 
 
+def _bf16_row_ratio(got, want):
+    """The worst row (b, h, s) of a bf16 output: max |got - want| along D
+    over max |want| along D (0 where both are 0).  One bf16 step of every
+    row keeps it within 2^-7, also late causal rows, whose values are far
+    below the first rows'."""
+    want = want.float()
+    err = (got.float() - want).abs().amax(-1)
+    scale = want.abs().amax(-1)
+    ratio = torch.where(err == 0, torch.zeros_like(err), err / scale)
+    return float(ratio.max())
+
+
 @pytest.mark.parametrize("b,hq,hk,s,d,causal", [
     (1, 2, 1, 128, 64, True), (2, 4, 2, 256, 64, True),
     (1, 8, 1, 128, 128, False), (1, 2, 2, 64, 32, True),
@@ -335,6 +365,87 @@ def test_flash_attention_kernel_matches_plain(cuda_device, b, hq, hk, s, d,
     assert fa_ops.flash_attention_launches == before + 1
     assert got.shape == want.shape and got.dtype == torch.float32
     assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,hq,hk", [(1, 4, 1), (3, 6, 2)])
+@pytest.mark.parametrize("s", [1, 77, 300, 1000])
+@pytest.mark.parametrize("d", [16, 64, 96, 128])
+def test_flash_attention_tc_kernel_matches_plain(cuda_device, d, s, b, hq, hk,
+                                                 causal):
+    """bf16 through the tensor-core kernel, every D of the repo's configs,
+    ragged S, GQA; within one bf16 step (2^-7) of max |plain|, overall and
+    row by row."""
+    q, k, v = _flash_inputs(cuda_device, b, hq, hk, s, d, torch.bfloat16)
+    before = (fa_ops.flash_attention_launches,
+              fa_ops.flash_attention_tc_launches,
+              fa_ops.flash_attention_ffma_launches)
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    want = fa_ref.flash_attention_ref(q, k, v, causal=causal).float()
+    torch.cuda.synchronize()
+    assert (fa_ops.flash_attention_launches,
+            fa_ops.flash_attention_tc_launches,
+            fa_ops.flash_attention_ffma_launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    err = float((got.float() - want).abs().max())
+    assert err <= 2.0 ** -7 * float(want.abs().max())
+    assert _bf16_row_ratio(got, want) <= 2.0 ** -7
+
+
+def test_flash_attention_bf16_odd_d_takes_the_ffma_kernel(cuda_device):
+    """bf16 with D % 8 != 0 goes through the FFMA kernel, by rule."""
+    q, k, v = _flash_inputs(cuda_device, 1, 4, 2, 77, 20, torch.bfloat16)
+    before = (fa_ops.flash_attention_tc_launches,
+              fa_ops.flash_attention_ffma_launches)
+    got = fa_ops.flash_attention(q, k, v)
+    want = fa_ref.flash_attention_ref(q, k, v).float()
+    torch.cuda.synchronize()
+    assert (fa_ops.flash_attention_tc_launches,
+            fa_ops.flash_attention_ffma_launches) == (before[0],
+                                                      before[1] + 1)
+    err = float((got.float() - want).abs().max())
+    assert err <= 2.0 ** -7 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("layout", ["stride", "pointer"])
+def test_flash_attention_bf16_unaligned_takes_the_ffma_kernel(cuda_device,
+                                                               layout):
+    """bf16 with D % 8 == 0 that TMA cannot read (a position stride of 28
+    elements, or a pointer 2 bytes past 16) goes through the FFMA kernel,
+    by rule, and matches the plain version."""
+    q, k, v = _flash_inputs(cuda_device, 1, 4, 2, 64, 24, torch.bfloat16)
+    if layout == "stride":
+        odd = torch.zeros((1, 4, 64, 28), dtype=torch.bfloat16,
+                          device=cuda_device)[..., :24]
+    else:
+        odd = torch.zeros(1 + q.numel(), dtype=torch.bfloat16,
+                          device=cuda_device)[1:].view(q.shape)
+    odd.copy_(q)
+    before = (fa_ops.flash_attention_tc_launches,
+              fa_ops.flash_attention_ffma_launches)
+    got = fa_ops.flash_attention(odd, k, v)
+    want = fa_ref.flash_attention_ref(q, k, v).float()
+    torch.cuda.synchronize()
+    assert (fa_ops.flash_attention_tc_launches,
+            fa_ops.flash_attention_ffma_launches) == (before[0],
+                                                      before[1] + 1)
+    err = float((got.float() - want).abs().max())
+    assert err <= 2.0 ** -7 * float(want.abs().max())
+
+
+def test_flash_attention_tc_causality(cuda_device):
+    """bf16: keys and values after position 40 do not move the outputs
+    before it by a bit."""
+    q, k, v = _flash_inputs(cuda_device, 1, 2, 1, 200, 128, torch.bfloat16)
+    base = fa_ops.flash_attention(q, k, v)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, 40:] += 10.0
+    v2[:, :, 40:] += 10.0
+    pert = fa_ops.flash_attention(q, k2, v2)
+    assert torch.equal(base[:, :, :40], pert[:, :, :40])
+    assert float((base[:, :, 41:].float()
+                  - pert[:, :, 41:].float()).abs().max()) > 1e-3
 
 
 def test_flash_attention_kernel_bf16_and_strided(cuda_device):

@@ -147,3 +147,61 @@ def test_registry_resolves_ref_on_cpu_and_rejects_forced_cuda():
     with pytest.raises(ValueError, match="only on the card"):
         registry.dispatch("flash_attention", q, k, v, impl="cuda")
 
+
+@pytest.mark.parametrize("dtype,d,kernel", [
+    (torch.bfloat16, 128, "tc"), (torch.bfloat16, 96, "tc"),
+    (torch.bfloat16, 64, "tc"), (torch.bfloat16, 16, "tc"),
+    (torch.bfloat16, 8, "tc"), (torch.bfloat16, 20, "ffma"),
+    (torch.bfloat16, 1, "ffma"), (torch.float32, 128, "ffma"),
+    (torch.float32, 16, "ffma")])
+def test_wrapper_picks_the_kernel_by_dtype_and_d(dtype, d, kernel):
+    """Dense bf16 with D % 8 == 0 -> the tensor-core kernel; f32, and bf16
+    with D % 8 != 0 (TMA's 16-byte rows) -> the FFMA kernel."""
+    t = torch.zeros((2, 3, 5, d), dtype=dtype)
+    assert fa_ops.kernel_for(t, t, t, torch.empty_like(t)) == kernel
+
+
+def test_every_dense_config_takes_the_tensor_core_kernel():
+    """Every D of the configs the port serves (dense: 128, 96, 64; the
+    reduced configs' 16, cast to bf16) goes through the tensor cores in
+    bf16, also as the model's (B, S, H, D) projections seen through
+    ``transpose(1, 2)``."""
+    from repro_torch.configs import ARCHS, get_config, reduced_config
+    dense = [a for a in ARCHS if get_config(a).family == "dense"]
+    assert dense
+    for arch in dense:
+        cfg = get_config(arch)
+        assert cfg.dtype == "bfloat16"
+        for d in (cfg.d_head, reduced_config(arch).d_head):
+            t = torch.zeros((2, 7, 4, d), dtype=torch.bfloat16)
+            assert fa_ops.kernel_for(t.transpose(1, 2)) == "tc", (arch, d)
+
+
+def test_tma_strides():
+    """The tensor-core kernel's strides: a (B, S, H, D) view keeps its
+    own; an axis of size 1 takes a contiguous tensor's; a used stride
+    that is not a multiple of 8 elements gives None."""
+    t = torch.zeros((2, 9, 4, 16), dtype=torch.bfloat16).transpose(1, 2)
+    assert fa_ops.tma_strides(t) == [576, 16, 64]
+    one = torch.zeros((1, 4, 3, 24), dtype=torch.bfloat16)[:, :, :1]
+    assert fa_ops.tma_strides(one) == [96, 72, 24]
+    assert fa_ops.tma_strides(torch.zeros((2, 4, 9, 20),
+                                          dtype=torch.bfloat16)[..., :16]) \
+        is None
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v", "out"])
+@pytest.mark.parametrize("layout", ["stride", "pointer"])
+def test_wrapper_sends_bf16_tma_cannot_read_to_ffma(which, layout):
+    """bf16 with D % 8 == 0 that TMA cannot read, in any one of q, k, v
+    or the output, takes the FFMA kernel, which reads any strides: a
+    position stride of 20 elements, or a data pointer 2 bytes past 16."""
+    dense = torch.zeros((1, 4, 9, 16), dtype=torch.bfloat16)
+    if layout == "stride":
+        odd = torch.zeros((1, 4, 9, 20), dtype=torch.bfloat16)[..., :16]
+    else:
+        odd = torch.zeros(1 + dense.numel(),
+                          dtype=torch.bfloat16)[1:].view(dense.shape)
+    assert fa_ops.tma_strides(odd) is None
+    ts = {"q": dense, "k": dense, "v": dense, "out": dense, which: odd}
+    assert fa_ops.kernel_for(ts["q"], ts["k"], ts["v"], ts["out"]) == "ffma"

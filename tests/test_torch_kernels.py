@@ -435,3 +435,141 @@ def test_kmeans_assign_splits_bound_the_scratch():
     big = km_ops.splits_for(1_000_000, 1024, 256, 132)
     assert big * 4 * (1024 * 256 + 1024) <= km_ops.SCRATCH_BYTES
     assert big >= 100
+
+
+# -- xtx's upper-triangle plan (what the CUDA kernel's grid enumerates) -----
+# csrc/xtx.cu (unit_of, micro_of) is the source of truth; _units and
+# _micro_tiles restate its plan so that its coverage can be checked here,
+# and the card tests hold the kernel itself bitwise for K up to 300.
+
+_TILE, _MICRO, _THREADS = 176, 8, 256
+
+
+def _units(w: int) -> list[tuple[int, int, int]]:
+    """The kernel's work units over a width-``w`` matrix, in its order
+    (CTA u of a split takes unit u): for each 176-column tile ti, its
+    triangle ``(ti, ti, -1)``, then for each tj > ti the two halves
+    ``(ti, tj, 0)`` and ``(ti, tj, 1)`` of the tile pair."""
+    t = -(-w // _TILE)
+    out = []
+    for i in range(t):
+        out.append((i, i, -1))
+        out += [(i, j, h) for j in range(i + 1, t) for h in (0, 1)]
+    return out
+
+
+def _micro_tiles(w: int, unit: tuple[int, int, int]) -> list[tuple[int, int]]:
+    """The 8 x 8 micro-tiles (first row, first column) that ``unit``
+    computes, one per thread: the triangle a <= b of its tile, or micro
+    rows 11 h .. 11 h + 10 of tile ti against all of tile tj; only those
+    that start inside the width (entries past w, or below the diagonal
+    inside a diagonal micro-tile, are computed and not read)."""
+    ti, tj, half = unit
+    nb = _TILE // _MICRO
+    if half < 0:
+        pairs = [(a, b) for a in range(nb) for b in range(a, nb)]
+    else:
+        pairs = [(a, b) for a in range(nb // 2 * half, nb // 2 * (half + 1))
+                 for b in range(nb)]
+    assert len(pairs) <= _THREADS
+    return [(ti * _TILE + _MICRO * a, tj * _TILE + _MICRO * b)
+            for a, b in pairs
+            if ti * _TILE + _MICRO * a < w and tj * _TILE + _MICRO * b < w]
+
+
+def _plan_entries(w: int):
+    """Every (a, b) that the kernel's units and micro-tiles read back:
+    a <= b < w, from micro-tiles on or above the diagonal."""
+    seen = {}
+    for unit in _units(w):
+        for a0, b0 in _micro_tiles(w, unit):
+            for a in range(a0, min(a0 + 8, w)):
+                for b in range(max(b0, a), min(b0 + 8, w)):
+                    seen[a, b] = seen.get((a, b), 0) + 1
+    return seen
+
+
+def test_xtx_units_cover_the_upper_triangle_once():
+    """For every K from 1 to 300, the units' micro-tiles hold each entry
+    (a, b), a <= b <= K, of the (K + 1)-wide Gram exactly once."""
+    for k in range(1, 301):
+        w = k + 1
+        seen = _plan_entries(w)
+        assert len(seen) == w * (w + 1) // 2, k
+        assert set(seen.values()) == {1}, k
+        assert all(a <= b < w for a, b in seen), k
+
+
+@pytest.mark.parametrize("k", [3, 7, 16, 63, 64, 127, 128, 130, 160, 176,
+                               300])
+def test_xtx_micro_tiles_skip_the_lower_half(k):
+    """ceil(w / 8) (ceil(w / 8) + 1) / 2 micro-tiles in all (231 at
+    K = 160, one unit), each starting on or above the diagonal; T^2 units
+    for T column tiles of 176, each at most 256 micro-tiles (one per
+    thread)."""
+    w = k + 1
+    units = _units(w)
+    t = -(-w // _TILE)
+    assert len(units) == len(set(units)) == t * t
+    assert all(i <= j and (h < 0) == (i == j) for i, j, h in units)
+    per_unit = [_micro_tiles(w, u) for u in units]
+    assert all(len(m) <= 256 for m in per_unit)
+    tiles = [m for ms in per_unit for m in ms]
+    c = -(-w // 8)
+    assert len(tiles) == len(set(tiles)) == c * (c + 1) // 2
+    assert all(a <= b < w for a, b in tiles)
+    if k == 160:
+        assert len(units) == 1 and len(tiles) == 231
+
+
+def test_xtx_splits_for():
+    """Row splits: at most 8192 rows and at least one staged chunk each,
+    covering every row once, in whole waves of two CTAs per SM over the
+    units (10M x 160 on 132 SMs: 1320 splits of 7576 rows, 5 waves)."""
+    assert xtx_ops.splits_for(10_000_000, 160, 132) == (1320, 7576)
+    for n, k in [(1, 3), (31, 7), (4096, 7), (100_000, 80), (4099, 130),
+                 (10_000_000, 160), (123_457, 300), (10_000_000, 400)]:
+        splits, rows = xtx_ops.splits_for(n, k, 132)
+        assert 32 <= rows <= 8192
+        assert (splits - 1) * rows < n <= splits * rows
+    splits, rows = xtx_ops.splits_for(100_000, 80, 132)
+    assert splits == 2 * 132
+
+
+def _emulate_xtx(x: np.ndarray, y: np.ndarray, sm_count: int):
+    """The kernel's plan in numpy f32: per split, each micro-tile's f32
+    FMA chain over its rows in order (an exact product and one rounding
+    per row on dyadic data), then the splits added in order and the upper
+    triangle mirrored."""
+    n, k = x.shape
+    w = k + 1
+    aug = np.concatenate([x, y[:, None]], axis=1).astype(np.float32)
+    splits, rows = xtx_ops.splits_for(n, k, sm_count)
+    parts = np.zeros((splits, w, w), np.float32)
+    for s in range(splits):
+        blk = aug[s * rows:(s + 1) * rows]
+        for unit in _units(w):
+            for a0, b0 in _micro_tiles(w, unit):
+                acc = np.zeros((min(8, w - a0), min(8, w - b0)), np.float32)
+                for row in blk:
+                    acc += np.outer(row[a0:a0 + 8], row[b0:b0 + 8])
+                parts[s, a0:a0 + 8, b0:b0 + 8] = acc
+    total = np.zeros((w, w), np.float32)
+    for s in range(splits):
+        total += parts[s]
+    full = np.triu(total) + np.triu(total, 1).T
+    return full[:k, :k], full[:k, k]
+
+
+@pytest.mark.parametrize("n,k", [(100, 3), (70, 63), (40, 190)])
+def test_xtx_plan_matches_jax_on_dyadic_data(n, k):
+    """The kernel's plan (splits, units, micro-tiles, ordered reduce,
+    mirrored triangle) gives the JAX oracle's bits on dyadic data, and a
+    bitwise symmetric X^T X."""
+    draw = Draw(n * k)
+    x, y = draw.dyadic((n, k)), draw.dyadic((n,))
+    got_xtx, got_xty = _emulate_xtx(x, y, sm_count=1)
+    want_xtx, want_xty = jxtx_ref.xtx_xty_ref(x, y)
+    np.testing.assert_array_equal(got_xtx, np.asarray(want_xtx))
+    np.testing.assert_array_equal(got_xty, np.asarray(want_xty))
+    np.testing.assert_array_equal(got_xtx, got_xtx.T)
