@@ -855,7 +855,8 @@ def main() -> int:
     print(f"[build] {_build.last_build['seconds']:.1f} s -> {_build.LIB_PATH}")
     for line in _build.last_build["ptxas"]:
         print(f"[build] {line}")
-    for key in ("flash_attention_tc", "flash_attention_kernel", "xtx_"):
+    for key in ("flash_attention_tc", "flash_attention_kernel", "xtx_",
+                "kmeans_assign", "segment_partial", "segment_reduce"):
         lines = ptxas_for(_build.last_build["ptxas"], key)
         require(bool(lines), f"build: no ptxas lines for {key}")
         for line in lines:
@@ -908,20 +909,54 @@ def main() -> int:
               "symmetric")
         del x, y, got, plain, exact
 
-    def segment_layout(cols, num_groups, used, sentinels, base=None):
+    def segment_layout(cols, num_groups, used, sentinels, base=None,
+                       block=4096, gen=gen):
         """A real aligned_blocks layout: ids 0..used-1 only (the rest are
         empty groups), padded by pad_blocks_to with ``sentinels`` blocks."""
         n = next(iter(cols.values())).shape[0]
         g = torch.randint(0, used, (n,), generator=gen, dtype=torch.int32,
                           device=dev)
         view = Table({**cols, "g": g}).group_by("g", num_groups)
-        real = int((-(-view.counts.long() // 4096)).sum())
+        real = int((-(-view.counts.long() // block)).sum())
         pbase = None if base is None else view.permute(base)
         out, valid, bgids = view.aligned_blocks(
-            4096, pbase, pad_blocks_to=real + sentinels)
+            block, pbase, pad_blocks_to=real + sentinels)
         require(int((bgids == num_groups).sum()) == sentinels,
                 "sentinel blocks")
         return out, valid, bgids
+
+    # segment_linregr at the edges of its plan: A's width k + 2 below, at
+    # and past one 176-column tile (tile pairs and halves), blocks of one
+    # row split (64, 4096) and of two (9000 > 8192 rows), a ragged base
+    # mask, 8 empty groups and 5 sentinel blocks; dyadic, so bitwise.  A
+    # generator of their own, so that the main path's draws stay.
+    gen_e = torch.Generator(device=dev)
+    gen_e.manual_seed(SEED + 16)
+    for k, block in ((1, 64), (7, 9000), (160, 64), (174, 4096),
+                     (175, 9000), (300, 4096), (300, 9000)):
+        n = 200_000
+        cols, valid, bgids = segment_layout(
+            {"x": dyadic(torch, gen_e, (n, k), dev),
+             "y": dyadic(torch, gen_e, (n,), dev)}, G_MAIN, G_MAIN - 8, 5,
+            base=torch.rand((n,), generator=gen_e, device=dev) < 0.8,
+            block=block, gen=gen_e)
+        args = (cols["x"], cols["y"], valid, bgids)
+        got = sf_ops.segment_linregr(*args, num_groups=G_MAIN)
+        want = segment_linregr_ref(*args, num_groups=G_MAIN)
+        torch.cuda.synchronize()
+        require(all(torch.equal(got[q], want[q]) for q in want),
+                f"segment_linregr (k {k}, block {block}) dyadic: not bitwise "
+                f"equal (max err {max_err(torch, got, want)[0]})")
+        require(torch.equal(got["xtx"], got["xtx"].transpose(1, 2)),
+                f"segment_linregr (k {k}, block {block}): x^T x not "
+                "bitwise symmetric")
+        require(all(float(got[q][G_MAIN - 8:].abs().max()) == 0.0
+                    for q in got), "segment_linregr: empty groups not zero")
+        print(f"[kernels] segment_linregr ({n}, {k}), block {block}, "
+              f"{bgids.shape[0]} blocks, G={G_MAIN} with 8 empty groups and "
+              "5 sentinel blocks, ragged mask: dyadic bitwise, x^T x "
+              "bitwise symmetric")
+        del cols, valid, bgids, args, got, want
 
     for label, make in (("dyadic", dyadic),
                         ("gaussian", lambda t, g_, s, d: torch.randn(
@@ -938,9 +973,10 @@ def main() -> int:
         require(all(float(got[q][G_MAIN - 8:].abs().max()) == 0.0
                     for q in got), "segment_linregr: empty groups not zero")
         if label == "dyadic":
-            require(all(torch.equal(got[q], want[q]) for q in want),
-                    "segment_linregr dyadic: not bitwise equal (max err "
-                    f"{max_err(torch, got, want)[0]})")
+            require(all(torch.equal(got[q], want[q]) for q in want)
+                    and torch.equal(got["xtx"], got["xtx"].transpose(1, 2)),
+                    "segment_linregr dyadic: not bitwise equal and "
+                    f"symmetric (max err {max_err(torch, got, want)[0]})")
             print(f"[kernels] segment_linregr ({N_MAIN}, {K_MAIN}), "
                   f"{bgids.shape[0]} blocks, G={G_MAIN} with 8 empty groups "
                   "and sentinel blocks: dyadic bitwise")
@@ -1017,6 +1053,34 @@ def main() -> int:
     def dyadic_normal(shape, scale):
         return (torch.randn(shape, generator=gen, device=dev) * scale
                 * 8).round() / 8
+
+    # each size class of the register tile (1, 2 or 4 lanes a row, passes
+    # of 32 centroids) at, below and past its edge, against rows of 1
+    # column (4-byte copies), 17, 32 (16-byte copies) and 33 (two staged
+    # chunks); two equal centroids at the origin: the lower index must win
+    # every tie
+    for k in (1, 8, 9, 16, 17, 32, 33, 64):
+        for d in (1, 17, 32, 33):
+            n = 20_000
+            m = (torch.rand((n,), generator=gen_e, device=dev) < 0.9).float()
+            x = (torch.randn((n, d), generator=gen_e, device=dev)
+                 * 8).round() / 8
+            c = (torch.randn((k, d), generator=gen_e, device=dev)
+                 * 16).round() / 8
+            if k > 1:
+                c[0] = 0.0
+                c[1] = 0.0
+            got = km_ops.assign_and_reduce(x, c, m)
+            want = assign_and_reduce_ref(x, c, m)
+            bitwise(torch, f"kmeans_assign ({n}, {d}, {k}) assign",
+                    got[0].long(), want[0])
+            for q, a, b in zip(("mind", "sums", "counts"), got[1:], want[1:]):
+                bitwise(torch, f"kmeans_assign ({n}, {d}, {k}) {q}", a, b)
+            require(k == 1 or not bool((got[0] == 1).any()),
+                    f"kmeans_assign ({n}, {d}, {k}): a tie went to the "
+                    "higher index")
+    print("[kernels] kmeans_assign (20000, d in {1, 17, 32, 33}, k in {1, 8, "
+          "9, 16, 17, 32, 33, 64}) dyadic, ties at the origin: bitwise")
 
     for n, d, k, case in ((256, 2, 4, ""), (777, 17, 9, ""),
                           (1024, 64, 32, ""), (100, 3, 5, ""),
@@ -1345,6 +1409,9 @@ def main() -> int:
     print(f"[main] kmeans++ seeding, k = {K_KM} over {N_MAIN} x {D_KM}: "
           f"{s_seed:.3f} s ({K_KM - 1} fused scans)")
     km = {}
+    # the main path's kmeans_assign launches by shape: the solo fits at
+    # (N_MAIN, D_KM, K_KM), the grouped fit over one group's rows at a time
+    km_launches = {"solo": 0, "grouped": 0}
     for name, kw in (("kernel, from k-means++", {"seed": SEED,
                                                  "use_kernel": True}),
                      ("kernel, repeated", {"init_centroids": seeds,
@@ -1362,6 +1429,7 @@ def main() -> int:
                 f"{KM_MAX_ITERS} rounds (sse trace tail "
                 f"{res.sse_trace[-4:]})")
         want = 2 * res.n_iters if kw.get("use_kernel") else 0
+        km_launches["solo"] += launched["kmeans_assign"]
         require(launched["kmeans_assign"] == want,
                 f"kmeans_fit {name}: {launched['kmeans_assign']} "
                 f"kmeans_assign launches, want {want} (2 per round)")
@@ -1436,6 +1504,7 @@ def main() -> int:
             blobs, "g", K_KM_GROUPED, G_MAIN, use_kernel=True, **gkw))
     launched = counters.read()
     n_it = np.asarray(kg.n_iters)
+    km_launches["grouped"] = launched["kmeans_assign"]
     print(f"[main] kmeans_grouped rounds per group: {n_it.tolist()}")
     require(bool(np.all(kg.converged)), f"kmeans_grouped: groups "
             f"{np.nonzero(~kg.converged)[0].tolist()} not converged")
@@ -1659,14 +1728,37 @@ def main() -> int:
                "shape": shape, "bound_share": max(t_ops, t_bytes) / ms}
         if name in F32_OPS_KERNELS:
             row["tflops"] = op_s * PEAK_F32_FLOPS / (ms * 1e-3) / 1e12
+        if name == "kmeans_assign":
+            row["launches_by_shape"] = {
+                f"({N_MAIN}, {D_KM}, {K_KM})": km_launches["solo"],
+                f"grouped (one group's rows, {D_KM}, {K_KM_GROUPED})":
+                    km_launches["grouped"]}
         print(json.dumps({"kernel": row}))
         rows.append(row)
+
+    # kmeans_assign at the grouped fit's launch shape: one group's share of
+    # the rows (N_MAIN / G_MAIN), k = K_KM_GROUPED, from its seeds
+    n_g = N_MAIN // G_MAIN
+    xg, mg = bx[:n_g], ones[:n_g]
+    g_ms = cuda_ms(torch, lambda: km_ops.assign_and_reduce(xg, gseeds, mg),
+                   200)
+    g_plain = cuda_ms(torch, lambda: assign_and_reduce_ref(xg, gseeds, mg), 20)
+    g_ops = 2.0 * n_g * K_KM_GROUPED * D_KM / PEAK_F32_FLOPS * 1e3
+    g_bytes = (4.0 * n_g * D_KM + 12.0 * n_g
+               + 8.0 * K_KM_GROUPED * D_KM) / PEAK_BYTES * 1e3
+    print(json.dumps({"kernel_at_grouped_shape": {
+        "name": "kmeans_assign", "shape": [n_g, D_KM, K_KM_GROUPED],
+        "launches": km_launches["grouped"], "ms": g_ms, "plain_ms": g_plain,
+        "bound_ms": max(g_ops, g_bytes),
+        "bound_by": "operations" if g_ops >= g_bytes else "bytes",
+        "ops_ms": g_ops, "bytes_ms": g_bytes,
+        "bound_share": max(g_ops, g_bytes) / g_ms}}))
 
     # g. the LM path, once the analytics tables of a-f are dropped
     del (t, cols, valid, bgids, sk_cols, sk_valid, sk_bgids, bx, blobs, bg,
          view, x, y, xs, ys, items, all_rows, sk_items, ones, specs, results,
          km, km_kern, plain_fit, km_cents, t1, fg, kg, plain_g, two, fused1,
-         kern1)
+         kern1, xg, mg)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[lm] memory held after dropping the analytics tables: "

@@ -34,7 +34,7 @@ _SIGNATURES = {
                    ctypes.c_int, ctypes.c_longlong, _P],
     "madlib_segment_linregr": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_int, _P],
+                               ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
     "madlib_countmin": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_int, _P],
     "madlib_segment_countmin": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,

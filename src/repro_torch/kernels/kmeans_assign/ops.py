@@ -26,7 +26,9 @@ MAX_K = 4096               # centroid norms live in shared memory
 MAX_D = 4096
 # scratch for the per-CTA partial sums and counts, at most
 SCRATCH_BYTES = 128 << 20
-CTAS_PER_SM = 4
+# the kernel's CTAs resident on an SM at the main shape (76 KB of shared
+# memory each, its two-stage ring of 256-row tiles most of it)
+CTAS_PER_SM = 3
 
 
 def _check(x: torch.Tensor, c: torch.Tensor, m: torch.Tensor) -> None:
@@ -52,12 +54,19 @@ def _check(x: torch.Tensor, c: torch.Tensor, m: torch.Tensor) -> None:
                          f"[1, {MAX_K}] and [1, {MAX_D}]")
 
 
+def scratch_floats(k: int, d: int) -> int:
+    """Scratch per CTA: a row bitmap word per centroid and 32-row group of
+    a tile, the partial sums ``(K, D)`` and counts ``(K,)``, padded to 16
+    bytes (the kernel's ``scratch_floats``)."""
+    return ((TILE_ROWS // 32) * k + k * d + k + 3) // 4 * 4
+
+
 def splits_for(n: int, k: int, d: int, sm_count: int) -> int:
     """CTAs of the persistent assign pass: enough to fill the card, no
-    more than the row tiles, and few enough that the per-CTA partials
-    ``(K, D)`` and ``(K,)`` fit in ``SCRATCH_BYTES``."""
+    more than the row tiles, and few enough that their scratch fits in
+    ``SCRATCH_BYTES``."""
     tiles = -(-n // TILE_ROWS)
-    cap = max(1, SCRATCH_BYTES // (4 * (k * d + k)))
+    cap = max(1, SCRATCH_BYTES // (4 * scratch_floats(k, d)))
     return max(1, min(tiles, CTAS_PER_SM * sm_count, cap))
 
 
@@ -82,8 +91,8 @@ def assign_and_reduce(x: torch.Tensor, c: torch.Tensor, m: torch.Tensor):
         return assign, mind, sums.zero_(), counts.zero_()
     props = torch.cuda.get_device_properties(dev)
     splits = splits_for(n, k, d, props.multi_processor_count)
-    partials = torch.empty((splits, k * d + k), dtype=torch.float32,
-                           device=dev)
+    partials = torch.empty((splits, scratch_floats(k, d)),
+                           dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _build.lib().madlib_kmeans_assign(
         x.data_ptr(), c.data_ptr(), m.data_ptr(), assign.data_ptr(),

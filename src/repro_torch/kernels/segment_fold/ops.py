@@ -26,7 +26,9 @@ segment_countmin_launches = 0
 segment_fm_launches = 0
 
 _GRID_YZ_MAX = 65535
-_TILE = 64
+# rows per split at most: a block larger than this is cut into row splits
+# (xtx's cap on each f32 accumulation chain)
+_MAX_SPLIT_ROWS = 8192
 
 
 def _layout(n2: int, nb: int) -> int:
@@ -56,6 +58,13 @@ def _check(x, y, valid, bgids) -> None:
         raise ValueError("segment_linregr: inputs must be contiguous")
 
 
+def block_splits(bs: int) -> tuple[int, int]:
+    """(row splits per block, rows per split): the fewest splits of at
+    most ``_MAX_SPLIT_ROWS`` rows that cover a block of ``bs`` rows."""
+    splits = max(1, -(-bs // _MAX_SPLIT_ROWS))
+    return splits, -(-bs // splits)
+
+
 def segment_linregr(x, y, valid, bgids, *, num_groups: int):
     """(N2,K) x, (N2,) y, (N2,) valid, (nb,) bgids -> stacked (G, ...)
     linregr state dict (fold-from-zero)."""
@@ -68,14 +77,17 @@ def segment_linregr(x, y, valid, bgids, *, num_groups: int):
         return segment_linregr_ref(x, y, valid, bgids,
                                    num_groups=num_groups)
     w = k + 2
-    if -(-w // _TILE) > _GRID_YZ_MAX or -(-w * w // 256) > _GRID_YZ_MAX:
+    packed = w * (w + 1) // 2   # the upper triangle of a block's Gram
+    if -(-packed // 256) > _GRID_YZ_MAX:
         raise ValueError(f"segment_linregr: K={k} is too wide for the "
                          "kernel's grid")
-    if max(nb, bs, num_groups) >= 2 ** 31:
+    splits, rows = block_splits(bs)
+    if max(nb * splits, bs, num_groups) >= 2 ** 31:
         raise ValueError("segment_linregr: too many blocks, rows per block "
                          "or groups for the kernel's int arguments")
     dev = x.device
-    partials = torch.empty((nb, w, w), dtype=torch.float32, device=dev)
+    partials = torch.empty((nb * splits, packed), dtype=torch.float32,
+                           device=dev)
     # pass 2 writes every element of every group, empty ones as zeros
     shapes = {"xtx": (num_groups, k, k), "xty": (num_groups, k),
               "y_sum": (num_groups,), "y_sq": (num_groups,),
@@ -87,7 +99,7 @@ def segment_linregr(x, y, valid, bgids, *, num_groups: int):
         x.data_ptr(), y.data_ptr(), valid.data_ptr(), bgids.data_ptr(),
         partials.data_ptr(), out["xtx"].data_ptr(), out["xty"].data_ptr(),
         out["y_sum"].data_ptr(), out["y_sq"].data_ptr(),
-        out["n"].data_ptr(), nb, bs, k, num_groups, stream)
+        out["n"].data_ptr(), nb, bs, k, num_groups, splits, rows, stream)
     _build.check("segment_linregr", err)
     segment_linregr_launches += 1
     return out

@@ -5,7 +5,8 @@ raises; on a CPU tensor it runs the plain version in ``ref.py``.
 ``xtx_launches`` counts the kernel's launches (one per call on the card).
 
 The kernel computes only the upper triangle of the Gram matrix of
-``A = [x | y]``; ``csrc/xtx.cu`` lays out its work units and micro-tiles.
+``A = [x | y]``; ``csrc/gram_upper.cuh`` lays out its work units and
+micro-tiles (shared with ``segment_linregr``).
 :func:`splits_for` chooses its row splits.
 """
 

@@ -119,7 +119,7 @@ def linregr(table: Table, *, x_col: str = "x", y_col: str = "y",
     statement through the planner."""
     return execute(ScanAgg(LinregrAggregate(use_kernel), table,
                            columns={"x": x_col, "y": y_col},
-                           block_size=block_size))
+                           block_size=block_size, label="linregr"))
 
 
 def linregr_grouped(table: Table, key_col: str,
@@ -131,4 +131,5 @@ def linregr_grouped(table: Table, key_col: str,
     axis.  The partitioning sort is shared through the group_by memo."""
     return execute(GroupedScanAgg(
         LinregrAggregate(use_kernel), table, key_col, num_groups,
-        columns={"x": x_col, "y": y_col}, block_size=block_size))
+        columns={"x": x_col, "y": y_col}, block_size=block_size,
+        label="linregr_grouped"))

@@ -99,6 +99,36 @@ def test_segment_linregr_kernel_matches_plain(cuda_device, pattern, pad_to):
     assert all(torch.equal(got[q], want[q]) for q in want)
 
 
+@pytest.mark.parametrize("block", [64, 4096, 9000])
+@pytest.mark.parametrize("k", [1, 7, 160, 174, 175, 300])
+def test_segment_linregr_upper_triangle_bitwise_and_symmetric(cuda_device, k,
+                                                              block):
+    """A = [x m | y m | m] below, at and past one 176-column tile (w = 162,
+    176, 177 and 302: tile pairs and their halves), blocks of one row split
+    (64, 4096) and of two (9000 > 8192 rows), a ragged base mask, empty
+    groups and sentinel blocks: bitwise the plain version on dyadic data,
+    every group's x^T x bitwise symmetric, the empty groups zero."""
+    draw = Draw(31 * k + block)
+    G, n = 6, 20_000
+    gids, _ = group_layout(draw, n, G, "empty")
+    t = Table.from_columns({"x": draw.dyadic((n, k)), "y": draw.dyadic((n,)),
+                            "g": gids}, device=cuda_device)
+    mask = torch.from_numpy(draw.bools((n,), p=0.8)).to(cuda_device)
+    view = t.group_by("g", G)
+    cols, valid, bgids = view.aligned_blocks(block, view.permute(mask),
+                                             pad_blocks_to=7)
+    args = (cols["x"], cols["y"], valid, bgids)
+    got = sf_ops.segment_linregr(*args, num_groups=G)
+    want = sf_ref.segment_linregr_ref(*args, num_groups=G)
+    torch.cuda.synchronize()
+    assert all(torch.equal(got[q], want[q]) for q in want)
+    assert torch.equal(got["xtx"], got["xtx"].transpose(1, 2))
+    empty = torch.bincount(torch.from_numpy(gids).long(), minlength=G) == 0
+    assert bool(empty.any())
+    assert all(float(got[q][empty.to(cuda_device)].abs().sum()) == 0.0
+               for q in got)
+
+
 def test_main_path_goes_through_the_kernels(cuda_device):
     draw = Draw(3)
     n = 20_000
@@ -278,11 +308,14 @@ def _km_inputs(draw, n, d, k, cuda_device, dup=False):
 @pytest.mark.parametrize("n,d,k,dup", [
     (256, 2, 4, False), (777, 17, 9, False), (1024, 64, 32, False),
     (100, 3, 5, False), (5000, 8, 6, True), (3000, 5, 1, False),
-    (70_000, 40, 100, False), (2000, 300, 700, False)])
+    (70_000, 40, 100, False), (2000, 300, 700, False),
+    (3000, 32, 600, True)])
 def test_kmeans_assign_kernel_matches_plain(cuda_device, n, d, k, dup):
     """Bitwise on dyadic data, duplicate centroids (the lower index wins)
     and K = 1 included; (2000, 300, 700) keeps its partials in global
-    memory, (70,000, 40, 100) stages x in two column chunks."""
+    memory, (70,000, 40, 100) stages x in two column chunks, and
+    (3000, 32, 600) stages whole rows in the ring with the centroids, the
+    partial and the row bitmaps too large for shared memory."""
     draw = Draw(n + d + k)
     x, c, m = _km_inputs(draw, n, d, k, cuda_device, dup)
     before = km_ops.kmeans_assign_launches
@@ -296,6 +329,42 @@ def test_kmeans_assign_kernel_matches_plain(cuda_device, n, d, k, dup):
         assert torch.equal(g, w)
     if dup:
         assert not bool((got[0] == 1).any()) and bool((got[0] == 0).any())
+
+
+@pytest.mark.parametrize("d", [1, 17, 32, 33])
+@pytest.mark.parametrize("k", [1, 8, 9, 16, 17, 32, 33, 64])
+def test_kmeans_assign_size_classes_bitwise(cuda_device, k, d):
+    """Each size class of the register tile (1, 2 or 4 lanes a row,
+    passes of 32 centroids) at, below and past its edge, rows of one
+    column (4-byte copies), 17, 32 (16-byte copies) and 33 (two staged
+    chunks): bitwise the plain version on dyadic data; with two equal
+    centroids at the origin, ties take the lower index."""
+    n = 4099
+    draw = Draw(1000 * k + d)
+    x, c, m = _km_inputs(draw, n, d, k, cuda_device, k > 1)
+    got = km_ops.assign_and_reduce(x, c, m)
+    want = km_ref.assign_and_reduce_ref(x, c, m)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].long(), want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
+    if k > 1:
+        assert not bool((got[0] == 1).any()) and bool((got[0] == 0).any())
+
+
+def test_kmeans_assign_unaligned_rows(cuda_device):
+    """x whose base is off 16 bytes takes 4-byte copies: same bits."""
+    draw = Draw(77)
+    x, c, m = _km_inputs(draw, 3000, 32, 64, cuda_device, True)
+    flat = torch.empty(x.numel() + 1, device=cuda_device)
+    xu = flat[1:].view(x.shape)
+    xu.copy_(x)
+    assert xu.is_contiguous() and xu.data_ptr() % 16 != 0
+    got = km_ops.assign_and_reduce(xu, c, m)
+    want = km_ops.assign_and_reduce(x, c, m)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_kmeans_fit_goes_through_the_kernel(cuda_device):

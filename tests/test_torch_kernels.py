@@ -431,14 +431,15 @@ def test_kmeans_assign_splits_bound_the_scratch():
     """The persistent grid never exceeds the row tiles, fills the card
     otherwise, and keeps the partials within the scratch cap."""
     assert km_ops.splits_for(100, 64, 32, 132) == 1
-    assert km_ops.splits_for(10_000_000, 64, 32, 132) == 4 * 132
+    assert km_ops.splits_for(10_000_000, 64, 32, 132) == 3 * 132
     big = km_ops.splits_for(1_000_000, 1024, 256, 132)
-    assert big * 4 * (1024 * 256 + 1024) <= km_ops.SCRATCH_BYTES
+    assert big * 4 * km_ops.scratch_floats(1024, 256) <= km_ops.SCRATCH_BYTES
+    assert km_ops.scratch_floats(1024, 256) >= 1024 * 256 + 1024 + 8 * 1024
     assert big >= 100
 
 
 # -- xtx's upper-triangle plan (what the CUDA kernel's grid enumerates) -----
-# csrc/xtx.cu (unit_of, micro_of) is the source of truth; _units and
+# csrc/gram_upper.cuh (unit_of, micro_of) is the source of truth; _units and
 # _micro_tiles restate its plan so that its coverage can be checked here,
 # and the card tests hold the kernel itself bitwise for K up to 300.
 
@@ -520,6 +521,19 @@ def test_xtx_micro_tiles_skip_the_lower_half(k):
     assert all(a <= b < w for a, b in tiles)
     if k == 160:
         assert len(units) == 1 and len(tiles) == 231
+
+
+def test_segment_linregr_block_splits():
+    """A block of at most 8192 rows is one split; a larger one is cut into
+    the fewest splits of at most 8192 rows that cover it, nearly equal."""
+    assert sf_ops.block_splits(4096) == (1, 4096)
+    assert sf_ops.block_splits(8192) == (1, 8192)
+    assert sf_ops.block_splits(8193) == (2, 4097)
+    assert sf_ops.block_splits(9000) == (2, 4500)
+    for bs in range(1, 40_000, 997):
+        splits, rows = sf_ops.block_splits(bs)
+        assert rows <= 8192 and (splits - 1) * rows < bs <= splits * rows
+        assert splits == -(-bs // 8192)
 
 
 def test_xtx_splits_for():
