@@ -11,7 +11,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    with ptxas' registers and spills;
 3. kernels — each kernel against its plain PyTorch version on the card:
    bitwise on dyadic data, within a stated tolerance on Gaussian data;
-   the sketch kernels bitwise on any items (integer counts);
+   the sketch kernels bitwise on any items (integer counts), Count-Min
+   also on views that start off 16 bytes, on one hot key, past shared
+   memory, and grouped with shuffled blocks;
 4. main path, on a 10,000,000-row table made on the card from a seed
    (``x`` 160 f32 variables, ``y``, 64 groups ``g``, and an int32
    ``item`` column drawn Zipf(1.1) over 1,000,000 keys), through the
@@ -37,7 +39,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
       fits' states on a small input against the CPU port;
 5. timing  — CUDA-event times of each kernel (and its device time from
    torch.profiler), its plain version and the library call at the main
-   path's shapes, beside the bound;
+   path's shapes, beside the bound; the two Count-Min kernels also with
+   the L2 flushed before each launch, and countmin beside torch.bincount
+   over the precomputed buckets (a point of reference);
 g. then, with the analytics tables dropped, the LM serving path:
    the flash_attention kernels against their plain version, each call
    held to the kernel the wrapper must pick (f32 at the reference's test
@@ -218,6 +222,27 @@ def cuda_ms(torch, fn, reps: int, warm: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cold_ms(torch, fn, reps: int, flush) -> float:
+    """Event time of each call alone with the L2 cold: ``flush`` (larger
+    than the 50 MB L2) is written before each call, then the stream
+    sleeps for about 0.1 ms while the host enqueues the call, so neither
+    the host's launch nor a previous call's lines in the L2 show in the
+    time between the events around the call."""
+    fn()
+    total = 0.0
+    for i in range(reps):
+        flush.fill_(float(i))
+        torch.cuda._sleep(200_000)  # about 0.1 ms: the host enqueues fn
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
 
 
 def device_ms(torch, fn, reps: int, kernels: tuple[str, ...]):
@@ -806,6 +831,7 @@ def main() -> int:
     from repro_torch.kernels.segment_fold import ops as sf_ops
     from repro_torch.kernels.segment_fold.ref import (
         segment_countmin_ref, segment_fm_ref, segment_linregr_ref)
+    from repro_torch.kernels.sketch_hash import _hash_rows
     from repro_torch.kernels.xtx import ops as xtx_ops
     from repro_torch.kernels.xtx.ref import xtx_xty_ref
     from repro_torch.interop import state_to_numpy
@@ -995,52 +1021,97 @@ def main() -> int:
     # full-range int32 draws and a fifth negated; the mask is ragged.
     zipf = zipf_items(torch, gen, N_MAIN, dev)
 
-    def sketch_items(n):
+    def sketch_items(n, g_=gen):
         keys = zipf[:n].clone()
-        wide = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=gen,
+        wide = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=g_,
                              dtype=torch.int32, device=dev)
-        u = torch.rand((n,), generator=gen, device=dev)
+        u = torch.rand((n,), generator=g_, device=dev)
         keys = torch.where(u < 0.1, wide, keys)
         keys = torch.where((u >= 0.1) & (u < 0.3), -keys, keys)
-        mask = torch.rand((n,), generator=gen, device=dev) < 0.9
+        mask = torch.rand((n,), generator=g_, device=dev) < 0.9
         return keys, mask
 
     errs.update(countmin=0.0, segment_countmin=0.0, segment_fm=0.0)
-    # widths of a power of two take the AND path, 1000 the division path
-    for n, depth, width in ((4096, 4, 1024), (1_000_000, 8, 4096),
-                            (1_000_000, 3, 1000), (N_MAIN, 4, 1024)):
-        items, mask = sketch_items(n)
-        require(bool((items < 0).any()), "negative items present")
+
+    def countmin_check(what, items, mask, depth, width):
         got = cm_ops.countmin_block(items, mask, depth, width)
         want = countmin_block_ref(items, mask, depth, width)
         errs["countmin"] = max(errs["countmin"], bitwise(
-            torch, f"countmin ({n}, {depth}, {width})", got, want))
+            torch, f"countmin {what} ({items.shape[0]}, {depth}, {width})",
+            got, want))
         require(int(got.sum()) == depth * int(mask.sum()),
                 "countmin: counts do not add up to depth x valid rows")
-        print(f"[kernels] countmin ({n}, depth {depth}, width {width}), "
-              f"negative items and a ragged mask: bitwise")
+        print(f"[kernels] countmin {what} ({items.shape[0]}, depth {depth}, "
+              f"width {width}): bitwise")
+
+    # widths of a power of two take the AND path, 1000 the division path;
+    # 8 x 8192 (256 KB of counters) is past the opt-in shared memory; n
+    # around the kernel's 4-row chunks.  The shapes added beside the first
+    # four draw from a generator of their own, so that the main path's
+    # draws stay.
+    gen_s = torch.Generator(device=dev)
+    gen_s.manual_seed(SEED + 17)
+    for n, depth, width, g_ in (
+            (1, 4, 1024, gen_s), (3, 4, 1024, gen_s), (4095, 4, 1024, gen_s),
+            (4096, 4, 1024, gen), (4097, 4, 1024, gen_s),
+            (1_000_000, 8, 4096, gen), (1_000_000, 3, 1000, gen),
+            (1_000_000, 8, 8192, gen_s), (N_MAIN, 4, 1024, gen)):
+        items, mask = sketch_items(n, g_)
+        require(n < 1000 or bool((items < 0).any()),
+                "negative items present")
+        countmin_check("negative items, ragged mask", items, mask, depth,
+                       width)
+    # contiguous views 4 and 12 bytes into the items, the mask at the same
+    # offset (4-byte mask loads) or another (byte loads); every row the
+    # same item (each warp's atomics on one counter)
+    items, mask = sketch_items(N_MAIN, gen_s)
+    for i0, m0 in ((1, 1), (3, 3), (1, 0)):
+        countmin_check(f"items[{i0}:], mask[{m0}:]",
+                       items[i0:i0 + N_MAIN - 3], mask[m0:m0 + N_MAIN - 3],
+                       4, 1024)
+    hot = torch.full((N_MAIN,), -123457, dtype=torch.int32, device=dev)
+    for depth, width in ((4, 1024), (8, 8192)):
+        countmin_check("one hot key", hot, mask, depth, width)
+    del hot
     items, mask = sketch_items(N_MAIN)
     cols, valid, bgids = segment_layout({"item": items}, G_MAIN, G_MAIN - 8,
                                         5, base=mask)
     seg_items = cols["item"]
     del cols, items, mask
+    nb, bs = bgids.shape[0], seg_items.shape[0] // bgids.shape[0]
+    per = sf_ops.cta_blocks(nb, sms)
+    edges = torch.arange(per, nb, per, device=dev)
+    straddle = int((bgids[edges] == bgids[edges - 1]).sum())
+    require(straddle > 0, "segment_countmin: no run straddles two CTAs")
+    print(f"[kernels] segment_countmin layout: {straddle} runs of one group "
+          f"straddle two of the {-(-nb // per)} CTAs' ranges")
+    # the same blocks shuffled: a group's blocks are no longer adjacent
+    perm = torch.randperm(nb, generator=gen_s, device=dev)
+    layouts = {"aligned": (seg_items, valid, bgids),
+               "shuffled blocks": (seg_items.view(nb, bs)[perm].reshape(-1),
+                                   valid.view(nb, bs)[perm].reshape(-1),
+                                   bgids[perm].contiguous())}
     checks = [("segment_countmin", sf_ops.segment_countmin,
                segment_countmin_ref, {"depth": depth, "width": width})
-              for depth, width in ((4, 1024), (3, 1000))]
+              for depth, width in ((4, 1024), (3, 1000), (8, 8192))]
     checks += [("segment_fm", sf_ops.segment_fm, segment_fm_ref,
                 {"num_hashes": 8, "bits": bits}) for bits in (16, 32)]
     for name, kern, plain, kw in checks:
-        got = kern(seg_items, valid, bgids, num_groups=G_MAIN, **kw)
-        want = plain(seg_items, valid, bgids, num_groups=G_MAIN, **kw)
-        errs[name] = max(errs[name], bitwise(torch, f"{name} {kw}", got,
-                                             want))
-        require(int(got[G_MAIN - 8:].abs().sum()) == 0,
-                f"{name}: empty groups not zero")
-        require(int(got[:G_MAIN - 8].sum()) > 0, f"{name}: nothing counted")
-        print(f"[kernels] {name} {kw}: {seg_items.shape[0]} rows, "
-              f"{bgids.shape[0]} blocks, G={G_MAIN} with 8 empty groups and "
-              "5 sentinel blocks: bitwise")
-    del seg_items, valid, bgids, got, want
+        for order, (li, lv, lb) in layouts.items():
+            if name == "segment_fm" and order != "aligned":
+                continue
+            got = kern(li, lv, lb, num_groups=G_MAIN, **kw)
+            want = plain(li, lv, lb, num_groups=G_MAIN, **kw)
+            errs[name] = max(errs[name], bitwise(
+                torch, f"{name} {kw} {order}", got, want))
+            require(int(got[G_MAIN - 8:].abs().sum()) == 0,
+                    f"{name}: empty groups not zero")
+            require(int(got[:G_MAIN - 8].sum()) > 0,
+                    f"{name}: nothing counted")
+            print(f"[kernels] {name} {kw}: {li.shape[0]} rows, {nb} blocks "
+                  f"({order}), G={G_MAIN} with 8 empty groups and 5 "
+                  "sentinel blocks: bitwise")
+    del seg_items, valid, bgids, got, want, layouts, perm, edges
     torch.cuda.empty_cache()
 
     # kmeans_assign: dyadic draws bitwise at every shape (rows and
@@ -1646,6 +1717,22 @@ def main() -> int:
     xc_ms = cuda_ms(torch, lambda: torch.matmul(bx, km_cents.T), 20)
     print(f"[timing] kmeans_assign reference: cuBLAS x @ c.T alone at "
           f"({N_MAIN}, {D_KM}) x ({D_KM}, {K_KM}) f32: {xc_ms:.4f} ms")
+    # a point of reference for countmin, not the yardstick: torch.bincount
+    # over the precomputed flat buckets d * width + h_d(item), the
+    # counting half alone (no single PyTorch call hashes and counts)
+    flat = (_hash_rows(items, 4, 1024) + 1024 * torch.arange(
+        4, device=dev)[:, None]).reshape(-1)
+    bc_ms = cuda_ms(torch, lambda: torch.bincount(flat, minlength=4 * 1024),
+                    20)
+    require(torch.equal(torch.bincount(flat, minlength=4 * 1024).view(
+        4, 1024).to(torch.int32), cm_ops.countmin_block(items, all_rows, 4,
+                                                        1024)),
+            "countmin reference: bincount disagrees with the kernel")
+    print(f"[timing] countmin reference: torch.bincount over the "
+          f"{flat.numel()} precomputed flat buckets alone (int64): "
+          f"{bc_ms:.4f} ms")
+    del flat
+    l2_flush = torch.empty((32 * 2 ** 20,), dtype=torch.float32, device=dev)
     fm_kw = {"num_hashes": 8, "bits": 32, "num_groups": G_MAIN}
     # Operations the function needs: X^T X is symmetric, so only its
     # k (k + 1) / 2 distinct entries, plus X^T y (and, per group, y^2),
@@ -1679,7 +1766,7 @@ def main() -> int:
          lambda: countmin_block_ref(items, all_rows, 4, 1024), None,
          int_ops_seconds("countmin", float(N_MAIN) * 4, sms, clock_hz),
          5.0 * N_MAIN + 4.0 * 4 * 1024, 20, 1, [N_MAIN, 4, 1024],
-         ("countmin_shared_kernel", "countmin_global_kernel")),
+         ("countmin_kernel",)),
         ("segment_countmin", "src/repro_torch/csrc/segment_sketch.cu",
          "src/repro/kernels/segment_fold/kernel.py:125",
          lambda: sf_ops.segment_countmin(sk_items, sk_valid, sk_bgids,
@@ -1728,6 +1815,15 @@ def main() -> int:
                "shape": shape, "bound_share": max(t_ops, t_bytes) / ms}
         if name in F32_OPS_KERNELS:
             row["tflops"] = op_s * PEAK_F32_FLOPS / (ms * 1e-3) / 1e12
+        if name in ("countmin", "segment_countmin"):
+            # the column arrives cold in a statement: 128 MB written
+            # between launches; device time beside both
+            row["cold_ms"] = cold_ms(torch, kern, 10, l2_flush)
+            dev_s = "not measured" if dev_ms is None else f"{dev_ms:.4f}"
+            print(f"[timing] {name} {shape}: events back to back {ms:.4f} "
+                  f"ms, device (torch.profiler) {dev_s} ms, L2 cold "
+                  f"{row['cold_ms']:.4f} ms; bound {row['bound_ms']:.5f} ms "
+                  f"({row['bound_by']}); {smi}")
         if name == "kmeans_assign":
             row["launches_by_shape"] = {
                 f"({N_MAIN}, {D_KM}, {K_KM})": km_launches["solo"],
@@ -1758,7 +1854,7 @@ def main() -> int:
     del (t, cols, valid, bgids, sk_cols, sk_valid, sk_bgids, bx, blobs, bg,
          view, x, y, xs, ys, items, all_rows, sk_items, ones, specs, results,
          km, km_kern, plain_fit, km_cents, t1, fg, kg, plain_g, two, fused1,
-         kern1, xg, mg)
+         kern1, xg, mg, l2_flush)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[lm] memory held after dropping the analytics tables: "

@@ -16,92 +16,75 @@
 //
 // Design.  The TPU kernel keeps one (depth, width) block in VMEM across a
 // sequential grid and builds a one-hot per tile because the TPU has no fast
-// scatter.  On the H100 the grid is parallel and shared memory has fast
-// integer atomics: each CTA keeps its own (depth, width) histogram in shared
-// memory, its threads stride over the rows (one row per thread per step,
-// hashes in registers) and add with shared atomics, and at the end the CTA
-// adds its nonzero counters into the output with global atomics.  Integer
-// sums do not depend on their order, so the result is exact and the same on
-// every run.  A histogram too large for shared memory takes the second
-// kernel, which adds straight into the output with global atomics.  Masked
-// rows add nothing, as the reference's multiply by the mask adds 0.  Rows of
-// a hot key all hit the same depth counters; those atomics serialize.
+// scatter.  On the H100 shared memory has fast integer atomics, so a CTA
+// counts into a histogram in shared memory and adds it into the output
+// once.  The grid is persistent: kCountMinCtasPerSm CTAs of
+// kCountMinThreads threads to an SM (the wrapper sizes it), each over one
+// contiguous range of rows (ops.py:cta_rows), so the clear and the flush
+// happen once per CTA and not once per few thousand rows.  The rows go
+// through countmin_rows (sketch_hash.cuh): 16-byte loads of 4 items and
+// 4-byte loads of their mask bytes, the next 8 rows' loads in flight while
+// a thread hashes 8, so that the loads overlap the hashing.  The CTA's
+// threads add into one histogram with shared atomics (copies of it per
+// warp measured slower: atomics of different warps do not contend), and
+// the CTA adds it into the output with one global atomic per nonzero
+// counter, CTAs starting at different counters.  Integer sums do not depend on their order, so the result is exact and the
+// same on every run.  A histogram larger than the opt-in shared memory is
+// added straight into the output with global atomics.  Masked rows add
+// nothing, as the reference's multiply by the mask adds 0.  Rows of a hot
+// key all hit the same depth counters; those atomics serialize.
 #include <cuda_runtime.h>
 
 #include "sketch_hash.cuh"
 
 using namespace madlib;
 
-__global__ void __launch_bounds__(kSketchThreads)
-countmin_shared_kernel(const int* __restrict__ items,
-                       const unsigned char* __restrict__ mask,
-                       int* __restrict__ out, long long n, int depth,
-                       int width) {
+template <bool kShared>
+__global__ void __launch_bounds__(kCountMinThreads, kCountMinCtasPerSm)
+countmin_kernel(const int* __restrict__ items,
+                const unsigned char* __restrict__ mask, int* __restrict__ out,
+                long long n, int depth, int width, long long rows_per_cta) {
+  const long long r0 = (long long)blockIdx.x * rows_per_cta;
+  const long long r1 = r0 + rows_per_cta < n ? r0 + rows_per_cta : n;
+  if (!kShared) {
+    countmin_rows(out, items, mask, r0, r1, depth, (uint32_t)width);
+    return;
+  }
   extern __shared__ int hist[];
   const int cells = depth * width;
   for (int i = threadIdx.x; i < cells; i += blockDim.x) hist[i] = 0;
   __syncthreads();
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < n;
-       r += stride)
-    if (mask[r]) countmin_add(hist, (uint32_t)items[r], depth, (uint32_t)width);
+  countmin_rows(hist, items, mask, r0, r1, depth, (uint32_t)width);
   __syncthreads();
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const int c = hist[i];
-    if (c) atomicAdd(&out[i], c);
-  }
+  countmin_flush(hist, cells, out);
 }
 
-__global__ void __launch_bounds__(kSketchThreads)
-countmin_global_kernel(const int* __restrict__ items,
-                       const unsigned char* __restrict__ mask,
-                       int* __restrict__ out, long long n, int depth,
-                       int width) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < n;
-       r += stride)
-    if (mask[r]) countmin_add(out, (uint32_t)items[r], depth, (uint32_t)width);
-}
-
-// Zeroes `out` (depth * width int32) on the stream, then launches one of the
-// two kernels: shared-memory histograms when depth * width * 4 bytes fit in
-// the device's opt-in shared memory, global atomics otherwise.
+// Zeroes `out` (depth * width int32) on the stream, then launches the
+// kernel over ceil(n / rows_per_cta) CTAs: with the histogram in shared
+// memory when it fits in the opt-in size, with global atomics otherwise.
+// rows_per_cta must be a positive multiple of 4 (ops.py:cta_rows).
 extern "C" int madlib_countmin(const void* items, const void* mask, void* out,
                                long long n, int depth, int width,
-                               void* stream) {
+                               long long rows_per_cta, void* stream) {
+  static SketchLaunchCache cache;
+  if (rows_per_cta < 4 || rows_per_cta % 4) return (int)cudaErrorInvalidValue;
+  const long long grid = (n + rows_per_cta - 1) / rows_per_cta;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t cells = (size_t)depth * width;
-  cudaError_t err = cudaMemsetAsync(out, 0, cells * sizeof(int), st);
+  const size_t bytes = (size_t)depth * width * sizeof(int);
+  cudaError_t err = cudaMemsetAsync(out, 0, bytes, st);
   if (err != cudaSuccess) return (int)err;
-  int device = 0, sms = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const long long want = (n + kSketchThreads - 1) / kSketchThreads;
+  int optin = 0;
+  err = cache.optin((const void*)countmin_kernel<true>, &optin);
+  if (err != cudaSuccess) return (int)err;
   const int* it = static_cast<const int*>(items);
   const unsigned char* mk = static_cast<const unsigned char*>(mask);
   int* o = static_cast<int*>(out);
-  const size_t smem = cells * sizeof(int);
-  if (sketch_fits_shared(smem)) {
-    err = cudaFuncSetAttribute(countmin_shared_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, countmin_shared_kernel, kSketchThreads, smem);
-    if (err != cudaSuccess) return (int)err;
-    if (per_sm < 1) per_sm = 1;
-    long long grid = (long long)sms * per_sm;
-    if (grid > want) grid = want;
-    if (grid < 1) grid = 1;
-    countmin_shared_kernel<<<(unsigned)grid, kSketchThreads, smem, st>>>(
-        it, mk, o, n, depth, width);
-  } else {
-    long long grid = (long long)sms * 8;
-    if (grid > want) grid = want;
-    if (grid < 1) grid = 1;
-    countmin_global_kernel<<<(unsigned)grid, kSketchThreads, 0, st>>>(
-        it, mk, o, n, depth, width);
-  }
+  if (bytes <= (size_t)optin)
+    countmin_kernel<true><<<(unsigned)grid, kCountMinThreads, bytes, st>>>(
+        it, mk, o, n, depth, width, rows_per_cta);
+  else
+    countmin_kernel<false><<<(unsigned)grid, kCountMinThreads, 0, st>>>(
+        it, mk, o, n, depth, width, rows_per_cta);
   return (int)cudaGetLastError();
 }

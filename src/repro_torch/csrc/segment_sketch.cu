@@ -24,22 +24,32 @@
 // operations.  Atomics are not lane ops and are not counted.
 //
 // Design.  The TPU kernels carry the (G, ...) accumulator in VMEM across a
-// sequential grid.  Here every group-aligned block is one CTA, in parallel:
-//   * segment_countmin keeps a (depth, width) histogram in shared memory,
-//     adds with shared atomics (one row per thread per step, hashes in
-//     registers), then adds its nonzero counters into slot bgids[b] with
-//     global atomics.  Integer sums are exact in any order.  A histogram too
-//     large for shared memory adds straight into the slot.
-//   * segment_fm: for bits <= 32 a row's one-hot fits in one uint32, so each
-//     thread ORs it, h & -h (the lowest set bit alone, no bit scan), into a
-//     register word per hash.  A warp ORs its words
+// sequential grid.  Here:
+//   * segment_countmin runs persistent CTAs (kCountMinCtasPerSm of
+//     kCountMinThreads threads to an SM), CTA c over a contiguous range of
+//     blocks (ops.py:cta_blocks).  It walks its range run by run, a run
+//     being consecutive blocks of one gid (aligned_blocks puts each group's
+//     blocks together), streams each run's rows through countmin_rows
+//     (sketch_hash.cuh: vector loads, the next 8 rows' loads in flight
+//     while a thread hashes 8) into one (depth, width) histogram in shared
+//     memory, and flushes it into slot bgids[b] with global integer
+//     atomics only where the gid changes and at the end of its range: about
+//     CTAs + G flushes instead of one per block, and any order of bgids
+//     stays right (a gid met twice is flushed twice).  Integer sums are
+//     exact in any order.  A histogram too large for shared memory adds
+//     straight into the slot.
+//   * segment_fm: every group-aligned block is one CTA.  For bits <= 32 a
+//     row's one-hot fits in one uint32, so each thread ORs it, h & -h (the
+//     lowest set bit alone, no bit scan), into a register word per hash.  A
+//     warp ORs its words
 //     with __reduce_or_sync, one atomicOr per warp and hash goes to shared
 //     memory, and the CTA's set bits go to the slot with atomicOr.  For
 //     bits > 32 the lowest set bit of a nonzero 32-bit hash is below 32, so
 //     positions 32 .. bits - 2 are never set; the fallback bit bits - 1 is a
 //     flag of its own, and no shift reaches 32.
-// Sentinel blocks (gid >= G, from pad_blocks_to) return at once; empty
-// groups stay zero.  The output is zeroed on the stream before the launch.
+// Sentinel blocks (gid >= G, from pad_blocks_to) and negative gids add
+// nothing; empty groups stay zero.  The output is zeroed on the stream
+// before the launch.
 #include <cuda_runtime.h>
 
 #include "sketch_hash.cuh"
@@ -47,31 +57,36 @@
 using namespace madlib;
 
 template <bool kShared>
-__global__ void __launch_bounds__(kSketchThreads)
+__global__ void __launch_bounds__(kCountMinThreads, kCountMinCtasPerSm)
 segment_countmin_kernel(const int* __restrict__ items,
                         const unsigned char* __restrict__ valid,
                         const int* __restrict__ bgids, int* __restrict__ out,
-                        int bs, int depth, int width, int num_groups) {
-  const int g = bgids[blockIdx.x];
-  if (g < 0 || g >= num_groups) return;  // the same for the whole CTA
+                        int nb, int bs, int depth, int width, int num_groups,
+                        int blocks_per_cta) {
   extern __shared__ int hist[];
   const int cells = depth * width;
-  int* slot = out + (long long)g * cells;
-  int* acc = kShared ? hist : slot;
+  const long long b0 = (long long)blockIdx.x * blocks_per_cta;
+  const long long b1 = b0 + blocks_per_cta < nb ? b0 + blocks_per_cta : nb;
   if (kShared) {
     for (int i = threadIdx.x; i < cells; i += blockDim.x) hist[i] = 0;
     __syncthreads();
   }
-  const long long base = (long long)blockIdx.x * bs;
-  for (int r = threadIdx.x; r < bs; r += blockDim.x)
-    if (valid[base + r])
-      countmin_add(acc, (uint32_t)items[base + r], depth, (uint32_t)width);
-  if (kShared) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-      const int c = hist[i];
-      if (c) atomicAdd(&slot[i], c);
+  for (long long b = b0; b < b1;) {
+    // the run [b, e) of blocks with b's gid; the same for the whole CTA
+    const int g = bgids[b];
+    long long e = b + 1;
+    while (e < b1 && bgids[e] == g) ++e;
+    if (g >= 0 && g < num_groups) {
+      int* slot = out + (long long)g * cells;
+      countmin_rows(kShared ? hist : slot, items, valid, b * bs, e * bs,
+                    depth, (uint32_t)width);
+      if (kShared) {
+        __syncthreads();
+        countmin_flush(hist, cells, slot);
+        __syncthreads();
+      }
     }
+    b = e;
   }
 }
 
@@ -135,31 +150,36 @@ segment_fm_kernel(const int* __restrict__ items,
   }
 }
 
+// Zeroes `out` (G * depth * width int32) on the stream, then launches
+// ceil(nb / blocks_per_cta) CTAs (ops.py:cta_blocks), with the histogram
+// in shared memory when it fits in the opt-in size.
 extern "C" int madlib_segment_countmin(const void* items, const void* valid,
                                        const void* bgids, void* out, int nb,
                                        int bs, int depth, int width,
-                                       int num_groups, void* stream) {
+                                       int num_groups, int blocks_per_cta,
+                                       void* stream) {
+  static SketchLaunchCache cache;
+  if (blocks_per_cta < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t cells = (size_t)depth * width;
+  const size_t bytes = (size_t)depth * width * sizeof(int);
   cudaError_t err =
-      cudaMemsetAsync(out, 0, (size_t)num_groups * cells * sizeof(int), st);
+      cudaMemsetAsync(out, 0, (size_t)num_groups * bytes, st);
   if (err != cudaSuccess) return (int)err;
+  int optin = 0;
+  err = cache.optin((const void*)segment_countmin_kernel<true>, &optin);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (nb + blocks_per_cta - 1) / blocks_per_cta;
+  if (grid == 0) return (int)cudaSuccess;
   const int* it = static_cast<const int*>(items);
   const unsigned char* vd = static_cast<const unsigned char*>(valid);
   const int* bg = static_cast<const int*>(bgids);
   int* o = static_cast<int*>(out);
-  const size_t smem = cells * sizeof(int);
-  if (sketch_fits_shared(smem)) {
-    err = cudaFuncSetAttribute(segment_countmin_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    segment_countmin_kernel<true><<<nb, kSketchThreads, smem, st>>>(
-        it, vd, bg, o, bs, depth, width, num_groups);
-  } else {
-    segment_countmin_kernel<false><<<nb, kSketchThreads, 0, st>>>(
-        it, vd, bg, o, bs, depth, width, num_groups);
-  }
+  if (bytes <= (size_t)optin)
+    segment_countmin_kernel<true><<<grid, kCountMinThreads, bytes, st>>>(
+        it, vd, bg, o, nb, bs, depth, width, num_groups, blocks_per_cta);
+  else
+    segment_countmin_kernel<false><<<grid, kCountMinThreads, 0, st>>>(
+        it, vd, bg, o, nb, bs, depth, width, num_groups, blocks_per_cta);
   return (int)cudaGetLastError();
 }
 

@@ -36,9 +36,10 @@ _SIGNATURES = {
                                ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
     "madlib_countmin": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                        ctypes.c_int, _P],
+                        ctypes.c_int, ctypes.c_longlong, _P],
     "madlib_segment_countmin": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                                ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+                                ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_int, _P],
     "madlib_segment_fm": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                           ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
     "madlib_kmeans_assign": [_P, _P, _P, _P, _P, _P, _P, _P,

@@ -9,6 +9,8 @@ shows ``b``.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ...device import runs_on_card
@@ -19,6 +21,26 @@ from .ref import countmin_block_ref
 countmin_launches = 0
 
 _INT_MAX = 2 ** 31 - 1
+# persistent CTAs to an SM of the Count-Min kernels (kCountMinCtasPerSm in
+# csrc/sketch_hash.cuh), and the fewest rows a CTA of countmin takes: below
+# that, clearing and flushing its histogram outweighs its rows
+CTAS_PER_SM = 2
+MIN_CTA_ROWS = 16_384
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The card's number of SMs (read once per device)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def cta_rows(n: int, sms: int) -> int:
+    """Rows per CTA of the countmin kernel: ``n`` rows cut into at most
+    ``sms * CTAS_PER_SM`` contiguous ranges, each a multiple of 4 rows
+    (the kernel's vector chunk, so every range starts at the same
+    alignment) and at least MIN_CTA_ROWS."""
+    per = max(MIN_CTA_ROWS, -(-n // (sms * CTAS_PER_SM)))
+    return -(-per // 4) * 4
 
 
 def check_items(items: torch.Tensor, mask: torch.Tensor, what: str) -> None:
@@ -61,9 +83,10 @@ def countmin_block(items: torch.Tensor, mask: torch.Tensor, depth: int,
         return out.zero_()
     words, mask = item_words(items), mask.contiguous()
     stream = torch.cuda.current_stream(items.device).cuda_stream
+    rows = cta_rows(n, sm_count(items.device.index))
     err = _build.lib().madlib_countmin(
         words.data_ptr(), mask.data_ptr(), out.data_ptr(), n, depth, width,
-        stream)
+        rows, stream)
     _build.check("countmin", err)
     countmin_launches += 1
     return out

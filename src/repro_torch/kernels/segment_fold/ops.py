@@ -15,7 +15,7 @@ import torch
 
 from ...device import runs_on_card
 from .. import _build
-from ..countmin.ops import check_items, item_words
+from ..countmin.ops import CTAS_PER_SM, check_items, item_words, sm_count
 from ..sketch_hash import _check_rows
 from .ref import segment_countmin_ref, segment_fm_ref, segment_linregr_ref
 
@@ -118,6 +118,13 @@ def _check_sketch(what: str, items, valid, bgids, num_groups: int) -> int:
     return _layout(items.shape[0], bgids.shape[0])
 
 
+def cta_blocks(nb: int, sms: int) -> int:
+    """Blocks per CTA of the segment_countmin kernel: ``nb`` blocks cut
+    into at most ``sms * CTAS_PER_SM`` contiguous ranges of equal length
+    (the last may be shorter)."""
+    return max(1, -(-nb // (sms * CTAS_PER_SM)))
+
+
 def segment_countmin(items, valid, bgids, *, depth: int, width: int,
                      num_groups: int):
     """(N2,) items, (N2,) bool valid, (nb,) bgids -> (G, depth, width)
@@ -140,9 +147,10 @@ def segment_countmin(items, valid, bgids, *, depth: int, width: int,
     words = item_words(items)
     valid, bgids = valid.contiguous(), bgids.contiguous()
     stream = torch.cuda.current_stream(items.device).cuda_stream
+    per = cta_blocks(nb, sm_count(items.device.index))
     err = _build.lib().madlib_segment_countmin(
         words.data_ptr(), valid.data_ptr(), bgids.data_ptr(), out.data_ptr(),
-        nb, bs, depth, width, num_groups, stream)
+        nb, bs, depth, width, num_groups, per, stream)
     _build.check("segment_countmin", err)
     segment_countmin_launches += 1
     return out

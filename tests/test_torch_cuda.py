@@ -170,10 +170,18 @@ def _items(draw, n):
 
 
 # (depth, width) up to 8 x 16384: 512 KB of counters, the global path
+# (8 x 8192, 256 KB, is the first shape past the opt-in shared memory);
+# n around the kernel's 4-row chunks and 16 KB ranges, and the main path's
+# 10M rows; width 1000 takes the division path
 @pytest.mark.parametrize("n,depth,width", [(1, 1, 1), (4096, 4, 1024),
                                            (100_000, 8, 4096),
                                            (30_000, 8, 16384),
-                                           (5000, 3, 1000)])
+                                           (5000, 3, 1000),
+                                           (3, 4, 1024), (4095, 4, 1024),
+                                           (4097, 4, 1024),
+                                           (50_000, 8, 8192),
+                                           (200_003, 4, 1000),
+                                           (10_000_000, 4, 1024)])
 def test_countmin_kernel_matches_plain(cuda_device, n, depth, width):
     draw = Draw(n + depth)
     items = torch.from_numpy(_items(draw, n)).to(cuda_device)
@@ -185,6 +193,41 @@ def test_countmin_kernel_matches_plain(cuda_device, n, depth, width):
     assert cm_ops.countmin_launches == before + 1
     assert torch.equal(got, want)
     assert int(got.sum()) == depth * int(mask.sum())
+
+
+# contiguous views that start 4 or 12 bytes into the items (the kernel's
+# scalar head before its 16-byte loads), with the mask at the same offset
+# (4-byte mask loads after the head) or another (byte loads)
+@pytest.mark.parametrize("item_off,mask_off", [(1, 1), (3, 3), (1, 0),
+                                               (2, 3)])
+@pytest.mark.parametrize("depth,width", [(4, 1024), (8, 8192), (3, 1000)])
+def test_countmin_kernel_on_misaligned_views(cuda_device, item_off,
+                                             mask_off, depth, width):
+    n = 300_001
+    draw = Draw(item_off * 10 + mask_off)
+    items = torch.from_numpy(_items(draw, n + 4)).to(cuda_device)
+    mask = torch.from_numpy(draw.bools((n + 4,), p=0.8)).to(cuda_device)
+    items, mask = items[item_off:item_off + n], mask[mask_off:mask_off + n]
+    assert items.is_contiguous() and items.data_ptr() % 16 != 0
+    got = cm_ops.countmin_block(items, mask, depth, width)
+    want = cm_ref.countmin_block_ref(items, mask, depth, width)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n,depth,width", [(1_000_000, 4, 1024),
+                                           (100_000, 8, 8192),
+                                           (100_000, 3, 1000)])
+def test_countmin_kernel_hot_key(cuda_device, n, depth, width):
+    """Every row the same item: every atomic of a warp hits one counter."""
+    items = torch.full((n,), -123457, dtype=torch.int32, device=cuda_device)
+    mask = torch.ones((n,), dtype=torch.bool, device=cuda_device)
+    mask[::7] = False
+    got = cm_ops.countmin_block(items, mask, depth, width)
+    want = cm_ref.countmin_block_ref(items, mask, depth, width)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert int(got.max()) == int(mask.sum())
 
 
 def _sketch_layout(cuda_device, pattern, pad_to, n=20_000, G=6, bs=64):
@@ -222,6 +265,43 @@ def test_segment_sketch_kernels_match_plain(cuda_device, pattern, pad_to):
         assert torch.equal(got, want), (kern.__name__, kw)
     if pattern == "empty":  # ids [4, 6) never occur
         assert int(got[4:].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("order", ["aligned", "shuffled"])
+def test_segment_countmin_runs_across_cta_ranges(cuda_device, order):
+    """Groups whose runs of blocks straddle the kernel's CTA ranges, 8
+    empty groups and 5 sentinel blocks; shuffled, a group's blocks are no
+    longer adjacent and each is flushed on its own."""
+    G, bs, n = 64, 256, 600_000
+    draw = Draw(29 + len(order))
+    t = Table.from_columns({"item": _items(draw, n),
+                            "g": draw.ints((n,), 0, G - 9)},
+                           device=cuda_device)
+    view = t.group_by("g", G)
+    base = view.permute(torch.from_numpy(draw.bools((n,), p=0.9)))
+    real = int((-(-view.counts.long() // bs)).sum())
+    cols, valid, bgids = view.aligned_blocks(bs, base,
+                                             pad_blocks_to=real + 5)
+    items = cols["item"]
+    nb = bgids.shape[0]
+    assert int((bgids == G).sum()) == 5
+    if order == "shuffled":
+        perm = torch.from_numpy(draw.permutation(nb)).to(cuda_device)
+        items = items.view(nb, bs)[perm].reshape(-1)
+        valid = valid.view(nb, bs)[perm].reshape(-1)
+        bgids = bgids[perm].contiguous()
+    per = sf_ops.cta_blocks(nb, cm_ops.sm_count(cuda_device.index or 0))
+    edges = torch.arange(per, nb, per, device=cuda_device)
+    straddle = int((bgids[edges] == bgids[edges - 1]).sum())
+    if order == "aligned":
+        assert per > 1 and straddle > 0
+    for depth, width in ((4, 1024), (8, 8192), (3, 1000)):
+        kw = {"depth": depth, "width": width, "num_groups": G}
+        got = sf_ops.segment_countmin(items, valid, bgids, **kw)
+        want = sf_ref.segment_countmin_ref(items, valid, bgids, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (order, depth, width)
+        assert int(got[G - 8:].abs().sum()) == 0
 
 
 def test_session_batch_goes_through_countmin_and_xtx(cuda_device):

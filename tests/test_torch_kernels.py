@@ -536,6 +536,35 @@ def test_segment_linregr_block_splits():
         assert splits == -(-bs // 8192)
 
 
+@pytest.mark.parametrize("sms", [1, 114, 132])
+def test_countmin_cta_rows_cover_every_row_once(sms):
+    """countmin's CTA ranges: contiguous, each a multiple of 4 rows (the
+    kernel's vector chunk) and at least MIN_CTA_ROWS, at most
+    CTAS_PER_SM per SM, and together every row once (10M rows on 132
+    SMs: 264 ranges of 37,880 rows)."""
+    assert cm_ops.cta_rows(10_000_000, 132) == 37_880
+    for n in [1, 3, 4095, 4097, 16_385, 1_000_000, 10_000_000,
+              10_219_520, 2 ** 31 + 5]:
+        per = cm_ops.cta_rows(n, sms)
+        ctas = -(-n // per)
+        assert per % 4 == 0 and per >= cm_ops.MIN_CTA_ROWS
+        assert ctas <= max(1, sms * cm_ops.CTAS_PER_SM)
+        assert (ctas - 1) * per < n <= ctas * per
+
+
+@pytest.mark.parametrize("sms", [1, 114, 132])
+def test_segment_countmin_cta_blocks_cover_every_block_once(sms):
+    """segment_countmin's CTA ranges of blocks: at most CTAS_PER_SM per
+    SM, none empty, together every block once (2,495 blocks on 132 SMs:
+    250 ranges of 10)."""
+    assert sf_ops.cta_blocks(2495, 132) == 10
+    for nb in [1, 2, 263, 264, 265, 2495, 100_000]:
+        per = sf_ops.cta_blocks(nb, sms)
+        ctas = -(-nb // per)
+        assert per >= 1 and ctas <= sms * cm_ops.CTAS_PER_SM
+        assert (ctas - 1) * per < nb <= ctas * per
+
+
 def test_xtx_splits_for():
     """Row splits: at most 8192 rows and at least one staged chunk each,
     covering every row once, in whole waves of two CTAs per SM over the
