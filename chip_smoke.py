@@ -42,6 +42,30 @@ Phases, in order; any failure ends the run with a non-zero exit:
    path's shapes, beside the bound; the two Count-Min kernels also with
    the L2 flushed before each launch, and countmin beside torch.bincount
    over the precomputed buckets (a point of reference);
+h. then, with the tables of a-f dropped but for the Zipf ``item`` column,
+   the analytics server on a dyadic 10M x 160 table (``x``, ``y``,
+   ``item``, 64 groups ``g``): 8 analyst sessions on threads against one
+   ``AnalyticsServer(drain="thread", window_timeout=0.05)``, 4 rounds of
+   profile, linregr, Count-Min and FM through ``xtx`` and ``countmin``,
+   100,000 dyadic rows appended after round 2: one scan per drained
+   window, each statement planned once per table version, the rounds on
+   an unchanged version answered from the cache, every answer bitwise
+   equal to a local ``Session`` run, an in-place edit of one answer
+   reaching no other; a living ``linregr_grouped`` view (G = 64)
+   registered with the server, answered after the append by a delta fold
+   through ``segment_linregr`` whose fold state equals a full rescan
+   bitwise; a star join of the table (1% dangling foreign keys) with a
+   100,000-row dimension: two joined statements in one batch share one
+   resolution and one fact-side sort, ``linregr_joined`` equals gathering
+   the attribute by hand (fold states bitwise), ``on_missing="error"``
+   names the dangling count; each member of the joined batch runs its
+   own segment kernel (``segment_linregr``, ``segment_countmin``) over
+   the shared layout.  Each kernel is held against its plain version at
+   every shape the phase gives it (the appended table, the delta, the
+   joined layout).  Each number is printed beside the card's name and
+   power limit; only the main-path steps' launches (the view's build and
+   delta answer, the rounds, the joined batch, ``linregr_joined``) count
+   in the kernels line, by step under ``launches_by_shape``;
 g. then, with the analytics tables dropped, the LM serving path:
    the flash_attention kernels against their plain version, each call
    held to the kernel the wrapper must pick (f32 at the reference's test
@@ -801,6 +825,361 @@ def lm_section(torch, dev, counters, errs) -> dict:
             "device_ms": main["device_ms"], "ops_ms": main["ops_ms"],
             "bytes_ms": main["bytes_ms"], "shape": list(FLASH_MAIN),
             "prefill_32k": {"shape": list(FLASH_LONG), **out[FLASH_LONG]}}
+
+
+# h. the analytics server: sessions on threads against one server, on a
+# dyadic 10M x 160 table with the main path's Zipf items
+SERVER_SESSIONS, SERVER_ROUNDS = 8, 4
+SERVER_APPEND = 100_000            # 1% of the rows, after round 2
+DIM_ROWS, DIM_KEY_SPACE = 100_000, 2 ** 24
+
+
+def tree_equal(torch, a, b) -> bool:
+    from repro_torch.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def server_section(torch, dev, counters, errs, item, smi) -> dict:
+    """The analytics server at full width: 8 analyst sessions on threads,
+    one ``AnalyticsServer(drain="thread")``, 4 rounds of profile, linregr,
+    Count-Min and FM with an append after round 2; a living
+    ``linregr_grouped`` view brought current by a delta fold; a star join
+    (10M-row fact, 100,000-row dimension).  Each main-path step (the
+    view's build, each round, the view's delta answer, the joined batch,
+    ``linregr_joined``) runs between a zero and a read of the launch
+    counters; the checks run outside them, and hold every kernel at the
+    shapes this phase gives it against its plain version (``errs``).
+    Returns the main-path launches by step."""
+    import threading
+    from repro_torch.core import (
+        AnalyticsServer, GroupedScanAgg, Join, JoinedGroupedScanAgg,
+        Session, Table, execute, materialize, run_grouped, run_local,
+        trace_execution)
+    from repro_torch.methods.linregr import (
+        LinregrAggregate, linregr_joined)
+    from repro_torch.methods.sketches import CountMinAggregate
+    from repro_torch.tree import tree_leaves
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 18)
+    n = item.shape[0]
+    td = Table({"x": dyadic(torch, gen, (n, K_MAIN), dev),
+                "y": dyadic(torch, gen, (n,), dev), "item": item,
+                "g": torch.randint(0, G_MAIN, (n,), generator=gen,
+                                   dtype=torch.int32, device=dev)})
+    torch.cuda.synchronize()
+    steps: dict[str, dict[str, int]] = {}
+
+    def main_step(label, fn):
+        """``fn()`` on the main path, its launches kept under ``label``."""
+        counters.zero()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[label] = {k: v for k, v in counters.read().items() if v}
+        return out
+
+    def hold(name, what, kernel, plain):
+        """A kernel's fold state against its plain version's on the same
+        inputs, bitwise (dyadic values, integer counts)."""
+        torch.cuda.synchronize()
+        got, want = tree_leaves(kernel), tree_leaves(plain)
+        require(len(got) == len(want), f"{name} {what}: states differ")
+        err = max(bitwise(torch, f"{name} {what}", a, b)
+                  for a, b in zip(got, want))
+        errs[name] = max(errs[name], err)
+        print(f"[server] {name} {what}: bitwise equal to the plain version")
+
+    def mix(sess):
+        return [sess.profile(td), sess.linregr(td, use_kernel=True),
+                sess.scan(CountMinAggregate(use_kernel=True), td,
+                          columns=("item",), label="countmin"),
+                sess.fm_distinct_count(td)]
+
+    def grouped_node():
+        return GroupedScanAgg(LinregrAggregate(use_kernel=True), td, "g",
+                              G_MAIN, columns={"x": "x", "y": "y"})
+
+    torch.cuda.reset_peak_memory_stats()
+    srv = AnalyticsServer(drain="thread", window_timeout=0.05)
+    try:
+        view, s_view = timed(torch, lambda: main_step(
+            f"view build ({n}, {K_MAIN}), G {G_MAIN}",
+            lambda: Session(server=srv).materialize(grouped_node())))
+        print(f"[server] living view linregr_grouped (G = {G_MAIN}) built "
+              f"by a full fold: {s_view:.3f} s (host clock, synchronized); "
+              f"{smi}")
+        sessions = [Session(server=srv) for _ in range(SERVER_SESSIONS)]
+        answers: dict = {}
+        local = {}
+        for rnd in range(1, SERVER_ROUNDS + 1):
+            if rnd == 3:
+                rows = {"x": dyadic(torch, gen, (SERVER_APPEND, K_MAIN), dev),
+                        "y": dyadic(torch, gen, (SERVER_APPEND,), dev),
+                        "item": item[:SERVER_APPEND].flip(0).contiguous(),
+                        "g": torch.randint(0, G_MAIN, (SERVER_APPEND,),
+                                           generator=gen, dtype=torch.int32,
+                                           device=dev)}
+                evicted = srv.stats["evicted"]
+                _, s_app = timed(torch, lambda: td.append(rows))
+                require(srv.stats["evicted"] - evicted == 4,
+                        f"append evicted {srv.stats['evicted'] - evicted} "
+                        "cache entries, want 4")
+                print(f"[server] append of {SERVER_APPEND} dyadic rows: "
+                      f"{s_app:.3f} s, table version {td.version}, 4 cache "
+                      f"entries evicted; {smi}")
+            errors: list = []
+
+            def analyst(i):
+                try:
+                    hs = mix(sessions[i])
+                    for h in hs:
+                        if hasattr(h, "wait") and not h.wait(120):
+                            raise RuntimeError("the drainer never fired")
+                    answers[i] = [h.result(timeout=120) for h in hs]
+                except Exception as e:  # reported on the main thread
+                    errors.append(e)
+
+            def serve_round():
+                threads = [threading.Thread(target=analyst, args=(i,),
+                                            daemon=True)
+                           for i in range(SERVER_SESSIONS)]
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join(300)
+                return threads
+
+            with trace_execution() as tr:
+                threads, s_round = timed(torch, lambda: main_step(
+                    f"round {rnd} ({td.n_rows}, {K_MAIN})", serve_round))
+            require(not errors and not any(th.is_alive() for th in threads),
+                    f"server round {rnd}: {errors}")
+            adm = [e.detail for e in tr.admissions]
+            summ = tr.summary()
+            planned = sum(a["planned"] for a in adm)
+            require(all(a["passes"] <= 1 for a in adm)
+                    and len(tr.scans) == sum(a["passes"] for a in adm),
+                    f"server round {rnd}: windows {adm}, scans "
+                    f"{len(tr.scans)}: a window took more than one scan")
+            # a fresh version plans each of the 4 statements once, in one
+            # scan per window that planned any; the rounds on an unchanged
+            # version are answered from the cache
+            fresh = rnd in (1, 3)
+            require((len(tr.scans) >= 1 if fresh else len(tr.scans) == 0)
+                    and planned == (4 if fresh else 0),
+                    f"server round {rnd}: {len(tr.scans)} scans, {planned} "
+                    "statements planned")
+            require(summ.get("deduped", 0) + len(tr.cache_hits) == 28 + (
+                0 if fresh else 4), f"server round {rnd}: dedup "
+                f"{summ.get('deduped', 0)}, cache hits {len(tr.cache_hits)}")
+            require(all(e.detail["table_version"] == td.version
+                        for e in tr.cache_hits),
+                    f"server round {rnd}: a stale cache entry answered")
+            engines = {e.engine for e in tr.kernels}
+            require(engines <= {"cuda"}, f"server round {rnd}: kernel "
+                    f"engines {engines}")
+            print(f"[server] round {rnd}: {SERVER_SESSIONS} sessions x 4 = "
+                  f"{4 * SERVER_SESSIONS} statements, {len(adm)} windows, "
+                  f"{len(tr.scans)} scans, deduped {summ.get('deduped', 0)}, "
+                  f"cache hits {len(tr.cache_hits)}, scans saved "
+                  f"{summ.get('scans_saved', 0)}; {s_round:.3f} s to the "
+                  f"last answer (host clock, synchronized); {smi}")
+            if td.version not in local:
+                sess = Session()
+                hs = mix(sess)
+                sess.run()
+                local[td.version] = [h.result() for h in hs]
+                # xtx and countmin at this version's shape, on the
+                # window's inputs
+                shape = f"({td.n_rows}, {K_MAIN})"
+                hold("xtx", shape, run_local(
+                    LinregrAggregate(use_kernel="cuda"), td,
+                    finalize=False), run_local(
+                    LinregrAggregate(use_kernel="ref"), td, finalize=False))
+                hold("countmin", f"({td.n_rows},)", run_local(
+                    CountMinAggregate(use_kernel="cuda"), td,
+                    finalize=False), run_local(
+                    CountMinAggregate(use_kernel="ref"), td, finalize=False))
+            for i in range(SERVER_SESSIONS):
+                for j, (got, want) in enumerate(zip(answers[i],
+                                                    local[td.version])):
+                    require(tree_equal(torch, got, want),
+                            f"server round {rnd}: session {i} statement {j} "
+                            "differs from a local Session run")
+        # an in-place edit of one answer reaches no other answer
+        answers[0][1].coef.add_(1.0)
+        answers[0][2].zero_()
+        with trace_execution() as tr:
+            again = mix(Session(server=srv))
+            again = [h.result(timeout=120) for h in again]
+        require(len(tr.scans) == 0 and len(tr.cache_hits) == 4,
+                "server: the repeat after the edit was not answered from "
+                "the cache")
+        for got in (answers[1], again):
+            for j, want in enumerate(local[td.version]):
+                require(tree_equal(torch, got[j], want),
+                        f"server: statement {j} changed after another "
+                        "handle's answer was edited in place")
+
+        # the living view: the grouped statement answered by a delta fold
+        with trace_execution() as tr:
+            h, s_delta = timed(torch, lambda: main_step(
+                f"view delta ({SERVER_APPEND}, {K_MAIN}), G {G_MAIN}",
+                lambda: Session(server=srv).statement(
+                    grouped_node()).result(timeout=120)))
+        hits = [(e.detail["source"], e.detail["refresh"])
+                for e in tr.cache_hits]
+        require(hits == [("view", "delta")] and len(tr.scans) == 0
+                and len(tr.deltas) == 1,
+                f"server: living view answer {hits}, scans {len(tr.scans)}")
+
+        # segment_linregr on the delta's rows at the delta's block size
+        # (core/materialize.py: about one block per group)
+        delta = Table({k: v[n:] for k, v in td.columns.items()})
+        bs = max(64, min(4096, 1 << (-(-SERVER_APPEND // G_MAIN)
+                                     - 1).bit_length()))
+        hold("segment_linregr",
+             f"delta ({SERVER_APPEND}, {K_MAIN}), G {G_MAIN}, block {bs}",
+             *(run_grouped(LinregrAggregate(use_kernel=impl), delta, "g",
+                           G_MAIN, block_size=bs, finalize=False)
+               for impl in ("cuda", "ref")))
+        del delta
+
+        # one full rescan, timed to the same point: fold and final
+        def rescan():
+            r = materialize(grouped_node())
+            return r, r.result(refresh=False)
+
+        (rescan_h, want), s_rescan = timed(torch, rescan)
+        _, s_final = timed(torch, lambda: view.fused.final_grouped(
+            view._state))
+        require(tree_equal(torch, view._state, rescan_h._state),
+                "server: the delta-refreshed view's fold state differs "
+                "from a full rescan")
+        require(tree_equal(torch, h, want),
+                "server: the view's answer differs from the rescan's")
+        print(f"[server] living view after the append: the grouped "
+              f"statement answered by refresh 'delta' ({SERVER_APPEND} "
+              f"rows folded) in {s_delta:.3f} s against a full rescan "
+              f"{s_rescan:.3f} s, both with the final ({s_final:.3f} s "
+              f"alone: batched eigh over ({G_MAIN}, {K_MAIN}, {K_MAIN})); "
+              f"fold state bitwise equal to the rescan; {smi}")
+        del view, rescan_h, h, want
+    finally:
+        srv.close()
+
+    # the star join: a 100,000-row dimension with unique shuffled keys
+    nf = td.n_rows
+    keys = (torch.randperm(DIM_KEY_SPACE, generator=gen, device=dev)[
+        :DIM_ROWS] + 1).to(torch.int32)
+    attr = torch.randint(0, G_MAIN, (DIM_ROWS,), generator=gen,
+                         dtype=torch.int32, device=dev)
+    dim = Table({"key": keys, "attr": attr})
+    rows = torch.randint(0, DIM_ROWS, (nf,), generator=gen, device=dev)
+    dangling = torch.rand((nf,), generator=gen, device=dev) < 0.01
+    fk = torch.where(dangling, torch.full_like(keys[rows], -1), keys[rows])
+    n_dangling = int(dangling.sum())
+    fact = Table(dict(td.columns, fk=fk))
+    join = (lambda missing="drop": Join(fact, dim, "fk", "key", "attr",
+                                        on_missing=missing))
+    sess = Session()
+    hj = sess.joined_grouped_scan(LinregrAggregate(use_kernel=True), join(),
+                                  columns={"x": "x", "y": "y"})
+    hc = sess.joined_grouped_scan(CountMinAggregate(use_kernel=True), join(),
+                                  columns=("item",))
+    kept = nf - n_dangling
+    with trace_execution() as tr:
+        _, s_batch = timed(torch, lambda: main_step(
+            f"join batch ({kept}, {K_MAIN}), G {G_MAIN}", sess.run))
+    by_table = tr.summary().get("sorts_by_table", {})
+    require(len(tr.joins) == 1 and len(tr.scans) == 1 and len(tr.sorts) == 2
+            and by_table.get(id(dim)) == 1,
+            f"star join batch: {len(tr.joins)} resolutions, "
+            f"{len(tr.scans)} scans, sorts {by_table}")
+    require(sorted((e.detail["name"], e.engine) for e in tr.kernels)
+            == [("segment_countmin", "cuda"), ("segment_linregr", "cuda")],
+            "star join batch: each member's segment kernel did not run "
+            "once through cuda")
+    with trace_execution() as tr:
+        got, s_join = timed(torch, lambda: main_step(
+            f"linregr_joined ({kept}, {K_MAIN}), G {G_MAIN}",
+            lambda: linregr_joined(fact, dim, fact_key="fk", dim_key="key",
+                                   attr_col="attr", on_missing="drop",
+                                   use_kernel=True)))
+    require(len(tr.joins) == 0 and len(tr.sorts) == 0,
+            "linregr_joined did not reuse the batch's resolution and sort")
+    # one resolution alone: a fresh fact table object misses the memo
+    # (the dimension's sort is memoized)
+    res, s_resolve = timed(torch, lambda: Join(
+        Table(dict(fact.columns)), dim, "fk", "key", "attr",
+        on_missing="drop").resolve())
+    require(res.dangling == n_dangling,
+            f"star join: {res.dangling} dangling, want {n_dangling}")
+    # the attribute gathered onto the fact rows by hand
+    lut = torch.full((DIM_KEY_SPACE + 2,), -1, dtype=torch.int32, device=dev)
+    lut[keys.long()] = attr
+    gids = torch.where(fk >= 0, lut[fk.clamp(min=0).long()],
+                       torch.full_like(fk, -1))
+    require(torch.equal(res.table[res.gid_col], gids),
+            "star join: resolved gids differ from the gathered ones")
+    del res, lut
+    # the joined layout's kernels against their plain versions, and its
+    # fold states against the gathered GROUP BY's
+    resolved = join().resolve()
+    jview = resolved.table.group_by(resolved.gid_col, G_MAIN)
+    st_join = run_grouped(LinregrAggregate(use_kernel="cuda"),
+                          jview.select("x", "y"), finalize=False)
+    hold("segment_linregr", f"joined ({kept}, {K_MAIN}), G {G_MAIN}",
+         st_join, run_grouped(LinregrAggregate(use_kernel="ref"),
+                              jview.select("x", "y"), finalize=False))
+    cm_join = run_grouped(CountMinAggregate(use_kernel="cuda"),
+                          jview.select("item"), finalize=False)
+    hold("segment_countmin", f"joined ({kept},), G {G_MAIN}", cm_join,
+         run_grouped(CountMinAggregate(use_kernel="ref"),
+                     jview.select("item"), finalize=False))
+    del jview, resolved
+    manual = Table({"x": fact["x"], "y": fact["y"], "g": gids})
+    st_manual = run_grouped(LinregrAggregate(use_kernel=True),
+                            manual.group_by("g", G_MAIN), finalize=False)
+    require(tree_equal(torch, st_join, st_manual),
+            "star join: fold states differ from the gathered GROUP BY")
+    want = LinregrAggregate().final_grouped(st_manual)
+    require(tree_equal(torch, got, want) and tree_equal(torch, hj.result(),
+                                                        want),
+            "star join: linregr_joined differs from the gathered GROUP BY")
+    require(torch.equal(hc.result(),
+                        CountMinAggregate().final_grouped(cm_join)),
+            "star join: the batch's grouped Count-Min differs from its "
+            "kernel's fold")
+    try:
+        execute(JoinedGroupedScanAgg(LinregrAggregate(use_kernel=True),
+                                     join("error"), columns=("x", "y")))
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    require(f"{n_dangling} of {nf}" in raised,
+            f"star join on_missing='error' did not name the dangling "
+            f"count: {raised!r}")
+    launched: dict[str, int] = {}
+    for got_step in steps.values():
+        for name, k in got_step.items():
+            launched[name] = launched.get(name, 0) + k
+    for name in ("xtx", "countmin", "segment_linregr", "segment_countmin"):
+        require(launched.get(name, 0) > 0, f"server phase: {name} launched "
+                f"{launched.get(name, 0)} times on the main path")
+    print(f"[server] star join {nf} x {DIM_ROWS} rows ({n_dangling} "
+          f"dangling): the batch of two joined statements {s_batch:.3f} s "
+          f"(1 resolution, 2 sorts, 1 scan, each member through its "
+          f"segment kernel); linregr_joined again {s_join:.3f} s; one "
+          f"resolution alone {s_resolve:.3f} s (host clock, synchronized); "
+          f"fold states bitwise equal to the gathered GROUP BY; "
+          f"on_missing='error' names {n_dangling}; {smi}")
+    print(f"[server] main-path launches by step: {json.dumps(steps)}; "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+          f" GB")
+    return steps
 
 
 def main() -> int:
@@ -1850,13 +2229,35 @@ def main() -> int:
         "ops_ms": g_ops, "bytes_ms": g_bytes,
         "bound_share": max(g_ops, g_bytes) / g_ms}}))
 
-    # g. the LM path, once the analytics tables of a-f are dropped
+    # h. the analytics server, with the tables of a-f dropped but for the
+    # Zipf item column; the kernels line's launches include this phase
+    srv_item = t["item"]
     del (t, cols, valid, bgids, sk_cols, sk_valid, sk_bgids, bx, blobs, bg,
          view, x, y, xs, ys, items, all_rows, sk_items, ones, specs, results,
          km, km_kern, plain_fit, km_cents, t1, fg, kg, plain_g, two, fused1,
          kern1, xg, mg, l2_flush)
     gc.collect()
     torch.cuda.empty_cache()
+    before = dict(counters.total)
+    steps = server_section(torch, dev, counters, errs, srv_item, smi)
+    del srv_item
+    for row in rows:
+        name = row["name"]
+        row["launches"] = counters.total[name]
+        by_step = {f"server {step}": got[name]
+                   for step, got in steps.items() if got.get(name)}
+        if by_step:
+            row["launches_by_shape"] = {
+                **row.get("launches_by_shape",
+                          {"phases a-f (main path)": before[name]}),
+                **by_step}
+            print(json.dumps({"kernel_launches": {
+                "name": name, "launches": row["launches"],
+                "launches_by_shape": row["launches_by_shape"]}}))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # g. the LM path, once the analytics tables are dropped
     print(f"[lm] memory held after dropping the analytics tables: "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     row = lm_section(torch, dev, counters, errs)

@@ -11,8 +11,13 @@ execution tracing.
   pattern: one host loop around a UDA pass per round, solo or one model
   per group; host_driver / device_driver / counted_driver for step
   functions with no table scan
-- ScanAgg / GroupedScanAgg / IterativeFit / plan / execute — logical
-  statements and the planner that fuses them
+- ScanAgg / GroupedScanAgg / JoinedGroupedScanAgg / IterativeFit /
+  plan / execute / explain — logical statements, the planner that fuses
+  them, and EXPLAIN
+- Join — the device-side sort-merge equi-join of a star schema
+- MaterializedHandle / materialize — living views (delta refresh)
+- AnalyticsServer / ServerHandle — cross-session admission windows,
+  dedup and the version-keyed result cache
 - Session / Handle — batch statements; one run() plans them together
 - ProfileAggregate / map_columns / one_hot_encode — templated queries
 - trace_execution — count scans, sorts and kernel dispatches
@@ -29,9 +34,13 @@ from .driver import (  # noqa: F401
 from .iterative import (  # noqa: F401
     FitResult, IterativeTask, PassRunner, fit, fit_grouped, relative_change,
 )
+from .join import Join, JoinResolution  # noqa: F401
+from .materialize import MaterializedHandle, materialize  # noqa: F401
 from .plan import (  # noqa: F401
-    GroupedScanAgg, IterativeFit, PhysicalPlan, ScanAgg, execute, plan,
+    GroupedScanAgg, IterativeFit, JoinedGroupedScanAgg, PhysicalPlan,
+    ScanAgg, execute, explain, plan,
 )
+from .server import AnalyticsServer, ServerHandle  # noqa: F401
 from .session import Handle, Session  # noqa: F401
 from .table import (  # noqa: F401
     GroupedView, Table, synthetic_classification_table,

@@ -15,7 +15,10 @@ Engines here:
 * :func:`run_grouped` — GROUP BY: rows sorted into group-aligned blocks
   once and every group folded in one pass (:func:`segment_fold`, with the
   aggregate's registered segment kernel where it has one), or the masked
-  fallback for generic-merge aggregates.
+  fallback for generic-merge aggregates.  In a fused grouped pass, each
+  member that has a segment kernel runs it over the shared layout; the
+  reference folds a fused pass of several members block by block, with
+  the same states (bitwise where the sums are exact).
 
 Where the reference vmaps over the group axis, the port writes the axis
 out: inits are stacked per group and ``final_grouped`` finalizes a
@@ -347,6 +350,37 @@ def _resolve_segment_kernel(agg: Aggregate, columns, valid, bgids,
     return resolved
 
 
+def _segment_fold_members(agg: Aggregate, ops, columns: Columns,
+                          valid: torch.Tensor, bgids: torch.Tensor,
+                          num_groups: int) -> Any:
+    """The segment fold of one grouped execution over one group-aligned
+    layout.  A fused aggregate of several members runs each member's
+    segment kernel where it has one, and folds the others together block
+    by block; any other aggregate folds through its own kernel, or
+    generically without one."""
+    members = agg.aggs if isinstance(agg, FusedAggregate) else ()
+    if len(members) < 2:
+        impl = _resolve_segment_kernel(agg, columns, valid, bgids,
+                                       num_groups)
+        return segment_fold(agg, ops, columns, valid, bgids, num_groups,
+                            kernel_impl=impl)
+    impls = [_resolve_segment_kernel(a, columns, valid, bgids, num_groups)
+             for a in members]
+    states = [None] * len(members)
+    rest = [i for i, impl in enumerate(impls) if impl is None]
+    if rest:
+        folded = segment_fold(FusedAggregate([members[i] for i in rest]),
+                              tuple(ops[i] for i in rest), columns, valid,
+                              bgids, num_groups)
+        for i, st in zip(rest, folded):
+            states[i] = st
+    for i, impl in enumerate(impls):
+        if impl is not None:
+            states[i] = segment_fold(members[i], ops[i], columns, valid,
+                                     bgids, num_groups, kernel_impl=impl)
+    return tuple(states)
+
+
 def run_grouped(agg: Aggregate, table, group_col: str | None = None,
                 num_groups: int | None = None, *,
                 block_size: int | None = None,
@@ -395,10 +429,8 @@ def run_grouped(agg: Aggregate, table, group_col: str | None = None,
         pmask = None if mask is None else view.permute(mask)
         bs = segment_block_size(view.n_rows, G, block_size)
         cols_a, valid_a, bgids = view.aligned_blocks(bs, pmask)
-        seg_impl = _resolve_segment_kernel(agg, cols_a, valid_a, bgids, G)
-        states = segment_fold(agg, ops, cols_a, valid_a, bgids, G,
-                              kernel_impl=seg_impl)
-        return group_final(states)
+        return group_final(_segment_fold_members(agg, ops, cols_a, valid_a,
+                                                 bgids, G))
 
     if method != "masked":
         raise ValueError(f"unknown method {method!r} "

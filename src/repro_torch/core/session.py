@@ -20,20 +20,33 @@ succeeds.
 Iterative fits are statements too (``fit``, ``logregr``): each runs its
 own driver loop and never fuses, and a grouped fit shares the
 partitioning sort with grouped scans of the same table and key.
+Joined statements (``joined_grouped_scan``) over one star triple share
+one key resolution and one pass; ``materialize`` keeps living views
+that ``refresh`` brings current by delta folds; ``explain`` renders the
+physical plan without running it.
+
+**Server mode.**  ``Session(server=an_analytics_server)`` swaps the
+private batch for the server's cross-session admission windows
+(:mod:`repro_torch.core.server`): every statement submits at once and
+returns a :class:`~repro_torch.core.server.ServerHandle`; the server
+fuses, deduplicates and caches across ALL attached sessions, and
+``run()``/``handle.result()`` drain on demand.  The statement-issuing
+API is the same in both modes.
 
 Not ported yet, and raising ``NotImplementedError`` that names the
-ROADMAP item which brings them: server mode (``Session(server=...)``)
-and ``explain()`` with the orchestration and planner items;
-``stream_scan`` with ``run_stream``; ``joined_grouped_scan`` and
-``materialize`` with the orchestration item; ``naive_bayes`` with the
-remaining methods.
+ROADMAP item which brings them: ``stream_scan`` with ``run_stream``;
+``naive_bayes`` with the remaining methods.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable
 
-from .plan import GroupedScanAgg, IterativeFit, ScanAgg, plan
+from .materialize import materialize
+from .plan import (
+    GroupedScanAgg, IterativeFit, JoinedGroupedScanAgg, ScanAgg, plan,
+)
 from .table import Table
 
 _UNSET = object()
@@ -69,24 +82,62 @@ class Handle:
         return self._value
 
 
+class _DerivedHandle:
+    """Lazy combination of several server handles (the server-mode
+    counterpart of a derived Handle): ``result()`` gathers every part,
+    draining the shared admission window on demand, and combines once."""
+
+    def __init__(self, label: str, parts: list, combine: Callable):
+        self.label = label
+        self._parts = parts
+        self._combine = combine
+        self._value: Any = _UNSET
+
+    def done(self) -> bool:
+        return (self._value is not _UNSET
+                or all(p.done() for p in self._parts))
+
+    def result(self, timeout: float | None = None) -> Any:
+        """Gather and combine the parts; ``timeout`` bounds the WHOLE
+        gather (one deadline shared by the parts)."""
+        if self._value is _UNSET:
+            if timeout is None:
+                vals = [p.result() for p in self._parts]
+            else:
+                deadline = time.monotonic() + timeout
+                vals = [p.result(timeout=max(
+                    0.0, deadline - time.monotonic()))
+                    for p in self._parts]
+            self._value = self._combine(vals)
+        return self._value
+
+
 class Session:
-    """Batches logical statements and runs them through the planner."""
+    """Batches logical statements and runs them through the planner, or,
+    with ``server=``, submits them to a shared
+    :class:`~repro_torch.core.server.AnalyticsServer`."""
 
     def __init__(self, server=None):
-        if server is not None:
-            _not_ported("__init__(server=...)", "8 (core/server.py)")
+        self.server = server
         self._nodes: list = []
         self._posts: list = []
         self._handles: list = []
         self._derived: list = []
+        self._materialized: list = []
         self.last_plan = None
 
     # -- generic statements ----------------------------------------------
     def statement(self, node, *, post: Callable | None = None) -> Handle:
         """Enqueue a prebuilt logical plan node; ``post`` (optional)
-        shapes the engine's result into the handle's value."""
+        shapes the engine's result into the handle's value.  In server
+        mode the node is submitted at once and the handle resolves when
+        the server's window drains."""
         if node.label is None:
             node.label = f"s{len(self._handles)}"
+        if self.server is not None:
+            h = self.server.submit(node, post=post, label=node.label)
+            self._handles.append(h)
+            return h
         h = Handle(node.label)
         self._nodes.append(node)
         self._posts.append(post)
@@ -110,8 +161,20 @@ class Session:
                            block_size=block_size, method=method,
                            label=label), post=post)
 
-    def joined_grouped_scan(self, *args, **kwargs):
-        _not_ported("joined_grouped_scan", "8 (core/join.py)")
+    def joined_grouped_scan(self, agg, join, num_groups=None, *,
+                            columns=None, mask=None, block_size=None,
+                            method: str = "auto", mesh=None, row_axes=None,
+                            label=None, post=None) -> Handle:
+        """``SELECT dim.attr, agg(...) FROM fact JOIN dim GROUP BY
+        dim.attr`` as one statement; ``join`` is a
+        :class:`~repro_torch.core.join.Join`.  Statements over the same
+        star triple fuse into ONE pass sharing the key resolution."""
+        return self.statement(
+            JoinedGroupedScanAgg(agg, join, num_groups, columns=columns,
+                                 mask=mask, block_size=block_size,
+                                 method=method, mesh=mesh,
+                                 row_axes=row_axes, label=label),
+            post=post)
 
     def fit(self, task, table=None, *, label=None, post=None,
             **kwargs) -> Handle:
@@ -124,10 +187,31 @@ class Session:
     def stream_scan(self, *args, **kwargs):
         _not_ported("stream_scan", "3 (run_stream, StreamAgg)")
 
-    def materialize(self, *args, **kwargs):
-        _not_ported("materialize", "8 (core/materialize.py)")
+    # -- living views -------------------------------------------------------
+    def materialize(self, *nodes):
+        """Retain statement(s) as a living view: the initial fold runs
+        NOW (not batched with :meth:`run`), and the returned
+        :class:`~repro_torch.core.materialize.MaterializedHandle`
+        delta-folds appended rows on every later read.  On a
+        server-attached session the view also answers matching
+        statements of every session (a cache filler)."""
+        h = materialize(nodes[0] if len(nodes) == 1 else list(nodes))
+        self._materialized.append(h)
+        if self.server is not None:
+            self.server.register_view(h)
+        return h
 
-    def _derive(self, parts: list, combine: Callable) -> Handle:
+    def refresh(self) -> list:
+        """Bring every living view issued through :meth:`materialize`
+        current with its table and return their results, in issue
+        order."""
+        return [h.result() for h in self._materialized]
+
+    def _derive(self, parts: list, combine: Callable):
+        if self.server is not None:
+            h = _DerivedHandle(f"d{len(self._derived)}", parts, combine)
+            self._derived.append(h)
+            return h
         h = Handle(f"d{len(self._derived)}")
         self._derived.append((h, parts, combine))
         return h
@@ -183,14 +267,33 @@ class Session:
 
     # -- planning & execution ----------------------------------------------
     def explain(self) -> str:
-        _not_ported("explain", "6 (plan.explain and its goldens)")
+        """Render the physical plan of the pending batch (no execution).
+        In server mode: the server's whole admission window, the batch
+        shared across every attached session."""
+        if self.server is not None:
+            return self.server.explain()
+        if not self._nodes:
+            return "(empty batch)"
+        return plan(self._nodes).explain()
 
     def run(self) -> list:
         """Plan and execute the pending batch; resolves every handle and
         returns the per-statement results in statement order.  The batch
         is consumed whether or not execution succeeds: a failed batch is
         discarded (its handles say so), never re-planned with the next
-        one.  An empty batch returns ``[]``."""
+        one.  An empty batch returns ``[]``.  In server mode this drains
+        the shared admission window and gathers this session's
+        handles."""
+        if self.server is not None:
+            handles, self._handles = self._handles, []
+            derived, self._derived = self._derived, []
+            if not handles:
+                return []
+            self.server.flush()
+            out = [h.result() for h in handles]
+            for d in derived:
+                d.result()
+            return out
         if not self._nodes:
             self._derived = []
             return []

@@ -5,8 +5,7 @@ The port's counterpart of the reference ``methods/linregr.py``.  State:
 pseudo-inverse solve plus the statistics MADlib's linregr returns (R²,
 standard errors, t statistics, p-values, condition number).  ``final``
 takes an optional leading group axis, so a grouped fold finalizes in
-one batched call.  ``LinregrTask`` and ``linregr_joined`` wait for
-later slices.
+one batched call.  ``LinregrTask`` waits for a later slice.
 """
 
 from __future__ import annotations
@@ -16,7 +15,8 @@ import dataclasses
 import torch
 
 from ..core.aggregates import MERGE_SUM, Aggregate
-from ..core.plan import GroupedScanAgg, ScanAgg, execute
+from ..core.join import Join
+from ..core.plan import GroupedScanAgg, JoinedGroupedScanAgg, ScanAgg, execute
 from ..core.table import Table
 from ..kernels.registry import dispatch, resolve_impl
 
@@ -133,3 +133,24 @@ def linregr_grouped(table: Table, key_col: str,
         LinregrAggregate(use_kernel), table, key_col, num_groups,
         columns={"x": x_col, "y": y_col}, block_size=block_size,
         label="linregr_grouped"))
+
+
+def linregr_joined(fact: Table, dim: Table, *, fact_key: str,
+                   dim_key: str, attr_col: str,
+                   on_missing: str = "error",
+                   num_groups: int | None = None, x_col: str = "x",
+                   y_col: str = "y", block_size: int | None = None,
+                   use_kernel: bool | str = False, mesh=None
+                   ) -> LinregrResult:
+    """``SELECT dim.attr, (linregr(y, x)).* FROM fact JOIN dim ON
+    fact.fk = dim.key GROUP BY dim.attr`` — one model per dimension
+    attribute, as ONE joined-grouped statement: the join resolves on the
+    device against the memoized dimension key sort (the dimension's
+    columns are never gathered onto fact rows) and the scan runs on the
+    grouped core, through ``segment_linregr`` with ``use_kernel``."""
+    return execute(JoinedGroupedScanAgg(
+        LinregrAggregate(use_kernel),
+        Join(fact, dim, fact_key, dim_key, attr_col,
+             on_missing=on_missing),
+        num_groups, columns={"x": x_col, "y": y_col},
+        block_size=block_size, mesh=mesh, label="linregr_joined"))

@@ -664,3 +664,198 @@ def test_serve_on_card(cuda_device):
     toks, timings = serve("qwen3-8b", batch=2, prompt_len=4, gen_len=5)
     assert toks.shape == (2, 5) and toks.device.type == "cuda"
     assert timings["decode_tok_s"] > 0
+
+
+# -- the analytics server, joins and living views on the card ---------------
+
+def _server_table(device, n=20_000, d=24, groups=8, seed=181):
+    draw = Draw(seed)
+    gids, _ = group_layout(draw, n, groups, "uniform")
+    return Table({"x": torch.from_numpy(draw.dyadic((n, d))).to(device),
+                  "y": torch.from_numpy(draw.dyadic((n,))).to(device),
+                  "item": torch.from_numpy(draw.ints((n,), 0, 5000)).to(
+                      device),
+                  "g": torch.from_numpy(gids).to(device)})
+
+
+def _tree_equal(a, b) -> bool:
+    from repro_torch.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def test_server_mix_on_card_matches_ref(cuda_device):
+    """Three sessions' analytics mix in one window: one scan through xtx
+    and countmin, answers bitwise equal to the same statements forced to
+    the plain versions; the next round is answered from the cache."""
+    from repro_torch.core import AnalyticsServer
+
+    t = _server_table(cuda_device)
+
+    def mix(sess, uk):
+        return [sess.profile(t), sess.linregr(t, use_kernel=uk),
+                sess.scan(CountMinAggregate(use_kernel=uk), t,
+                          columns=("item",), label="countmin"),
+                sess.fm_distinct_count(t)]
+
+    srv = AnalyticsServer(window_size=1024)
+    try:
+        before = (xtx_ops.xtx_launches, cm_ops.countmin_launches)
+        handles = [mix(Session(server=srv), True) for _ in range(3)]
+        with trace_execution() as tr:
+            srv.flush()
+        torch.cuda.synchronize()
+        assert len(tr.scans) == 1
+        ev = tr.admissions[0].detail
+        assert (ev["window"], ev["planned"], ev["deduped"]) == (12, 4, 8)
+        assert xtx_ops.xtx_launches > before[0]
+        assert cm_ops.countmin_launches > before[1]
+        assert {e.engine for e in tr.kernels} == {"cuda"}
+        ref_sess = Session()
+        want = mix(ref_sess, "ref")
+        ref_sess.run()
+        for hs in handles:
+            for h, w in zip(hs, want):
+                assert _tree_equal(h.result(timeout=60), w.result())
+        with trace_execution() as tr:
+            again = mix(Session(server=srv), True)
+            srv.flush()
+        assert len(tr.scans) == 0 and len(tr.cache_hits) == 4
+        for h, w in zip(again, want):
+            assert _tree_equal(h.result(timeout=60), w.result())
+    finally:
+        srv.close()
+
+
+def _star_on_card(device, fact_rows=30_000, dim_rows=2_000, groups=16,
+                  seed=191):
+    draw = Draw(seed)
+    keys = draw.permutation(dim_rows * 5)[:dim_rows].astype("int32") + 3
+    attr = draw.ints((dim_rows,), 0, groups - 1)
+    fk = keys[draw.rng.integers(0, dim_rows, fact_rows)]
+    fk[::50] = -7                      # 2% dangling
+    fact = Table({"x": torch.from_numpy(draw.dyadic((fact_rows, 12))).to(
+                      device),
+                  "y": torch.from_numpy(draw.dyadic((fact_rows,))).to(device),
+                  "fk": torch.from_numpy(fk.astype("int32")).to(device)})
+    dim = Table({"key": torch.from_numpy(keys).to(device),
+                 "attr": torch.from_numpy(attr).to(device)})
+    lut = dict(zip(keys.tolist(), attr.tolist()))
+    gids = torch.tensor([lut.get(int(f), -1) for f in fk], dtype=torch.int32)
+    return fact, dim, gids.to(device)
+
+
+def test_joined_statement_on_card_matches_ref(cuda_device):
+    from repro_torch.core import Join, JoinedGroupedScanAgg
+    from repro_torch.methods.linregr import LinregrAggregate, linregr_joined
+
+    fact, dim, gids = _star_on_card(cuda_device)
+    before = sf_ops.segment_linregr_launches
+    kw = dict(fact_key="fk", dim_key="key", attr_col="attr",
+              on_missing="drop")
+    got = linregr_joined(fact, dim, use_kernel=True, **kw)
+    torch.cuda.synchronize()
+    assert sf_ops.segment_linregr_launches == before + 1
+    want = linregr_joined(fact, dim, use_kernel="ref", **kw)
+    assert _tree_equal(got, want)
+    # fold states against gathering the attribute by hand
+    res = Join(fact, dim, "fk", "key", "attr", on_missing="drop").resolve()
+    assert torch.equal(res.table[res.gid_col], gids)
+    state = run_grouped(LinregrAggregate(use_kernel=True),
+                        res.table.group_by(res.gid_col, res.num_groups),
+                        finalize=False)
+    manual = Table({"x": fact["x"], "y": fact["y"], "g": gids})
+    oracle = run_grouped(LinregrAggregate(use_kernel="ref"), manual, "g",
+                         res.num_groups, finalize=False)
+    assert _tree_equal(state, oracle)
+    with pytest.raises(ValueError, match="600 of 30000"):
+        execute(JoinedGroupedScanAgg(
+            LinregrAggregate(use_kernel=True),
+            Join(fact, dim, "fk", "key", "attr"), columns=("x", "y")))
+
+
+def test_joined_batch_runs_each_members_segment_kernel_on_card(cuda_device):
+    """Two joined statements in one batch: one resolution, one scan, and
+    each member's own segment kernel launched once over the shared
+    layout, bitwise against the same batch on the plain versions."""
+    from repro_torch.core import Join
+    from repro_torch.methods.linregr import LinregrAggregate
+
+    fact, dim, _ = _star_on_card(cuda_device, seed=195)
+    fact = fact.with_column("item", fact["fk"].abs())
+
+    def batch(impl):
+        sess = Session()
+        hs = [sess.joined_grouped_scan(
+                  LinregrAggregate(use_kernel=impl),
+                  Join(fact, dim, "fk", "key", "attr", on_missing="drop"),
+                  columns=("x", "y")),
+              sess.joined_grouped_scan(
+                  CountMinAggregate(use_kernel=impl),
+                  Join(fact, dim, "fk", "key", "attr", on_missing="drop"),
+                  columns=("item",))]
+        sess.run()
+        return [h.result() for h in hs]
+
+    before = (sf_ops.segment_linregr_launches,
+              sf_ops.segment_countmin_launches)
+    with trace_execution() as tr:
+        got = batch(True)
+    torch.cuda.synchronize()
+    assert len(tr.scans) == 1 and len(tr.joins) == 1
+    assert (sf_ops.segment_linregr_launches,
+            sf_ops.segment_countmin_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    assert sorted((e.detail["name"], e.engine) for e in tr.kernels) == [
+        ("segment_countmin", "cuda"), ("segment_linregr", "cuda")]
+    want = batch("ref")
+    assert _tree_equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_thread_drains_two_facts_one_dim_on_card(cuda_device):
+    from repro_torch.core import AnalyticsServer, Join
+    from repro_torch.methods.linregr import LinregrAggregate
+
+    fact_a, dim, gids_a = _star_on_card(cuda_device, seed=193)
+    fact_b = Table({k: v.flip(0) for k, v in fact_a.columns.items()})
+    gids_b = gids_a.flip(0)
+    srv = AnalyticsServer(window_size=1024, window_timeout=0.02,
+                          drain="thread")
+    try:
+        with trace_execution() as tr:
+            hs = [(f, g, Session(server=srv).joined_grouped_scan(
+                LinregrAggregate(use_kernel=True),
+                Join(f, dim, "fk", "key", "attr", on_missing="drop"),
+                columns=("x", "y")))
+                for f, g in ((fact_a, gids_a), (fact_b, gids_b))
+                for _ in range(2)]
+            for _, _, h in hs:
+                assert h.wait(60), "background drainer never fired"
+        torch.cuda.synchronize()
+        assert len(tr.joins) == 2
+        assert tr.summary()["sorts_by_table"].get(id(dim)) == 1
+        for f, g, h in hs:
+            manual = Table({"x": f["x"], "y": f["y"], "g": g})
+            want = run_grouped(LinregrAggregate(use_kernel="ref"), manual,
+                               "g", 16)
+            assert _tree_equal(h.result(timeout=10), want)
+    finally:
+        srv.close()
+
+
+def test_grouped_view_delta_on_card_equals_rescan(cuda_device):
+    from repro_torch.core import GroupedScanAgg, materialize
+    from repro_torch.methods.linregr import LinregrAggregate
+
+    t = _server_table(cuda_device, n=40_000, groups=8, seed=197)
+    node = (lambda: GroupedScanAgg(LinregrAggregate(use_kernel=True), t, "g",
+                                   8, columns={"x": "x", "y": "y"}))
+    h = materialize(node())
+    extra = _server_table(cuda_device, n=1_000, groups=8, seed=199)
+    t.append(dict(extra.columns))
+    before = sf_ops.segment_linregr_launches
+    assert h.refresh() == "delta"
+    torch.cuda.synchronize()
+    assert sf_ops.segment_linregr_launches == before + 1
+    assert _tree_equal(h._state, materialize(node())._state)

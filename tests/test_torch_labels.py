@@ -45,6 +45,11 @@ def _cols():
             "g": draw.ints((n,), 0, 3), "item": draw.ints((n,), 0, 9)}
 
 
+_DIM_COLS = {"key": np.arange(10, dtype=np.int32),
+             "region": (np.arange(10) % 3).astype(np.int32)}
+# the dimension of the joined case: [reference, port]
+DIM = [JTable.from_columns(_DIM_COLS),
+       TTable.from_columns(_DIM_COLS, device="cpu")]
 CENTS = np.array([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0]], np.float32)
 # (name, module, call) for each ported method; call(method, table)
 CASES = [
@@ -62,6 +67,10 @@ CASES = [
      lambda m, t: m.kmeans_grouped(t, "g", 2, 4, init_centroids=CENTS)),
     ("logregr", "logregr", lambda m, t: m.logregr(t)),
     ("logregr_grouped", "logregr", lambda m, t: m.logregr_grouped(t, "g", 4)),
+    ("linregr_joined", "linregr",
+     lambda m, t: m.linregr_joined(t, DIM[m.__name__.startswith("repro_torch")],
+                                   fact_key="item", dim_key="key",
+                                   attr_col="region")),
 ]
 MODULES = {"linregr": (jlinregr, tlinregr), "sketches": (jsketches, tsketches),
            "kmeans": (jkmeans, tkmeans), "logregr": (jlogregr, tlogregr)}
