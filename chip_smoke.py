@@ -66,6 +66,23 @@ h. then, with the tables of a-f dropped but for the Zipf ``item`` column,
    power limit; only the main-path steps' launches (the view's build and
    delta answer, the rounds, the joined batch, ``linregr_joined``) count
    in the kernels line, by step under ``launches_by_shape``;
+i. then, from pinned host copies of section h's first 10,000,000 rows
+   (``x``, ``y``, ``item``: 6.48 GB), section e's blobs and section f's
+   label, the stream engine: the copy bound (one pass host -> device
+   alone, pinned and pageable, GB/s beside the PCIe link); one
+   ``Session`` of three stream statements (linregr, Count-Min, FM) over
+   one iterator of 1,048,576-row blocks (a ragged tail of 562,816 rows):
+   one scan, ``xtx`` and ``countmin`` once per block, results bitwise
+   equal to the resident batch, peak device memory within one
+   transition's plus two blocks; the device's busy share and the H2D
+   time that overlaps a kernel (torch.profiler); ``profile_stream``
+   against ``profile``; producers that reuse one numpy buffer or one
+   pinned tensor; ``xtx`` and ``countmin`` at the block shapes against
+   their plain versions; ``logregr_stream`` and a k-means ``fit_stream``
+   in 1,000,000-row blocks against the resident fits at that block size
+   (equal rounds, k-means bitwise, ``kmeans_assign`` launches equal);
+   each stream statement's seconds, GB/s and share of the pinned copy
+   rate beside the resident statement's seconds;
 g. then, with the analytics tables dropped, the LM serving path:
    the flash_attention kernels against their plain version, each call
    held to the kernel the wrapper must pick (f32 at the reference's test
@@ -398,11 +415,15 @@ class Counters:
             setattr(mod, attr, 0)
 
     def read(self) -> dict:
-        got = {name: getattr(mod, attr)
-               for name, (mod, attr) in self.where.items()}
+        got = self.peek()
         for name, n in got.items():
             self.total[name] += n
         return got
+
+    def peek(self) -> dict:
+        """The counters as they stand, added to no total."""
+        return {name: getattr(mod, attr)
+                for name, (mod, attr) in self.where.items()}
 
 
 def int_ops_seconds(name: str, row_hashes: float, sms: int,
@@ -851,7 +872,8 @@ def server_section(torch, dev, counters, errs, item, smi) -> dict:
     ``linregr_joined``) runs between a zero and a read of the launch
     counters; the checks run outside them, and hold every kernel at the
     shapes this phase gives it against its plain version (``errs``).
-    Returns the main-path launches by step."""
+    Returns the main-path launches by step and pinned host copies of the
+    table's first ``n`` rows (``x``, ``y``, ``item``) for section i."""
     import threading
     from repro_torch.core import (
         AnalyticsServer, GroupedScanAgg, Join, JoinedGroupedScanAgg,
@@ -1179,6 +1201,475 @@ def server_section(torch, dev, counters, errs, item, smi) -> dict:
     print(f"[server] main-path launches by step: {json.dumps(steps)}; "
           f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f}"
           f" GB")
+    # section i's table: pinned host copies of the first n rows
+    host = {k: pinned_copy(torch, td[k][:n]) for k in ("x", "y", "item")}
+    return steps, host
+
+
+# i. the stream engine: the section h table's first N_MAIN rows, section
+# e's blobs and section f's label, held in pinned host memory and folded
+# by run_stream in blocks: B_SCAN for the scans (nine full blocks and a
+# ragged tail of 562,816 rows), B_FIT for the fits (ten equal blocks, the
+# blocks that the resident fit folds at block_size=B_FIT)
+B_SCAN, B_FIT = 1_048_576, 1_000_000
+# logregr_stream against the resident blocked fit: both fold the same
+# blocks through cuBLAS, so their coefficients may differ by at most
+# this much relative to the largest coefficient
+STREAM_LR_RTOL = 1e-6
+
+
+def pinned_copy(torch, t):
+    """A pinned host copy of ``t``."""
+    out = torch.empty(tuple(t.shape), dtype=t.dtype, pin_memory=True)
+    out.copy_(t)
+    return out
+
+
+def host_blocks(cols: dict, bs: int):
+    """Row blocks of ``bs`` rows (the last one ragged) of host columns:
+    views, no copy."""
+    n = next(iter(cols.values())).shape[0]
+    return ({k: v[i:i + bs] for k, v in cols.items()}
+            for i in range(0, n, bs))
+
+
+def h2d_seconds(torch, dev, cols: dict, bs: int) -> float:
+    """CUDA-event seconds to copy every column of ``cols`` (host
+    tensors, pinned or pageable) to the card in blocks of ``bs`` rows,
+    one stream, into reused device buffers."""
+    dst = {k: torch.empty((bs,) + tuple(v.shape[1:]), dtype=v.dtype,
+                          device=dev) for k, v in cols.items()}
+
+    def copy_all():
+        for blk in host_blocks(cols, bs):
+            for k, v in blk.items():
+                dst[k][:v.shape[0]].copy_(v, non_blocking=True)
+
+    return cuda_ms(torch, copy_all, 1) / 1e3
+
+
+def interval_union(ivs):
+    """Merged [start, end) intervals of ``ivs``."""
+    out = []
+    for a, b in sorted(ivs):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def interval_length(ivs) -> float:
+    return sum(b - a for a, b in ivs)
+
+
+def overlap_length(xs, ys) -> float:
+    """Length of the intersection of two merged interval lists."""
+    total, j = 0.0, 0
+    for a, b in xs:
+        while j < len(ys) and ys[j][1] <= a:
+            j += 1
+        k = j
+        while k < len(ys) and ys[k][0] < b:
+            total += max(0.0, min(b, ys[k][1]) - max(a, ys[k][0]))
+            k += 1
+    return total
+
+
+HOST_WAITS = ("cudaStreamSynchronize", "cudaEventSynchronize",
+              "cudaDeviceSynchronize")
+
+
+def device_busy(torch, fn) -> dict:
+    """``fn()`` under torch.profiler: its host seconds, the kernels' busy
+    share of them, the H2D copies' busy share, the share of the H2D time
+    that overlaps a kernel (None when the profiler records no device
+    activity), and the host's waits on the card (CUDA runtime
+    synchronize calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern, h2d, waits = [], [], 0
+    for e in prof.events():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            waits += e.name in HOST_WAITS
+            continue
+        iv = (e.time_range.start, e.time_range.end)   # microseconds
+        if "Memcpy HtoD" in e.name:
+            h2d.append(iv)
+        elif not e.name.startswith(("Memcpy", "Memset")):
+            kern.append(iv)
+    out = {"wall": wall, "kernels": None, "h2d": None, "overlap": None,
+           "waits": waits}
+    if kern and h2d:
+        k, c = interval_union(kern), interval_union(h2d)
+        out.update(kernels=interval_length(k) / (wall * 1e6),
+                   h2d=interval_length(c) / (wall * 1e6),
+                   overlap=overlap_length(c, k) / interval_length(c))
+    return out
+
+
+def wait_sites(torch, fn, top: int = 4) -> str:
+    """``fn()`` under torch.profiler with Python stacks: the host's waits
+    on the card (CUDA synchronize calls) counted by the op that made them
+    and the innermost frame of the port's code above it."""
+    from collections import Counter
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    # verbose: the events keep their Python stacks
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_stack=True,
+                 experimental_config=_ExperimentalConfig(verbose=True)
+                 ) as prof:
+        fn()
+    sites = Counter()
+    for e in prof.events():
+        if e.name not in HOST_WAITS:
+            continue
+        op, p = e.cpu_parent, e
+        while p is not None and not p.stack:
+            p = p.cpu_parent
+        frames = [] if p is None else [f for f in p.stack
+                                       if "repro_torch" in f]
+        where = (frames[0].split("src/")[-1] if frames
+                 else "no frame of the port")
+        sites[f"{e.name} in {op.name if op else '-'} at {where}"] += 1
+    return "; ".join(f"{n} x {site}" for site, n in sites.most_common(top)
+                     ) or "none"
+
+
+def busy_text(b: dict) -> str:
+    if b["kernels"] is None:
+        return ("not measured (no device activity in the trace); "
+                f"{b['waits']} host waits on the card")
+    return (f"kernels busy {b['kernels']:.1%} of {b['wall']:.4f} s, H2D "
+            f"copies busy {b['h2d']:.1%}, {b['overlap']:.1%} of the H2D "
+            f"time overlaps a kernel, {b['waits']} host waits on the card "
+            "(CUDA synchronize calls)")
+
+
+def stream_section(torch, dev, counters, errs, host, seeds, smi) -> dict:
+    """The stream engine at the main path's width, with the table in
+    pinned host memory (``host``: ``x``, ``y``, ``item``, the blobs
+    ``bx`` and the label ``yl``): the copy bound; one Session of three
+    stream statements over one iterator against the resident batch; a
+    streamed profile; a k-means ``fit_stream`` from ``seeds`` and
+    ``logregr_stream`` against the resident fits at ``block_size=B_FIT``;
+    producers that reuse one buffer; the kernels at the block shapes
+    against their plain versions.  Each main-path step (the stream batch,
+    ``profile_stream``, the two stream fits) runs between a zero and a
+    read of the launch counters.  Returns their launches by step."""
+    import numpy as np
+    from repro_torch.core import (
+        FusedAggregate, Session, Table, fit, fit_stream, run_local,
+        run_stream, trace_execution)
+    from repro_torch.kernels.countmin import ops as cm_ops
+    from repro_torch.kernels.countmin.ref import countmin_block_ref
+    from repro_torch.kernels.kmeans_assign import ops as km_ops
+    from repro_torch.kernels.kmeans_assign.ref import assign_and_reduce_ref
+    from repro_torch.kernels.xtx import ops as xtx_ops
+    from repro_torch.kernels.xtx.ref import xtx_xty_ref
+    from repro_torch.methods.kmeans import KMeansAggregate, KMeansTask
+    from repro_torch.methods.linregr import LinregrAggregate
+    from repro_torch.methods.logregr import logregr, logregr_stream
+    from repro_torch.methods.profile import profile, profile_stream
+    from repro_torch.methods.sketches import CountMinAggregate, FMAggregate
+
+    t_section = time.perf_counter()
+    n = host["y"].shape[0]
+    scan = {k: host[k] for k in ("x", "y", "item")}
+    nb_scan, tail = -(-n // B_SCAN), n % B_SCAN
+    nb_fit = -(-n // B_FIT)
+    scan_bytes = sum(v.numel() * v.element_size() for v in scan.values())
+    km_bytes = host["bx"].numel() * host["bx"].element_size()
+    lr_bytes = (host["x"].numel() * host["x"].element_size()
+                + host["yl"].numel() * host["yl"].element_size())
+    steps: dict[str, dict[str, int]] = {}
+
+    def main_step(label, fn):
+        counters.zero()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[label] = {k: v for k, v in counters.read().items() if v}
+        return out
+
+    # the copy bound: one pass's bytes host -> device alone
+    link = nvidia_smi("pcie.link.gen.current,pcie.link.width.current,"
+                      "pcie.link.gen.max,pcie.link.width.max", units=False)
+    pageable = {k: v.clone() for k, v in scan.items()}
+    require(not any(v.is_pinned() for v in pageable.values()),
+            "copy bound: the pageable copy is pinned")
+    s_pin = h2d_seconds(torch, dev, scan, B_SCAN)
+    s_page = h2d_seconds(torch, dev, pageable, B_SCAN)
+    del pageable
+    pin_rate = scan_bytes / s_pin
+    print(f"[stream] PCIe link (gen, width, max gen, max width): {link}; "
+          f"one pass = {scan_bytes / 1e9:.4f} GB (x, y, item) copied "
+          f"host -> device alone in blocks of {B_SCAN} rows: pinned "
+          f"{s_pin:.4f} s = {pin_rate / 1e9:.3f} GB/s, pageable "
+          f"{s_page:.4f} s = {scan_bytes / s_page / 1e9:.3f} GB/s (CUDA "
+          f"events); {smi}")
+
+    # three stream statements over one iterator, against the resident
+    # batch of the same statements
+    td = Table({k: v.to(dev) for k, v in scan.items()})
+
+    def resident_batch():
+        sess = Session()
+        hs = [sess.linregr(td, use_kernel=True),
+              sess.scan(CountMinAggregate(use_kernel=True), td,
+                        columns=("item",), label="countmin"),
+              sess.fm_distinct_count(td)]
+        sess.run()
+        return [h.result() for h in hs]
+
+    def stream_batch(blocks):
+        sess = Session()
+        hs = [sess.stream_scan(LinregrAggregate(use_kernel=True), blocks,
+                               columns=("x", "y"), label="linregr",
+                               device=dev),
+              sess.stream_scan(CountMinAggregate(use_kernel=True), blocks,
+                               columns=("item",), label="countmin",
+                               device=dev),
+              sess.stream_scan(FMAggregate(), blocks, columns=("item",),
+                               label="fm_distinct", device=dev)]
+        sess.run()
+        return [h.result() for h in hs]
+
+    want, s_res = timed(torch, resident_batch)
+    want, s_res2 = timed(torch, resident_batch)
+    secs = []
+    for rep in range(2):
+        label = (f"stream batch, {('first', 'again')[rep]} ({n}, "
+                 f"{K_MAIN}) in {nb_scan} blocks of {B_SCAN}")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with trace_execution() as tr:
+            got, s = timed(torch, lambda: main_step(
+                label, lambda: stream_batch(host_blocks(scan, B_SCAN))))
+        peak = torch.cuda.max_memory_allocated() - base
+        secs.append(s)
+        launched = steps[label]
+        require(len(tr.scans) == 1 and tr.scans[0].engine == "stream",
+                f"stream batch: scans {[e.engine for e in tr.scans]}")
+        require(launched.get("xtx") == nb_scan
+                and launched.get("countmin") == nb_scan,
+                f"stream batch: launches {launched}, want xtx and countmin "
+                f"{nb_scan} each (one per block)")
+        require(tree_equal(torch, got, want), "stream batch: results differ "
+                "from the resident batch")
+    # the peak against one transition on one resident block
+    blk = {k: v[:B_SCAN] for k, v in td.columns.items()}
+    ones = torch.ones((B_SCAN,), dtype=torch.bool, device=dev)
+    fused = FusedAggregate([LinregrAggregate(use_kernel=True),
+                            CountMinAggregate(use_kernel=True),
+                            FMAggregate()])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    st = fused.transition(fused.init(blk), blk, ones)
+    torch.cuda.synchronize()
+    t_peak = torch.cuda.max_memory_allocated() - base
+    del st, blk, ones
+    blk_bytes = B_SCAN * (sum(v.element_size() * v[0].numel()
+                              for v in scan.values()) + 1)
+    require(peak <= t_peak + 2 * blk_bytes,
+            f"stream batch: peak {peak} B above the baseline exceeds one "
+            f"transition's {t_peak} B plus two blocks' {2 * blk_bytes} B")
+    prof_s = busy_text(device_busy(
+        torch, lambda: stream_batch(host_blocks(scan, B_SCAN))))
+    prof_s += "; host waits by site: " + wait_sites(
+        torch, lambda: stream_batch(host_blocks(scan, B_SCAN)))
+    print(f"[stream] batch of 3 stream statements (linregr, countmin, "
+          f"fm_distinct) over one iterator of pinned blocks: first "
+          f"{secs[0]:.4f} s, again {secs[1]:.4f} s (host clock, "
+          f"synchronized) = {scan_bytes / secs[1] / 1e9:.3f} GB/s, "
+          f"{scan_bytes / secs[1] / pin_rate:.1%} of the pinned copy rate; "
+          f"the resident batch {s_res:.4f} s, again {s_res2:.4f} s; 1 scan, "
+          f"launches {steps[label]}; results bitwise equal to the resident "
+          f"batch; peak {peak / 1e9:.4f} GB above the baseline (one "
+          f"transition on a resident block {t_peak / 1e9:.4f} GB, one "
+          f"block {blk_bytes / 1e9:.4f} GB); torch.profiler: {prof_s}; "
+          f"{smi}")
+
+    # profile_stream against profile of the resident table
+    label = f"profile_stream ({n}, {K_MAIN}) in {nb_scan} blocks of {B_SCAN}"
+    pst, s_ps = timed(torch, lambda: main_step(label, lambda: profile_stream(
+        host_blocks(scan, B_SCAN), distinct_counts=True, device=dev)))
+    pres, s_pr = timed(torch, lambda: profile(td, distinct_counts=True))
+    ps_busy = busy_text(device_busy(torch, lambda: profile_stream(
+        host_blocks(scan, B_SCAN), distinct_counts=True, device=dev)))
+    ps_busy += "; host waits by site: " + wait_sites(
+        torch, lambda: profile_stream(host_blocks(scan, B_SCAN),
+                                      distinct_counts=True, device=dev))
+    require(set(pst) == set(pres), "profile_stream: columns differ")
+    inexact = []
+    for col, fields in pres.items():
+        require(set(pst[col]) == set(fields), f"profile_stream {col}: keys")
+        for key, v in fields.items():
+            if torch.equal(pst[col][key], v):
+                continue
+            # the Zipf keys' sums and squares pass 2^24: not exact in f32,
+            # so they are held against float64 sums instead
+            require(col == "item" and key in ("sum", "sumsq", "mean", "std"),
+                    f"profile_stream {col}.{key}: not bitwise equal to "
+                    "profile")
+            inexact.append(key)
+    if inexact:
+        it64 = td["item"].double()
+        for key, exact in (("sum", it64.sum()), ("sumsq", (it64 ** 2).sum())):
+            for name, res in (("stream", pst), ("resident", pres)):
+                err = abs(float(res["item"][key]) - float(exact))
+                require(err <= PROFILE_RTOL * float(exact),
+                        f"profile {name} item.{key}: {err} off float64")
+        d_mean = abs(float(pst["item"]["mean"] - pres["item"]["mean"]))
+        require(d_mean <= PROFILE_RTOL * abs(float(pres["item"]["mean"])),
+                f"profile_stream item.mean differs by {d_mean}")
+    print(f"[stream] profile_stream (distinct counts) over the pinned "
+          f"blocks: {s_ps:.4f} s (host clock, synchronized) = "
+          f"{scan_bytes / s_ps / 1e9:.3f} GB/s, "
+          f"{scan_bytes / s_ps / pin_rate:.1%} of the pinned copy rate; "
+          f"profile of the resident table {s_pr:.4f} s; every field "
+          f"bitwise equal to profile's"
+          + (f" but item's {sorted(set(inexact))} (within {PROFILE_RTOL} "
+             "of the float64 sums)" if inexact else "")
+          + f"; launches {steps[label]}; torch.profiler: {ps_busy}; {smi}")
+
+    # producers that reuse one buffer: the states of the batch
+    def reusing(pinned_buf: bool):
+        bufs = {k: (torch.empty((B_SCAN,) + tuple(v.shape[1:]),
+                                dtype=v.dtype, pin_memory=True) if pinned_buf
+                    else np.empty((B_SCAN,) + tuple(v.shape[1:]),
+                                  dtype=v.numpy().dtype))
+                for k, v in scan.items()}
+        for blk in host_blocks(scan, B_SCAN):
+            m = blk["y"].shape[0]
+            for k, v in blk.items():
+                if pinned_buf:
+                    bufs[k][:m].copy_(v)
+                else:
+                    bufs[k][:m] = v.numpy()
+            yield {k: b[:m] for k, b in bufs.items()}
+
+    for pinned_buf in (False, True):
+        kind = "one pinned tensor" if pinned_buf else "one numpy buffer"
+        got, s = timed(torch, lambda: stream_batch(reusing(pinned_buf)))
+        require(tree_equal(torch, got, want), f"stream batch from a producer "
+                f"reusing {kind}: results differ from the resident batch")
+        print(f"[stream] batch from a producer reusing {kind} (a host copy "
+              f"into it per block): {s:.4f} s (host clock, synchronized) = "
+              f"{scan_bytes / s / 1e9:.3f} GB/s; results bitwise equal; "
+              f"{smi}")
+    del got, want
+
+    # the kernels at the block shapes against their plain versions
+    for rows in (B_SCAN, tail):
+        xs, ys = td["x"][n - rows:], td["y"][n - rows:]
+        it, ones = td["item"][n - rows:], torch.ones(
+            (rows,), dtype=torch.bool, device=dev)
+        got, ref = xtx_ops.xtx_xty(xs, ys), xtx_xty_ref(xs, ys)
+        errs["xtx"] = max(errs["xtx"], *(bitwise(
+            torch, f"xtx ({rows}, {K_MAIN}) stream block", a, b)
+            for a, b in zip(got, ref)))
+        errs["countmin"] = max(errs["countmin"], bitwise(
+            torch, f"countmin ({rows},) stream block",
+            cm_ops.countmin_block(it, ones, 4, 1024),
+            countmin_block_ref(it, ones, 4, 1024)))
+        print(f"[stream] xtx ({rows}, {K_MAIN}) and countmin ({rows},) at a "
+              "stream block's shape: bitwise equal to the plain versions")
+    del xs, ys, it, ones
+
+    # logregr_stream against the resident logregr at block_size=B_FIT
+    yl = host["yl"].to(dev)
+    lr_cols = {"x": host["x"], "y": host["yl"]}
+    res, s_res = timed(torch, lambda: logregr(Table({"x": td["x"], "y": yl}),
+                                              block_size=B_FIT))
+    label = f"logregr_stream ({n}, {K_MAIN}) in {nb_fit} blocks of {B_FIT}"
+    with trace_execution() as tr:
+        got, s = timed(torch, lambda: main_step(label, lambda: logregr_stream(
+            lambda: host_blocks(lr_cols, B_FIT), device=dev)))
+    rel = float((got.coef - res.coef).abs().max() / res.coef.abs().max())
+    require(got.n_iters == res.n_iters and got.converged == res.converged
+            and got.converged, f"logregr_stream: rounds {got.n_iters} "
+            f"(converged {got.converged}) vs resident {res.n_iters} "
+            f"({res.converged})")
+    require(rel <= STREAM_LR_RTOL, f"logregr_stream: coef differ by {rel} "
+            "of the largest (relative)")
+    require(len(tr.scans) == got.n_iters
+            and {e.engine for e in tr.scans} == {"stream"},
+            "logregr_stream: one stream scan per round")
+    print(f"[stream] logregr_stream over x and the label in {nb_fit} pinned "
+          f"blocks: {s:.4f} s, {got.n_iters} rounds, {s / got.n_iters:.4f} "
+          f"s per round = {lr_bytes / (s / got.n_iters) / 1e9:.3f} GB/s, "
+          f"{lr_bytes / (s / got.n_iters) / pin_rate:.1%} of the pinned copy "
+          f"rate; resident logregr (block_size={B_FIT}) {s_res:.4f} s, "
+          f"{s_res / res.n_iters:.4f} s per round; equal rounds and "
+          f"convergence, coef max difference {rel:.3e} of the largest "
+          f"(limit {STREAM_LR_RTOL}); {smi}")
+    del yl, td, res, got
+    torch.cuda.empty_cache()
+
+    # fit_stream of k-means from the k-means++ seeds against the
+    # resident fit at block_size=B_FIT
+    bx = host["bx"].to(dev)
+    tol = KM_REASSIGN_TOL + 0.5 / n
+    before = counters.peek()
+    res, s_res = timed(torch, lambda: fit(
+        KMeansTask(seeds, use_kernel=True), Table({"x": bx}),
+        max_iters=KM_MAX_ITERS, tol=tol, block_size=B_FIT))
+    res_launches = counters.peek()["kmeans_assign"] - before["kmeans_assign"]
+    label = f"fit_stream kmeans ({n}, {D_KM}, {K_KM}) in {nb_fit} blocks of " \
+            f"{B_FIT}"
+    km_cols = {"x": host["bx"]}
+    with trace_execution() as tr:
+        got, s = timed(torch, lambda: main_step(label, lambda: fit_stream(
+            KMeansTask(seeds, use_kernel=True),
+            lambda: host_blocks(km_cols, B_FIT), max_iters=KM_MAX_ITERS,
+            tol=tol, device=dev)))
+    launched = steps[label].get("kmeans_assign", 0)
+    require(got.converged and got.n_iters == res.n_iters,
+            f"fit_stream kmeans: rounds {got.n_iters} vs {res.n_iters}")
+    require(tree_equal(torch, got.state, res.state)
+            and tree_equal(torch, got.trace, res.trace),
+            "fit_stream kmeans: centroids or sse differ from the resident "
+            "fit")
+    require(launched == res_launches == 2 * nb_fit * got.n_iters,
+            f"fit_stream kmeans: kmeans_assign launches {launched}, the "
+            f"resident fit {res_launches}, want {2 * nb_fit * got.n_iters}")
+    cents, prev = got.state["cents"], got.state["prev"]
+    out_s = run_stream(KMeansAggregate(cents, prev, use_kernel=True),
+                       host_blocks(km_cols, B_FIT), device=dev)
+    out_r = run_local(KMeansAggregate(cents, prev, use_kernel=True),
+                      Table({"x": bx}), block_size=B_FIT)
+    require(tree_equal(torch, out_s, out_r), "k-means pass: centroids, "
+            "counts or sse of the stream differ from the resident fold")
+    ones = torch.ones((B_FIT,), device=dev)
+    errs["kmeans_assign"] = max(errs["kmeans_assign"], km_gauss_check(
+        torch, f"kmeans_assign ({B_FIT}, {D_KM}, {K_KM}) stream block",
+        bx[:B_FIT], cents, ones,
+        km_ops.assign_and_reduce(bx[:B_FIT], cents, ones),
+        assign_and_reduce_ref(bx[:B_FIT], cents, ones)))
+    print(f"[stream] fit_stream kmeans (k = {K_KM}) from the k-means++ seeds "
+          f"over {nb_fit} pinned blocks: {s:.4f} s, {got.n_iters} rounds, "
+          f"{s / got.n_iters * 1e3:.2f} ms per round = "
+          f"{km_bytes / (s / got.n_iters) / 1e9:.3f} GB/s, "
+          f"{km_bytes / (s / got.n_iters) / pin_rate:.1%} of the pinned copy "
+          f"rate; the resident fit (block_size={B_FIT}) {s_res:.4f} s, "
+          f"{s_res / res.n_iters * 1e3:.2f} ms per round; rounds, centroids, "
+          f"sse and counts bitwise equal; kmeans_assign launches {launched} "
+          f"(resident {res_launches}); fit events "
+          f"{[e.engine for e in tr.fits]}; {smi}")
+    del bx, res, got, out_s, out_r, ones
+    torch.cuda.empty_cache()
+    print(f"[stream] main-path launches by step: {json.dumps(steps)}; "
+          f"section i took {time.perf_counter() - t_section:.1f} s")
     return steps
 
 
@@ -2032,6 +2523,7 @@ def main() -> int:
     print(f"[main] logregr: coef vs the float64 IRLS max diff {d_lr:.3e} "
           f"(float64 fit {s64:.3f} s, {lr64.n_iters} rounds); vs the true b "
           f"{float((solo.coef - b_l).abs().max()):.3e}")
+    stream_host = {"yl": pinned_copy(torch, yl)}
     del yl, tl, lr64
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"[main] max_memory_allocated {peak_gb:.2f} GB")
@@ -2232,6 +2724,7 @@ def main() -> int:
     # h. the analytics server, with the tables of a-f dropped but for the
     # Zipf item column; the kernels line's launches include this phase
     srv_item = t["item"]
+    stream_host["bx"] = pinned_copy(torch, bx)
     del (t, cols, valid, bgids, sk_cols, sk_valid, sk_bgids, bx, blobs, bg,
          view, x, y, xs, ys, items, all_rows, sk_items, ones, specs, results,
          km, km_kern, plain_fit, km_cents, t1, fg, kg, plain_g, two, fused1,
@@ -2239,13 +2732,24 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     before = dict(counters.total)
-    steps = server_section(torch, dev, counters, errs, srv_item, smi)
+    steps, h_host = server_section(torch, dev, counters, errs, srv_item, smi)
     del srv_item
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # i. the stream engine, from pinned host copies of section h's first
+    # N_MAIN rows, section e's blobs and section f's label
+    stream_host.update(h_host)
+    del h_host
+    i_steps = stream_section(torch, dev, counters, errs, stream_host, seeds,
+                             smi)
+    del stream_host
     for row in rows:
         name = row["name"]
         row["launches"] = counters.total[name]
-        by_step = {f"server {step}": got[name]
-                   for step, got in steps.items() if got.get(name)}
+        by_step = {f"{kind} {step}": got[name]
+                   for kind, st in (("server", steps), ("stream", i_steps))
+                   for step, got in st.items() if got.get(name)}
         if by_step:
             row["launches_by_shape"] = {
                 **row.get("launches_by_shape",

@@ -12,6 +12,9 @@ Engines here:
   row blocks; PyTorch runs eagerly, so there is no program cache).
 * :func:`run_many`    — N aggregates in ONE pass through
   :class:`FusedAggregate`.
+* :func:`run_stream`  — out-of-core fold over a host-side iterator of
+  row blocks, the state kept on the device; on the card each block is
+  copied on a stream of its own while the previous block folds.
 * :func:`run_grouped` — GROUP BY: rows sorted into group-aligned blocks
   once and every group folded in one pass (:func:`segment_fold`, with the
   aggregate's registered segment kernel where it has one), or the masked
@@ -22,18 +25,22 @@ Engines here:
 
 Where the reference vmaps over the group axis, the port writes the axis
 out: inits are stacked per group and ``final_grouped`` finalizes a
-stacked state.  The sharded and streaming engines wait for later slices.
+stacked state.  The sharded engine waits for a later slice.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping, TypeVar
+from typing import Any, Iterable, Mapping, TypeVar
 
 import torch
 
+from ..device import resolve_device
 from ..kernels import registry as _kernels
 from ..tree import tree_index, tree_leaves, tree_map, tree_stack
-from .table import Columns, GroupedView, Table
+from .table import (
+    Columns, GroupedView, Table, _n_rows, as_column, host_tensor,
+    stored_dtype,
+)
 from .trace import record as _record
 
 S = TypeVar("S")  # transition state tree
@@ -252,6 +259,162 @@ def run_local(agg: Aggregate, table: Table, *, block_size: int | None = None,
     _record(trace_kind, engine="local", rows=table.n_rows)
     state = _blocked_fold(agg, dict(table.columns), mask, block_size)
     return agg.final(state) if finalize else state
+
+
+# ---------------------------------------------------------------------------
+# Streaming / out-of-core execution.
+# ---------------------------------------------------------------------------
+
+class _HostFeed:
+    """The CPU's blocks: each column converted as the reference stores it.
+    A fold on the CPU ends before the engine asks for the next block, so
+    a block may share memory with the producer's buffer."""
+
+    def put(self, block: Columns) -> dict:
+        return {k: as_column(v, "cpu") for k, v in block.items()}
+
+    def take(self, cols: dict) -> dict:
+        return cols
+
+    def release(self, cols: dict) -> None:
+        pass
+
+    def ones(self, n: int) -> torch.Tensor:
+        return torch.ones((n,), dtype=torch.bool)
+
+
+class _Upload:
+    """One block on its way to the card: its device columns, the event
+    recorded after their copies, and whether the copies read the
+    caller's own (pinned) memory."""
+
+    __slots__ = ("cols", "event", "reads_caller")
+
+    def __init__(self, cols, event, reads_caller):
+        self.cols, self.event, self.reads_caller = cols, event, reads_caller
+
+
+class _CardFeed:
+    """Moves a stream's blocks to the card, on a copy stream of its own.
+
+    * A CUDA tensor on the engine's device is folded as it is.
+    * A contiguous pinned CPU tensor already in its stored dtype is
+      copied straight out of the caller's memory, so the host waits for
+      that copy before the producer runs again (:meth:`release`).
+    * Anything else (numpy arrays, pageable or strided tensors, 64-bit
+      columns, sequences) is converted into one of two pinned staging
+      buffers per column, which the engine owns; a buffer is refilled
+      only after its last copy has completed.
+
+    Every device block is allocated on the copy stream and
+    ``record_stream``-ed on the compute stream, so the allocator keeps
+    its memory until the fold that reads it has run."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.compute = torch.cuda.current_stream(device)
+        self.copy = torch.cuda.Stream(device)
+        self.staging: dict[str, list] = {}   # column -> two [buf, event]
+        self.turn = 0
+        self._ones = torch.ones((0,), dtype=torch.bool, device=device)
+
+    def _stage(self, name: str, t: torch.Tensor, dtype) -> torch.Tensor:
+        slots = self.staging.setdefault(name, [[None, None], [None, None]])
+        slot = slots[self.turn]
+        if slot[1] is not None:
+            slot[1].synchronize()   # its previous copy has left the buffer
+        buf = slot[0]
+        if buf is None or buf.dtype != dtype or buf.numel() < t.numel():
+            buf = slot[0] = torch.empty((t.numel(),), dtype=dtype,
+                                        pin_memory=True)
+        out = buf[:t.numel()].view(t.shape)
+        out.copy_(t)
+        return out
+
+    def put(self, block: Columns) -> _Upload:
+        cols, srcs, staged, reads_caller = {}, {}, [], False
+        for name, v in block.items():
+            t = host_tensor(v)
+            dt = stored_dtype(t.dtype)
+            if t.device.type == "cuda":   # as it is on the engine's card
+                cols[name] = t.to(device=self.device, dtype=dt)
+            elif t.dtype == dt and t.is_contiguous() and t.is_pinned():
+                srcs[name] = t
+                reads_caller = True
+            else:
+                srcs[name] = self._stage(name, t, dt)
+                staged.append(name)
+        event = torch.cuda.Event()
+        with torch.cuda.stream(self.copy):
+            for name, src in srcs.items():
+                d = src.to(self.device, non_blocking=True)
+                d.record_stream(self.compute)
+                cols[name] = d
+            event.record(self.copy)
+        for name in staged:
+            self.staging[name][self.turn][1] = event
+        self.turn ^= 1
+        _n_rows(cols)
+        return _Upload(cols, event, reads_caller)
+
+    def take(self, up: _Upload) -> dict:
+        self.compute.wait_event(up.event)
+        return up.cols
+
+    def release(self, up: _Upload) -> None:
+        if up.reads_caller:
+            up.event.synchronize()
+
+    def ones(self, n: int) -> torch.Tensor:
+        if self._ones.shape[0] < n:
+            self._ones = torch.ones((n,), dtype=torch.bool,
+                                    device=self.device)
+        return self._ones[:n]
+
+
+def run_stream(agg: Aggregate, blocks: Iterable[Columns], *,
+               device=None) -> Any:
+    """Fold an aggregate over a host-side stream of row blocks (column
+    dicts of numpy arrays, CPU tensors, pinned or not, or tensors on the
+    card), with the fold state kept on ``device``: the card unless
+    ``device="cpu"``.  Every column is stored as :func:`as_column` stores
+    it; the first block seeds the state through ``init`` and
+    ``transition``, every block folds under an all-true mask, and
+    ``final`` runs once at the end.  One ``scan`` event
+    (``engine="stream"``).
+
+    On the card the copy of block i + 1 runs on a copy stream of its own
+    while block i folds on the caller's current stream; the host waits
+    only where a copy reads memory the engine does not own, before it
+    asks the producer for the next block, and where a staging buffer is
+    refilled.  Only the state, the block being folded and the next block
+    are on the device at once.  The reference's per-aggregate program
+    memo (``_stream_jit``) has no counterpart: PyTorch runs eagerly."""
+    dev = resolve_device(device)
+    it = iter(blocks)
+    try:
+        first = next(it)
+    except StopIteration:
+        raise ValueError("run_stream: empty block stream — at least one "
+                         "block is required to seed the fold state") from None
+    _record("scan", engine="stream")
+    feed = _CardFeed(dev) if dev.type == "cuda" else _HostFeed()
+    up = feed.put(first)
+    state = None
+    while up is not None:
+        cols = feed.take(up)
+        n = next(iter(cols.values())).shape[0]
+        if state is None:
+            state = agg.init(cols)
+        # enqueued before the producer runs again: a producer that reuses
+        # a buffer on the card writes it after this fold in stream order
+        state = agg.transition(state, cols, feed.ones(n))
+        del cols
+        feed.release(up)
+        nxt = next(it, None)
+        up = None if nxt is None else feed.put(nxt)
+        del nxt
+    return agg.final(state)
 
 
 # ---------------------------------------------------------------------------

@@ -23,32 +23,35 @@ Tasks whose iteration is not a single pure scan (two-pass k-means)
 override :meth:`IterativeTask.iteration` and call the supplied
 ``run_pass`` runner as many times as their dataflow needs.
 
-:func:`fit` runs a task on one table and :func:`fit_grouped` fits one
-model per group (``GROUP BY``), on the group-aligned segment layout or
-the masked fallback.  PyTorch runs eagerly, so every engine is a host
-loop that pulls the metric once per round.  ``mode="compiled"`` is
-accepted and folds through :class:`PassRunner` (no scan event per
+:func:`fit` runs a task on one table, :func:`fit_stream` on a stream of
+host-side row blocks that every round folds afresh through
+:func:`~repro_torch.core.aggregates.run_stream`, and :func:`fit_grouped`
+fits one model per group (``GROUP BY``), on the group-aligned segment
+layout or the masked fallback.  PyTorch runs eagerly, so every engine is
+a host loop that pulls the metric once per round.  ``mode="compiled"``
+is accepted and folds through :class:`PassRunner` (no scan event per
 round) where ``mode="host"`` calls the recorded ``run_local`` engine;
 neither fuses the loop on the device yet (a CUDA-graph body is later
-work).  ``tol=None`` runs exactly ``max_iters`` rounds.  The streaming
-engine (``fit_stream``), the sharded engine and ``jit=False`` are not
-ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
+work).  ``tol=None`` runs exactly ``max_iters`` rounds.  The sharded
+engine and ``jit=False`` are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable, Iterable
 
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..tree import tree_index, tree_leaves, tree_map, tree_stack
 from .aggregates import (
     Aggregate, _blocked_fold, _combine_leaf, probe_segment_ops, run_local,
-    segment_block_size,
+    run_stream, segment_block_size,
 )
-from .table import Columns, Table
+from .table import Columns, Table, as_column
 from .trace import record as _record
 
 
@@ -62,7 +65,7 @@ def _check_local(mesh, row_axes, jit: bool, engine: str = "local") -> None:
     """The arguments that only the unported engines give meaning to."""
     if mesh is not None or row_axes is not None or engine == "sharded":
         _not_ported("the sharded engine (mesh=, row_axes=, "
-                    "engine='sharded')", "3 (run_sharded)")
+                    "engine='sharded')", "13 (run_sharded)")
     if not jit:
         _not_ported("jit=False (there is no compiled program to skip; a "
                     "CUDA-graph loop body would be one)",
@@ -109,6 +112,22 @@ class _EagerRunner:
     def __call__(self, agg: Aggregate):
         return run_local(agg, self.table, block_size=self.block_size,
                          mask=self.mask)
+
+
+class _StreamRunner:
+    """Each pass re-folds a fresh block stream; the state stays on
+    ``device``."""
+
+    columns = None
+    mask = None
+
+    def __init__(self, blocks_factory: Callable[[], Iterable[Columns]],
+                 device: torch.device):
+        self.blocks_factory = blocks_factory
+        self.device = device
+
+    def __call__(self, agg: Aggregate):
+        return run_stream(agg, self.blocks_factory(), device=self.device)
 
 
 # ---------------------------------------------------------------------------
@@ -174,9 +193,16 @@ class FitResult:
 
 
 def _as_state(tree, device: torch.device):
-    """A caller's state tree (tensors, numpy arrays, numbers) as tensors
-    on ``device``."""
+    """A task's state tree (tensors, numpy arrays, numbers) as tensors on
+    ``device``, in the dtypes the task chose."""
     return tree_map(lambda v: torch.as_tensor(v, device=device), tree)
+
+
+def _warm_state(tree, device: torch.device):
+    """A caller's warm start as tensors on ``device``, each leaf stored as
+    :func:`as_column` stores caller data (the reference's
+    ``jnp.asarray``)."""
+    return tree_map(lambda v: as_column(v, device), tree)
 
 
 # ---------------------------------------------------------------------------
@@ -204,13 +230,41 @@ def fit(task: IterativeTask, table: Table, *, max_iters: int = 100,
         raise ValueError(f"unknown mode {mode!r}")
     _check_local(mesh, row_axes, jit, engine)
     columns = dict(table.columns)
-    state0 = warm_start if warm_start is not None \
-        else task.init_state(columns)
-    state0 = _as_state(state0, table.device)
+    state0 = _warm_state(warm_start, table.device) \
+        if warm_start is not None \
+        else _as_state(task.init_state(columns), table.device)
     _record("fit", engine="local", mode=mode)
     runner = _EagerRunner(table, mask, block_size) if mode == "host" \
         else PassRunner(columns, mask, block_size)
     return _host_loop(task, runner, state0, max_iters, tol)
+
+
+def fit_stream(task: IterativeTask,
+               blocks_factory: Callable[[], Iterable[Columns]], *,
+               max_iters: int = 100, tol: float | None = 1e-6,
+               warm_start: Any = None, device=None) -> FitResult:
+    """Out-of-core iteration: every round streams the blocks of a fresh
+    ``blocks_factory()`` through
+    :func:`~repro_torch.core.aggregates.run_stream`, with the state on
+    ``device`` (the card unless ``device="cpu"``), so only one block at a
+    time, and the next in flight, is on the device.  The driver state is
+    ``warm_start``, or ``task.init_state`` of the first block of a fresh
+    stream."""
+    dev = resolve_device(device)
+    if warm_start is not None:
+        state0 = _warm_state(warm_start, dev)
+    else:
+        try:
+            first = next(iter(blocks_factory()))
+        except StopIteration:
+            raise ValueError("fit_stream: blocks_factory() produced no "
+                             "blocks — at least one block is required to "
+                             "shape the driver state") from None
+        state0 = _as_state(task.init_state(
+            {k: as_column(v, dev) for k, v in first.items()}), dev)
+    _record("fit", engine="stream")
+    return _host_loop(task, _StreamRunner(blocks_factory, dev), state0,
+                      max_iters, tol)
 
 
 def _host_loop(task, runner, state0, max_iters, tol) -> FitResult:
@@ -272,7 +326,7 @@ def fit_grouped(task: IterativeTask, table: Table, key_col: str,
         num_groups = int(gids.max()) + 1
     G = num_groups
     if warm_start is not None:
-        warm = _as_state(warm_start, table.device)
+        warm = _warm_state(warm_start, table.device)
         states0 = [tree_index(warm, g) for g in range(G)]
     else:
         s0 = _as_state(task.init_state(cols), table.device)

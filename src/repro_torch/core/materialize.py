@@ -92,7 +92,7 @@ class MaterializedHandle:
             if not isinstance(n, (ScanAgg, GroupedScanAgg)):
                 raise TypeError(
                     f"materialize: not a retainable scan statement: {n!r} "
-                    "(fit statements hold no mergeable state)")
+                    "(fit and stream statements hold no mergeable state)")
             if n.mask is not None:
                 raise ValueError(
                     "materialize: masked statements are not supported — a "

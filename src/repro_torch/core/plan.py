@@ -2,12 +2,14 @@
 
 The port's counterpart of the reference ``core/plan.py``.  Method
 wrappers emit logical nodes (:class:`ScanAgg`, :class:`GroupedScanAgg`,
-:class:`JoinedGroupedScanAgg`, :class:`IterativeFit`); :func:`plan`
-fuses compatible statements into ONE pass each (one ``run_many`` per
-``(table, mask, block size)``, one ``run_grouped`` per ``(table, key)``,
-one shared key resolution and segment scan per ``(fact, dim, key,
-attr)`` star triple) and picks the grouped method from the rows-moved
-heuristic; :func:`execute` runs one statement through it and
+:class:`JoinedGroupedScanAgg`, :class:`IterativeFit`,
+:class:`StreamAgg`); :func:`plan` fuses compatible statements into ONE
+pass each (one ``run_many`` per ``(table, mask, block size)``, one
+``run_grouped`` per ``(table, key)``, one shared key resolution and
+segment scan per ``(fact, dim, key, attr)`` star triple, one
+``run_stream`` fold per block source, which is mandatory there: a shared
+iterator can be consumed only once) and picks the grouped method from
+the rows-moved heuristic; :func:`execute` runs one statement through it and
 :func:`explain` renders the physical plan, line for line as the
 reference renders it.
 
@@ -25,8 +27,8 @@ view-backed and multi-table statements never get a semantic
 fingerprint.  The reference's jit flag has no counterpart in eager
 PyTorch, so it is absent from both.
 
-The stream node and the measured calibration wait for later slices:
-every cost is the rows-moved heuristic, and explain says so.
+The measured calibration waits for a later slice: every cost is the
+rows-moved heuristic, and explain says so.
 
 ``explain()`` renders the reference's text line for line.  Where the two
 packages' statements differ, they differ only in kernel impl names,
@@ -49,10 +51,10 @@ import torch
 
 from .aggregates import (
     Aggregate, FusedAggregate, probe_segment_ops, run_grouped, run_many,
-    segment_block_size,
+    run_stream, segment_block_size,
 )
 from .iterative import (
-    IterativeTask, _as_state, _segment_task_ok, fit, fit_grouped,
+    IterativeTask, _as_state, _segment_task_ok, fit, fit_grouped, fit_stream,
 )
 from .join import Join
 from .table import GroupedView, Table
@@ -124,11 +126,13 @@ class JoinedGroupedScanAgg:
 class IterativeFit:
     """Iterative model fit (the §3.1.2 driver pattern as a statement).
 
+    ``blocks`` set (a zero-argument factory of block iterables) ->
+    ``fit_stream`` on ``device`` (the card unless ``device="cpu"``);
     ``group_col`` set -> ``fit_grouped``; else ``fit``.  Fit statements
     never fuse with one another (each owns its driver loop), but they
     share partitioning sorts with grouped scans through the same
-    ``group_by`` memo.  ``blocks`` (the streaming engine), ``mesh`` and
-    ``row_axes`` (the sharded engine) are not ported yet."""
+    ``group_by`` memo.  ``mesh`` and ``row_axes`` (the sharded engine)
+    are not ported yet."""
 
     task: IterativeTask
     table: Table | None = None
@@ -147,6 +151,28 @@ class IterativeFit:
     row_axes: Any = None
     jit: bool = True
     label: str | None = None
+    device: Any = None           # fit_stream(): where the state lives
+
+
+@dataclasses.dataclass(eq=False)
+class StreamAgg:
+    """One-pass aggregate over an out-of-core block stream.
+
+    ``blocks`` is an iterable of column dicts or a zero-arg factory.
+    Statements sharing the same ``blocks`` object MUST fuse (the planner
+    does): a shared iterator can only be consumed once.  ``device`` is
+    where the fold state lives: the card unless ``device="cpu"``.
+    """
+
+    agg: Aggregate
+    blocks: Any
+    columns: Any = None          # projection
+    label: str | None = None
+    device: Any = None
+
+
+Node = ("ScanAgg | GroupedScanAgg | JoinedGroupedScanAgg | IterativeFit"
+        " | StreamAgg")
 
 
 # ---------------------------------------------------------------------------
@@ -349,7 +375,7 @@ def semantic_fingerprint(node) -> tuple | None:
 class PhysicalPass:
     """One physical engine execution covering >= 1 statements."""
 
-    kind: str                       # "scan" | "grouped" | "join" | "fit"
+    kind: str            # "scan" | "grouped" | "join" | "fit" | "stream"
     engine: str
     members: list                   # [(statement index, node), ...]
     cost: float | None
@@ -556,15 +582,13 @@ def _fit_pass(index: int, node: IterativeFit) -> PhysicalPass:
     grouped fit's layout is decided here, at plan time, as in the
     reference (explain consults the task as a database consults its
     statistics); a failing probe stays "auto" and execution surfaces the
-    real error."""
-    if node.blocks is not None:
-        raise NotImplementedError(
-            "IterativeFit(blocks=...) (fit_stream) is not ported to "
-            "repro_torch yet (ROADMAP Queue 1 item 3: run_stream)")
-    if node.table is None:
-        raise ValueError("IterativeFit needs a table")
+    real error.  A stream fit has no table, no rows and no cost."""
     run_layout = node.layout
-    if node.group_col is not None:
+    if node.blocks is not None:
+        engine, info = "stream", {}
+    elif node.table is None:
+        raise ValueError("IterativeFit needs a table or blocks")
+    elif node.group_col is not None:
         layout = node.layout
         if layout == "auto":
             cols = {k: v for k, v in node.table.columns.items()
@@ -584,10 +608,15 @@ def _fit_pass(index: int, node: IterativeFit) -> PhysicalPass:
     else:
         engine = "local" if node.engine == "auto" else node.engine
         info = {"table": node.table}
-    rows = node.table.n_rows
+    rows = None if node.table is None else node.table.n_rows
+    cost = None if rows is None else node.max_iters * float(rows)
 
     def run():
-        if node.group_col is not None:
+        if node.blocks is not None:
+            res = fit_stream(node.task, node.blocks,
+                             max_iters=node.max_iters, tol=node.tol,
+                             warm_start=node.warm_start, device=node.device)
+        elif node.group_col is not None:
             res = fit_grouped(node.task, node.table, node.group_col,
                               node.num_groups, max_iters=node.max_iters,
                               tol=node.tol, block_size=node.block_size,
@@ -603,10 +632,31 @@ def _fit_pass(index: int, node: IterativeFit) -> PhysicalPass:
         return {index: res}
 
     return PhysicalPass(
-        kind="fit", engine=engine, members=[(index, node)],
-        cost=node.max_iters * float(rows),
+        kind="fit", engine=engine, members=[(index, node)], cost=cost,
         info=dict(info, rows=rows, max_iters=node.max_iters, tol=node.tol),
         run=run)
+
+
+def fused_stream_pass(members: Sequence[tuple[int, StreamAgg]]
+                      ) -> PhysicalPass:
+    """ONE ``run_stream`` fold for the stream statements over one block
+    source (called first when it is a factory); members over different
+    sources are rejected."""
+    nodes = [n for _, n in members]
+    base = nodes[0]
+    if any(n.blocks is not base.blocks for n in nodes):
+        raise ValueError("fused_stream_pass: statements fold different "
+                         "block streams")
+    idx = [i for i, _ in members]
+
+    def run():
+        blocks = base.blocks() if callable(base.blocks) else base.blocks
+        out = run_stream(FusedAggregate([_member_agg(n) for n in nodes]),
+                         blocks, device=base.device)
+        return dict(zip(idx, out))
+
+    return PhysicalPass(kind="stream", engine="stream",
+                        members=list(members), cost=None, info={}, run=run)
 
 
 @dataclasses.dataclass
@@ -709,7 +759,8 @@ class PhysicalPlan:
 
 
 _KIND_NAMES = {"scan": "shared-scan", "grouped": "grouped-scan",
-               "join": "join-grouped-scan", "fit": "fit"}
+               "join": "join-grouped-scan", "fit": "fit",
+               "stream": "stream-scan"}
 
 
 def _fmt_cost(c: float) -> str:
@@ -739,6 +790,8 @@ def plan(statements: Sequence[Any]) -> PhysicalPlan:
             key = (("join",) + node.join.spec_key()
                    + (node.num_groups, _mask_key(node.mask),
                       node.block_size, node.method))
+        elif isinstance(node, StreamAgg):
+            key = ("stream", id(node.blocks))
         elif isinstance(node, IterativeFit):
             key = ("fit", i)  # fits never fuse
         else:
@@ -746,7 +799,7 @@ def plan(statements: Sequence[Any]) -> PhysicalPlan:
         groups.setdefault(key, []).append((i, node))
 
     build = {"scan": fused_scan_pass, "grouped": fused_grouped_pass,
-             "join": fused_join_pass}
+             "join": fused_join_pass, "stream": fused_stream_pass}
     passes = [_fit_pass(*members[0]) if key[0] == "fit"
               else build[key[0]](members)
               for key, members in groups.items()]

@@ -20,6 +20,9 @@ succeeds.
 Iterative fits are statements too (``fit``, ``logregr``): each runs its
 own driver loop and never fuses, and a grouped fit shares the
 partitioning sort with grouped scans of the same table and key.
+Out-of-core statements (``stream_scan``, and ``fit(..., blocks=...)``)
+fold host-side block streams: every stream statement over one block
+source folds in ONE ``run_stream`` pass.
 Joined statements (``joined_grouped_scan``) over one star triple share
 one key resolution and one pass; ``materialize`` keeps living views
 that ``refresh`` brings current by delta folds; ``explain`` renders the
@@ -34,8 +37,8 @@ fuses, deduplicates and caches across ALL attached sessions, and
 API is the same in both modes.
 
 Not ported yet, and raising ``NotImplementedError`` that names the
-ROADMAP item which brings them: ``stream_scan`` with ``run_stream``;
-``naive_bayes`` with the remaining methods.
+ROADMAP item which brings it: ``naive_bayes`` with the remaining
+methods.
 """
 
 from __future__ import annotations
@@ -45,7 +48,8 @@ from typing import Any, Callable
 
 from .materialize import materialize
 from .plan import (
-    GroupedScanAgg, IterativeFit, JoinedGroupedScanAgg, ScanAgg, plan,
+    GroupedScanAgg, IterativeFit, JoinedGroupedScanAgg, ScanAgg, StreamAgg,
+    plan,
 )
 from .table import Table
 
@@ -180,12 +184,19 @@ class Session:
             **kwargs) -> Handle:
         """An iterative fit (:class:`IterativeFit`) as a statement;
         ``kwargs`` are the node's fields (``group_col``, ``max_iters``,
-        ``tol``, ...)."""
+        ``tol``, ``blocks`` and ``device`` for a stream fit, ...)."""
         return self.statement(IterativeFit(task, table, label=label,
                                            **kwargs), post=post)
 
-    def stream_scan(self, *args, **kwargs):
-        _not_ported("stream_scan", "3 (run_stream, StreamAgg)")
+    def stream_scan(self, agg, blocks, *, columns=None, label=None,
+                    post=None, device=None) -> Handle:
+        """A one-pass aggregate over a host-side block stream
+        (:class:`StreamAgg`); statements over the same ``blocks`` object
+        fold in ONE pass, with the state on ``device`` (the card unless
+        ``device="cpu"``)."""
+        return self.statement(StreamAgg(agg, blocks, columns=columns,
+                                        label=label, device=device),
+                              post=post)
 
     # -- living views -------------------------------------------------------
     def materialize(self, *nodes):

@@ -6,6 +6,10 @@ multi-dimensional: a ``DOUBLE PRECISION[]`` feature column is an
 ``(n_rows, d)`` tensor, as the paper stores feature vectors in §4.1.
 Computation runs where the table's tensors live; :meth:`from_columns`
 puts them on the card unless the caller passes ``device="cpu"``.
+Caller data is stored as the reference stores it (:func:`as_column`:
+64-bit floats and ints narrowed to 32 bits, as JAX does with 64-bit
+types off), and :meth:`Table.blocks` cuts a table into row blocks for
+the stream engine.
 
 The memo and versioning contracts are the reference's: one stable sort
 per ``(table, key)`` (:meth:`Table.sort_permutation`), a ``group_by``
@@ -17,7 +21,7 @@ memo stamped with the table version, ``append`` bumping the version and
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Mapping
+from typing import Any, Callable, Iterator, Mapping
 
 import numpy as np
 import torch
@@ -35,11 +39,48 @@ def _n_rows(columns: Columns) -> int:
     return next(iter(sizes.values()))
 
 
-def _as_tensor(v, device: torch.device) -> torch.Tensor:
-    if isinstance(v, np.ndarray):
+# 64-bit types as the reference stores them: JAX with 64-bit types off
+# keeps float64 as float32, int64 as int32 (the low 32 bits) and
+# complex128 as complex64.  Every other dtype is kept, uint64 included
+# (the reference keeps its low 32 bits as uint32; the port's hashes read
+# the same low 32 bits, see ``kernels/sketch_hash.as_u32``).
+_NARROW = {torch.float64: torch.float32, torch.int64: torch.int32,
+           torch.complex128: torch.complex64}
+_INT32 = (-2 ** 31, 2 ** 31 - 1)
+
+
+def stored_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a column of ``dtype`` is stored in (:func:`as_column`)."""
+    return _NARROW.get(dtype, dtype)
+
+
+def host_tensor(v) -> torch.Tensor:
+    """``v`` as a tensor without narrowing: tensors as they are, numpy
+    arrays and scalars shared where numpy allows, Python numbers and
+    sequences as ``torch.as_tensor`` makes them (ints beyond int32 raise
+    ``OverflowError``, as the reference's ``jnp.asarray`` does)."""
+    if isinstance(v, torch.Tensor):
+        return v
+    if isinstance(v, (np.ndarray, np.generic)):
         v = np.ascontiguousarray(v)
-        v = torch.from_numpy(v if v.flags.writeable else v.copy())
-    return torch.as_tensor(v, device=device)
+        return torch.from_numpy(v if v.flags.writeable else v.copy())
+    t = torch.as_tensor(v)
+    if t.dtype == torch.int64 and t.numel() and (
+            int(t.min()) < _INT32[0] or int(t.max()) > _INT32[1]):
+        raise OverflowError(f"Python int {int(t.abs().max())} out of "
+                            "bounds for int32")
+    return t
+
+
+def as_column(v, device) -> torch.Tensor:
+    """``v`` (a tensor, numpy array, Python number or sequence) on
+    ``device`` in the dtype the reference's ``jnp.asarray`` gives it with
+    64-bit types off: float64 -> float32, int64 -> int32 wrapping to the
+    low 32 bits, complex128 -> complex64, Python ints and floats -> int32
+    and float32; every other dtype unchanged.  The one conversion of
+    every entry point that takes caller data."""
+    t = host_tensor(v)
+    return t.to(device=device, dtype=stored_dtype(t.dtype))
 
 
 @dataclasses.dataclass(eq=False)
@@ -68,7 +109,7 @@ class Table:
         """Columns (tensors, numpy arrays or sequences) placed on
         ``device``: the card when ``None``, which raises without one."""
         dev = resolve_device(device)
-        cols = {k: _as_tensor(v, dev) for k, v in columns.items()}
+        cols = {k: as_column(v, dev) for k, v in columns.items()}
         _n_rows(cols)
         return cls(cols)
 
@@ -93,9 +134,18 @@ class Table:
 
     def with_column(self, name: str, values) -> "Table":
         cols = dict(self.columns)
-        cols[name] = _as_tensor(values, self.device)
+        cols[name] = as_column(values, self.device)
         _n_rows(cols)
         return Table(cols)
+
+    def blocks(self, block_size: int) -> Iterator["Table"]:
+        """Row blocks of ``block_size`` consecutive rows (the last one
+        ragged) as tables on this table's device: the stream engine's
+        input, as ``dict(block.columns)``."""
+        n = self.n_rows
+        for start in range(0, n, block_size):
+            stop = min(start + block_size, n)
+            yield Table({k: v[start:stop] for k, v in self.columns.items()})
 
     # -- versioning --------------------------------------------------------
     @property
@@ -114,7 +164,7 @@ class Table:
         """Append rows in place and bump :attr:`version` (not the epoch).
         ``columns`` must carry exactly this table's columns with matching
         dtypes and trailing shapes.  Returns ``self``."""
-        new = {k: _as_tensor(v, self.device) for k, v in columns.items()}
+        new = {k: as_column(v, self.device) for k, v in columns.items()}
         if set(new) != set(self.columns):
             raise ValueError(
                 f"append columns {sorted(new)} != table columns "
@@ -239,7 +289,7 @@ class GroupedView:
     def permute(self, rows) -> torch.Tensor:
         """Bring a row-aligned tensor (a base mask) into partitioned
         order."""
-        rows = _as_tensor(rows, self.perm.device)
+        rows = as_column(rows, self.perm.device)
         return rows[self.perm.long()]
 
     def aligned_blocks(self, block_size: int, base_mask=None, *,
@@ -292,7 +342,7 @@ class GroupedView:
         cols = {k: v[src] for k, v in self.table.columns.items()}
         valid = torch.from_numpy(valid_np).to(dev)
         if base_mask is not None:
-            valid = valid & _as_tensor(base_mask, dev)[src]
+            valid = valid & as_column(base_mask, dev)[src]
         return cols, valid, torch.from_numpy(bg_np).to(dev)
 
 

@@ -35,7 +35,7 @@ from ..core.aggregates import MERGE_SUM, Aggregate
 from ..core.iterative import IterativeTask
 from ..core.plan import IterativeFit, execute
 from ..core.session import Session
-from ..core.table import Table
+from ..core.table import Table, as_column
 from ..kernels.registry import dispatch, resolve_impl
 from ..kernels.sketch_hash import _U32, _fmix32
 
@@ -203,7 +203,7 @@ class KMeansTask(IterativeTask):
 
     def init_state(self, columns):
         x = columns["x"]
-        c = torch.as_tensor(self.init_centroids, device=x.device)
+        c = as_column(self.init_centroids, x.device).to(x.dtype)
         return {"cents": c, "prev": c,
                 "it": torch.zeros((), dtype=torch.int32, device=x.device)}
 
@@ -237,7 +237,7 @@ class KMeansTwoPassTask(IterativeTask):
 
     def init_state(self, columns):
         x = columns["x"]
-        c = torch.as_tensor(self.init_centroids, device=x.device)
+        c = as_column(self.init_centroids, x.device).to(x.dtype)
         # statement 0: materialize the assignment column
         assign = torch.argmin(_sq_dists(x, c), dim=-1).to(torch.int32)
         return {"cents": c, "assign": assign,
@@ -392,7 +392,7 @@ def kmeans_fit(table: Table, k: int, *, seed=0, max_iters: int = 50,
     t = Table({"x": table[x_col]})
     n = t.n_rows
     if init_centroids is not None:
-        cents = torch.as_tensor(init_centroids, device=t.device)
+        cents = as_column(init_centroids, t.device)
     elif init == "kmeans++":
         cents = kmeans_pp_seed(t, k, seed)
     elif init == "random":
@@ -432,7 +432,7 @@ def kmeans_grouped(table: Table, key_col: str, k: int,
     ``use_kernel`` routes every group's transition through
     ``kmeans_assign``; ``mesh`` (the sharded engine) is not ported yet."""
     t = Table({"x": table[x_col], key_col: table[key_col]})
-    init_centroids = torch.as_tensor(init_centroids, device=t.device)
+    init_centroids = as_column(init_centroids, t.device)
     task = KMeansTask(init_centroids if init_centroids.dim() == 2
                       else init_centroids[0], use_kernel)
     warm = None

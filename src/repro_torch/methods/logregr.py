@@ -10,9 +10,9 @@ outer loop is :class:`IRLSTask` under the unified iterative executor
 (:func:`logregr_grouped`).  The products are plain ``torch.matmul``
 (no kernel: the reference leaves them to XLA too), in f32 without TF32.
 
-Not ported yet: ``logregr_stream`` (with ``fit_stream``) and the §5.1
-SGD solver (``logistic_program``, ``logregr_sgd``, with
-``core/convex.py``).
+:func:`logregr_stream` fits out of core, streaming the blocks of a fresh
+block source every round.  Not ported yet: the §5.1 SGD solver
+(``logistic_program``, ``logregr_sgd``, with ``core/convex.py``).
 """
 
 from __future__ import annotations
@@ -134,6 +134,17 @@ def logregr(table: Table, *, x_col: str = "x", y_col: str = "y",
     res = execute(IterativeFit(IRLSTask(), t, max_iters=max_iters, tol=tol,
                                block_size=block_size, mode=mode,
                                warm_start=ws, label="logregr"))
+    return _result(res)
+
+
+def logregr_stream(blocks_factory, *, max_iters: int = 30,
+                   tol: float = 1e-6, device=None) -> LogregrResult:
+    """Out-of-core IRLS: each iteration streams the blocks from a fresh
+    ``blocks_factory()`` (dicts with "x"/"y") with the state on
+    ``device`` (the card unless ``device="cpu"``)."""
+    res = execute(IterativeFit(IRLSTask(), blocks=blocks_factory,
+                               max_iters=max_iters, tol=tol,
+                               label="logregr_stream", device=device))
     return _result(res)
 
 

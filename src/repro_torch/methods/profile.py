@@ -6,14 +6,19 @@ The port's counterpart of the reference ``methods/profile.py``.
 templated :class:`ProfileAggregate`, plus one FM distinct-count sketch
 per 1-D integer column when asked), issued into a
 :class:`~repro_torch.core.session.Session`, whose planner fuses them into
-one data pass.  ``profile_stream`` waits for ``StreamAgg`` (ROADMAP
-Queue 1 item 3).
+one data pass.  :func:`profile_stream` plans the same parts as
+``StreamAgg`` statements over one block source: one ``run_stream`` fold.
 """
 
 from __future__ import annotations
 
+import itertools
+
+import torch
+
+from ..core.plan import StreamAgg
 from ..core.session import Session
-from ..core.table import Table
+from ..core.table import Table, host_tensor, stored_dtype
 from ..core.templates import ProfileAggregate, is_numeric
 from .sketches import FMAggregate
 
@@ -57,3 +62,34 @@ def profile(table: Table, *, distinct_counts: bool = False,
                           block_size=block_size)
     sess.run()
     return handle.result()
+
+
+def profile_stream(blocks, *, distinct_counts: bool = False,
+                   device=None) -> dict:
+    """Streaming fused profile, the out-of-core workload.
+
+    ``blocks`` is a host-side iterable of column dicts (e.g. one per file
+    of an out-of-core table).  Each part becomes a ``StreamAgg``
+    statement over the SAME block iterator, which the planner fuses into
+    one ``run_stream`` fold on ``device`` (the card unless
+    ``device="cpu"``): the same numbers as :func:`profile` on the
+    concatenated table, in one pass.  The first block's stored dtypes
+    pick the distinct-count columns."""
+    it = iter(blocks)
+    try:
+        first = next(it)
+    except StopIteration:
+        raise ValueError("profile_stream: empty block stream") from None
+    schema = {}
+    for k, v in first.items():
+        t = host_tensor(v)
+        schema[k] = torch.empty(tuple(t.shape), device="meta",
+                                dtype=stored_dtype(t.dtype))
+    aggs = profile_aggregates(Table(schema), distinct_counts=distinct_counts)
+    source = itertools.chain([first], it)
+    sess = Session()
+    handles = {name: sess.statement(StreamAgg(agg, source, label=name,
+                                              device=device))
+               for name, agg in aggs.items()}
+    sess.run()
+    return _shape_results({name: h.result() for name, h in handles.items()})

@@ -13,10 +13,14 @@ sketch kernels count in integers and agree bit for bit on any items.
 The end-to-end checks at the main path's size are in ``chip_smoke.py``.
 """
 
+import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import Session, run_grouped, trace_execution
+from repro_torch.core import (
+    FusedAggregate, Session, run_grouped, run_local, run_stream,
+    trace_execution,
+)
 from repro_torch.core.plan import ScanAgg, execute
 from repro_torch.core.table import Table
 from repro_torch.kernels import registry
@@ -27,7 +31,9 @@ from repro_torch.kernels.kmeans_assign import ops as km_ops, ref as km_ref
 from repro_torch.kernels.segment_fold import ops as sf_ops, ref as sf_ref
 from repro_torch.kernels.xtx import ops as xtx_ops, ref as xtx_ref
 from repro_torch.methods.kmeans import kmeans_fit
-from repro_torch.methods.linregr import linregr, linregr_grouped
+from repro_torch.methods.linregr import (
+    LinregrAggregate, linregr, linregr_grouped,
+)
 from repro_torch.launch.serve import serve
 from repro_torch.methods.sketches import (
     CountMinAggregate, FMAggregate, countmin_sketch, fm_distinct_count,
@@ -859,3 +865,127 @@ def test_grouped_view_delta_on_card_equals_rescan(cuda_device):
     torch.cuda.synchronize()
     assert sf_ops.segment_linregr_launches == before + 1
     assert _tree_equal(h._state, materialize(node())._state)
+
+
+# -- the stream engine: blocks from host memory to the card -------------------
+
+class _RawFused(FusedAggregate):
+    """Linregr (through xtx) and Count-Min (through countmin) fused,
+    ``final`` returning the fold states."""
+
+    def __init__(self):
+        super().__init__([LinregrAggregate(use_kernel=True),
+                          CountMinAggregate(4, 1024, use_kernel=True)])
+
+    def final(self, state):
+        return state
+
+
+def _stream_cols(n=70_001, k=24, seed=191):
+    draw = Draw(seed)
+    return {"x": draw.dyadic((n, k)), "y": draw.dyadic((n,)),
+            "item": draw.ints((n,), -100_000, 100_000)}
+
+
+def _stream_sources(cols, bs, device):
+    """Block sources by kind: each yields the rows of ``cols`` in blocks
+    of ``bs`` (the last one ragged)."""
+    n = cols["y"].shape[0]
+    starts = range(0, n, bs)
+    pinned = {k: torch.from_numpy(v).pin_memory() for k, v in cols.items()}
+
+    def reusing_numpy():
+        buf = {k: np.empty((bs,) + v.shape[1:], v.dtype)
+               for k, v in cols.items()}
+        for i in starts:
+            m = min(bs, n - i)
+            for k, v in cols.items():
+                buf[k][:m] = v[i:i + m]
+            yield {k: v[:m] for k, v in buf.items()}
+
+    def reusing_pinned():
+        buf = {k: torch.empty((bs,) + v.shape[1:], dtype=v.dtype,
+                              pin_memory=True) for k, v in pinned.items()}
+        for i in starts:
+            m = min(bs, n - i)
+            for k, v in pinned.items():
+                buf[k][:m].copy_(v[i:i + m])
+            yield {k: v[:m] for k, v in buf.items()}
+
+    return {
+        "pageable numpy": lambda: ({k: v[i:i + bs] for k, v in cols.items()}
+                                   for i in starts),
+        "pageable tensors": lambda: ({k: torch.from_numpy(v[i:i + bs])
+                                      for k, v in cols.items()}
+                                     for i in starts),
+        "pinned tensors": lambda: ({k: v[i:i + bs] for k, v in pinned.items()}
+                                   for i in starts),
+        "cuda tensors": lambda: ({k: v[i:i + bs].to(device)
+                                  for k, v in pinned.items()}
+                                 for i in starts),
+        "float64 and int64 numpy": lambda: (
+            {"x": cols["x"][i:i + bs].astype(np.float64),
+             "y": cols["y"][i:i + bs].astype(np.float64),
+             "item": cols["item"][i:i + bs].astype(np.int64)}
+            for i in starts),
+        "one reused numpy buffer": reusing_numpy,
+        "one reused pinned tensor": reusing_pinned,
+    }
+
+
+
+@pytest.mark.parametrize("source", [
+    "pageable numpy", "pageable tensors", "pinned tensors", "cuda tensors",
+    "float64 and int64 numpy", "one reused numpy buffer",
+    "one reused pinned tensor"])
+def test_run_stream_from_every_source_matches_the_resident_fold(
+        cuda_device, source):
+    cols = _stream_cols()
+    bs = 16_384
+    nb = -(-cols["y"].shape[0] // bs)
+    resident = Table({k: torch.from_numpy(v).to(cuda_device)
+                      for k, v in cols.items()})
+    want = run_local(_RawFused(), resident, block_size=bs)
+    blocks = _stream_sources(cols, bs, cuda_device)[source]()
+    before = (xtx_ops.xtx_launches, cm_ops.countmin_launches)
+    with trace_execution() as tr:
+        got = run_stream(_RawFused(), blocks)
+    torch.cuda.synchronize()
+    assert [e.engine for e in tr.scans] == ["stream"]
+    # one launch of each kernel per block, the ragged tail's included
+    assert (xtx_ops.xtx_launches - before[0],
+            cm_ops.countmin_launches - before[1]) == (nb, nb)
+    assert _tree_equal(got, want)
+
+
+def test_stream_ragged_tail_kernels_match_plain(cuda_device):
+    cols = _stream_cols()
+    tail = cols["y"].shape[0] % 16_384
+    assert tail
+    x = torch.from_numpy(cols["x"][-tail:]).to(cuda_device)
+    y = torch.from_numpy(cols["y"][-tail:]).to(cuda_device)
+    items = torch.from_numpy(cols["item"][-tail:]).to(cuda_device)
+    ones = torch.ones((tail,), dtype=torch.bool, device=cuda_device)
+    for g, w in zip(xtx_ops.xtx_xty(x, y), xtx_ref.xtx_xty_ref(x, y)):
+        assert torch.equal(g, w)
+    assert torch.equal(cm_ops.countmin_block(items, ones, 4, 1024),
+                       cm_ref.countmin_block_ref(items, ones, 4, 1024))
+
+
+def test_stream_statements_on_card_fold_once(cuda_device):
+    """Two stream statements over one pinned source: one scan, states
+    bitwise equal to the resident batch."""
+    cols = _stream_cols(n=40_000)
+    srcs = _stream_sources(cols, 10_000, cuda_device)
+    blocks = srcs["pinned tensors"]()
+    sess = Session()
+    h_lr = sess.stream_scan(LinregrAggregate(use_kernel=True), blocks,
+                            columns=("x", "y"))
+    h_fm = sess.stream_scan(FMAggregate(), blocks, columns=("item",))
+    with trace_execution() as tr:
+        sess.run()
+    resident = Table({k: torch.from_numpy(v).to(cuda_device)
+                      for k, v in cols.items()})
+    assert len(tr.scans) == 1
+    assert _tree_equal(h_lr.result(), linregr(resident, use_kernel=True))
+    assert torch.equal(h_fm.result(), fm_distinct_count(resident))

@@ -145,8 +145,6 @@ def test_unported_engines_raise_naming_their_item():
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         fit_grouped(km.KMeansTask(init), t.with_column(
             "g", torch.zeros(64, dtype=torch.int32)), "g", mesh=object())
-    with pytest.raises(NotImplementedError, match="run_stream"):
-        execute(IterativeFit(km.KMeansTask(init), t, blocks=lambda: []))
     with pytest.raises(ValueError, match="unknown mode"):
         fit(km.KMeansTask(init), t, mode="scan")
 

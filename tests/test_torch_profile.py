@@ -269,11 +269,9 @@ def _tiny():
                               device="cpu")
 
 
-# fit, logregr, the server, explain, joins and living views are ported:
-# what stays raises (a streaming fit or scan, naive Bayes, a sharded fit)
+# fit, logregr, the server, explain, joins, living views and streams are
+# ported: what stays raises (naive Bayes, a sharded fit)
 @pytest.mark.parametrize("call", [
-    lambda s: (s.fit(None, _tiny(), blocks=lambda: []), s.run()),
-    lambda s: s.stream_scan(None, []),
     lambda s: s.naive_bayes(None, 2),
     lambda s: (s.fit(None, _tiny(), mesh=object()), s.run()),
 ])
