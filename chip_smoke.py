@@ -83,6 +83,39 @@ i. then, from pinned host copies of section h's first 10,000,000 rows
    (equal rounds, k-means bitwise, ``kmeans_assign`` launches equal);
    each stream statement's seconds, GB/s and share of the pinned copy
    rate beside the resident statement's seconds;
+j. then the measured calibration on the card:
+   ``repro_torch.launch.calibrate`` in-process over rows {2^20, 2^22,
+   10,000,000} x groups {8, 64, 1024}, segment blocks 64 to 4096, 3
+   reps, through ``xtx``, ``segment_linregr``, ``countmin`` and
+   ``segment_countmin`` (K = 8, Count-Min 4 x 128), each bucket's
+   measured best block printed beside the heuristic's; under that
+   calibration ``explain()`` of ``linregr_grouped`` reads ``[measured
+   cuda@...]``, ``segment_block_size`` returns the measured best, and
+   ``linregr_grouped`` on section h's dyadic 10M x 160 table (G = 64)
+   folds bitwise as under the heuristic block, timed under both, and
+   once as the planner runs it under the calibration; the four kernels
+   bitwise against their plain versions on dyadic data (``xtx`` and
+   ``countmin`` at 10^7 rows, the segment kernels at 2^20 rows, every
+   group count and block size).  The masked cells above 64 groups are
+   timed over 64 group passes and scaled.  Then the methods of MADlib's Table 1 that
+   the tenth slice ports, at full size on tables made on the card from
+   the seed, each statement's first and repeated seconds printed:
+   ``naive_bayes_fit`` (10 classes) on that table, its fold state
+   bitwise a float64 fold, and ``naive_bayes_grouped`` (each group
+   bitwise its solo fit); ``quantiles`` of a Zipf and a Gaussian column
+   (histograms equal to ``torch.bincount``, each quantile within
+   range/bins of ``torch.quantile``) and ``quantiles_grouped`` (one
+   sort); ``decision_tree_fit`` on 10M x 32 blobs (depth 4, 32 bins;
+   split counts sum to rows x features at every level, the tree on a
+   1,000,000-row prefix equal on the card and the CPU); ``svd_power``
+   and ``svd_randomized`` (k = 10) of a 10M x 160 matrix with a decaying
+   spectrum against the float64 Gram's singular values; ``lda_fit`` on
+   100,000 documents x 4,096 words (20 topics, 5 rounds: the bound rises
+   every round; the E-step on 2,000 documents against the CPU);
+   ``apriori`` on 10M x 32 transactions with planted rules (supports
+   equal to direct counts); ``approx_match`` over 1,000,000 strings
+   (the index bitwise the CPU's on a 10,000-string prefix, the planted
+   near-duplicate ranked first);
 g. then, with the analytics tables dropped, the LM serving path:
    the flash_attention kernels against their plain version, each call
    held to the kernel the wrapper must pick (f32 at the reference's test
@@ -1673,6 +1706,507 @@ def stream_section(torch, dev, counters, errs, host, seeds, smi) -> dict:
     return steps
 
 
+# ---------------------------------------------------------------------------
+# j. the measured calibration on the card, then the one-pass and EM methods
+# of MADlib's Table 1 at full size, on tables made on the card from the seed.
+# ---------------------------------------------------------------------------
+
+CAL_ROWS = (1 << 20, 1 << 22, 10_000_000)
+CAL_GROUPS = (8, 64, 1024)
+CAL_BLOCKS = (64, 128, 256, 512, 1024, 2048, 4096)
+CAL_REPS = 3
+# masked cells time at most this many group passes and scale by groups /
+# this (a masked pass scans the whole table once per group): measured in
+# full, the G = 1024 cells took 27 of the sweep's 88 s on one H100
+CAL_MASKED_GROUPS_MAX = 64
+NB_CLASSES = 10
+Q_BINS, QS = 4096, (0.01, 0.1, 0.25, 0.5, 0.75, 0.9, 0.99)
+DT_DEPTH, DT_BINS, DT_CLASSES, DT_PREFIX = 4, 32, 4, 1_000_000
+# a decaying spectrum built as tests/test_methods.py builds it, (u * s) v^T:
+# the top SVD_K singular values 10 * 0.95^i, then a floor of 1.0, so the
+# power iteration converges in a few rounds and the f32 sums' rounding,
+# relative to the largest eigenvalue of A^T A, stays well below SVD_RTOL
+# at the k-th
+SVD_K, SVD_TOP, SVD_DECAY, SVD_BLOCK = 10, 10.0, 0.95, 1_000_000
+SVD_RTOL = 1e-4
+LDA_DOCS, LDA_VOCAB, LDA_TOPICS, LDA_LEN = 100_000, 4096, 20, 200
+LDA_ROUNDS, LDA_BLOCK, LDA_CHECK_DOCS = 5, 4096, 2000
+# the E-step on the card against the CPU: f32 digamma, exp and logsumexp
+# differ in the last ulps and the sums run in other orders
+LDA_RTOL, LDA_ATOL_SHARE = 1e-4, 1e-6
+AR_ROWS, AR_ITEMS, AR_P, AR_BLOCK = 10_000_000, 32, 0.15, 1_000_000
+SM_ROWS, SM_WIDTH, SM_BUCKETS, SM_PREFIX = 1_000_000, 64, 512, 10_000
+SM_QUERY = "the quick brown fox jumps over the lazy dog"
+
+
+def methods_section(torch, dev, counters, errs, smi) -> dict:
+    """Section j: the calibration harness on the card and what it
+    changes; then each method of the slice at full size, with its first
+    and repeated seconds.  The harness run and the grouped OLS statement
+    under both blocks run between a zero and a read of the launch
+    counters; the kernels are then held at the sweep's shapes against
+    their plain versions (``errs``).  Returns the launches by step."""
+    import numpy as np
+    from repro_torch.core import (
+        GroupedScanAgg, Session, Table, calibration, execute, run_grouped,
+        run_local, trace_execution)
+    from repro_torch.core.aggregates import segment_block_size
+    from repro_torch.kernels.countmin import ops as cm_ops
+    from repro_torch.kernels.countmin.ref import countmin_block_ref
+    from repro_torch.kernels.segment_fold import ops as sf_ops
+    from repro_torch.kernels.segment_fold.ref import (
+        segment_countmin_ref, segment_linregr_ref)
+    from repro_torch.kernels.xtx import ops as xtx_ops
+    from repro_torch.kernels.xtx.ref import xtx_xty_ref
+    from repro_torch.launch.calibrate import calibrate
+    from repro_torch.methods import (
+        assoc_rules, decision_tree, lda, naive_bayes, quantiles,
+        string_match, svd)
+    from repro_torch.methods.linregr import LinregrAggregate, linregr_grouped
+    from repro_torch.tree import tree_leaves
+
+    t_section = time.perf_counter()
+    steps: dict[str, dict[str, int]] = {}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 20)
+
+    def main_step(label, fn):
+        counters.zero()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[label] = {k: v for k, v in counters.read().items() if v}
+        return out
+
+    t_part = [time.perf_counter()]
+
+    def part_done(what):
+        now = time.perf_counter()
+        print(f"[methods] {what}: {now - t_part[0]:.1f} s of section j")
+        t_part[0] = now
+
+    def twice(what, fn):
+        """``fn()`` run twice: the first result and both host seconds."""
+        out, first = timed(torch, fn)
+        _, again = timed(torch, fn)
+        print(f"[methods] {what}: first {first:.4f} s, repeated "
+              f"{again:.4f} s; {smi}")
+        return out
+
+    # -- the calibration sweep ---------------------------------------------
+    out = str(ROOT / "build" / "calibration" / "cuda.json")
+    t0 = time.perf_counter()
+    cal, path = main_step("calibration sweep", lambda: calibrate(
+        CAL_ROWS, CAL_GROUPS, CAL_REPS, CAL_BLOCKS, device=dev, out=out,
+        masked_groups_max=CAL_MASKED_GROUPS_MAX,
+        log=lambda s: print(f"[calib]{s}")))
+    s_sweep = time.perf_counter() - t0
+    launched = steps["calibration sweep"]
+    for name in ("xtx", "segment_linregr", "countmin", "segment_countmin"):
+        require(launched.get(name, 0) > 0,
+                f"calibration sweep: {name} never launched")
+    print(f"[calib] sweep of {len(CAL_ROWS)} x {len(CAL_GROUPS)} buckets, "
+          f"blocks {list(CAL_BLOCKS)}, reps {CAL_REPS}: {s_sweep:.1f} s, "
+          f"launches {launched}; {smi}")
+    print(json.dumps({"calibration_blocks": [
+        {k: e[k] for k in ("rows", "groups", "block", "heuristic_block",
+                           "sweep")} for e in cal.grouped_block],
+        "device": smi}))
+    for e in cal.grouped_block:
+        print(f"[calib] rows={e['rows']} groups={e['groups']}: measured best "
+              f"block {e['block']} ({e['sweep'][str(e['block'])] * 1e3:.3f} "
+              f"ms), heuristic block {e['heuristic_block']} ("
+              + (f"{e['sweep'][str(e['heuristic_block'])] * 1e3:.3f} ms"
+                 if str(e["heuristic_block"]) in e["sweep"] else "not swept")
+              + ")")
+    require(calibration.current() is None,
+            "a calibration is active before any was activated")
+
+    # -- under the calibration: section h's dyadic table, G = G_MAIN --------
+    gh = torch.Generator(device=dev)
+    gh.manual_seed(SEED + 18)                  # section h's draws, in order
+    n = N_MAIN
+    td = Table({"x": dyadic(torch, gh, (n, K_MAIN), dev),
+                "y": dyadic(torch, gh, (n,), dev)})
+    td = Table(dict(td.columns, g=torch.randint(
+        0, G_MAIN, (n,), generator=gh, dtype=torch.int32, device=dev)))
+    heur = segment_block_size(n, G_MAIN)
+    sess = Session()
+    sess.grouped_scan(LinregrAggregate(use_kernel=True), td, "g", G_MAIN,
+                      columns=("x", "y"), label="linregr_grouped")
+    require("[heuristic]" in sess.explain(), "explain measured with no "
+            "calibration active")
+    with calibration.use(path):
+        text = sess.explain()
+        meas = segment_block_size(n, G_MAIN)
+    print("[calib] explain under the calibration:\n" + text)
+    require("[measured cuda@" in text,
+            "explain() of linregr_grouped does not read [measured cuda@...]")
+    require(meas == cal.grouped_block_size(n, G_MAIN),
+            f"segment_block_size {meas} is not the measured best "
+            f"{cal.grouped_block_size(n, G_MAIN)}")
+    def under(cal_path, fn):
+        """``fn()`` with the calibration at ``cal_path`` active (None:
+        none, the heuristics)."""
+        if cal_path is None:
+            return fn()
+        with calibration.use(cal_path):
+            return fn()
+
+    def segment_stmt():
+        return execute(GroupedScanAgg(
+            LinregrAggregate(use_kernel=True), td, "g", G_MAIN,
+            columns=("x", "y"), method="segment", label="linregr_grouped"))
+
+    states, secs, results = {}, {}, {}
+    for label, p in (("heuristic", None), ("measured", path)):
+        states[label] = under(p, lambda: run_grouped(
+            LinregrAggregate(use_kernel=True), td, "g", G_MAIN,
+            method="segment", finalize=False))
+        _, first = timed(torch, lambda: main_step(
+            f"linregr_grouped ({n}, {K_MAIN}), segment, {label} block",
+            lambda: under(p, segment_stmt)))
+        results[label], again = timed(torch, lambda: under(p, segment_stmt))
+        secs[label] = (first, again)
+    for a, b in zip(tree_leaves(states["heuristic"]),
+                    tree_leaves(states["measured"])):
+        bitwise(torch, "linregr_grouped fold state, measured vs heuristic "
+                "block", a, b)
+    print(f"[calib] linregr_grouped ({n} x {K_MAIN}, G = {G_MAIN}), segment "
+          f"layout: heuristic block {heur}: first {secs['heuristic'][0]:.4f} "
+          f"s, repeated {secs['heuristic'][1]:.4f} s; measured block {meas}: "
+          f"first {secs['measured'][0]:.4f} s, repeated "
+          f"{secs['measured'][1]:.4f} s; fold states bitwise equal; {smi}")
+    # the statement as the planner runs it under the calibration: the
+    # method explain named, bitwise the segment statement's answer
+    chosen = text.split("grouped-scan [", 1)[1].split("]", 1)[0]
+    planned, s_planned = timed(torch, lambda: main_step(
+        f"linregr_grouped ({n}, {K_MAIN}), as planned under the calibration",
+        lambda: under(path, lambda: linregr_grouped(td, "g", G_MAIN,
+                                                    use_kernel=True))))
+    for a, b in zip(tree_leaves(planned), tree_leaves(results["measured"])):
+        bitwise(torch, f"linregr_grouped planned ({chosen}) vs segment", a, b)
+    print(f"[calib] linregr_grouped as planned under the calibration: "
+          f"{chosen}, {s_planned:.4f} s, answer bitwise the segment "
+          f"statement's; {smi}")
+    print(json.dumps({"calibrated_statement": {
+        "statement": "linregr_grouped", "rows": n, "k": K_MAIN,
+        "groups": G_MAIN, "heuristic_block": heur, "measured_block": meas,
+        "heuristic_s": list(secs["heuristic"]),
+        "measured_s": list(secs["measured"]), "planned_method": chosen,
+        "planned_s": s_planned, "device": smi}}))
+    del sess, states, results, planned
+
+    # -- the kernels at the sweep's shapes against their plain versions:
+    # xtx and countmin at the largest bucket, the segment kernels at the
+    # smallest (their plain versions loop over blocks on the host)
+    nk = CAL_ROWS[-1]
+    xk = dyadic(torch, gen, (nk, 8), dev)
+    yk = dyadic(torch, gen, (nk,), dev)
+    ik = torch.randint(0, 10_000, (nk,), generator=gen, dtype=torch.int32,
+                       device=dev)
+    ones = torch.ones((nk,), dtype=torch.bool, device=dev)
+    got, want = xtx_ops.xtx_xty(xk, yk), xtx_xty_ref(xk, yk)
+    errs["xtx"] = max(errs["xtx"], *(bitwise(
+        torch, f"xtx ({nk}, 8)", a, b) for a, b in zip(got, want)))
+    errs["countmin"] = max(errs["countmin"], bitwise(
+        torch, f"countmin ({nk},) 4 x 128", cm_ops.countmin_block(
+            ik, ones, 4, 128), countmin_block_ref(ik, ones, 4, 128)))
+    ns = CAL_ROWS[0]
+    for groups in CAL_GROUPS:
+        w = 1.0 / torch.arange(1, groups + 1, dtype=torch.float64,
+                               device=dev)
+        gk = torch.searchsorted(torch.cumsum(w, 0) / w.sum(), torch.rand(
+            (ns,), generator=gen, dtype=torch.float64, device=dev)
+        ).clamp_(max=groups - 1).to(torch.int32)
+        view = Table({"x": xk[:ns], "y": yk[:ns], "item": ik[:ns],
+                      "g": gk}).group_by("g", groups)
+        for block in CAL_BLOCKS:
+            cols, valid, bgids = view.aligned_blocks(block)
+            args = (cols["x"], cols["y"], valid, bgids)
+            got = sf_ops.segment_linregr(*args, num_groups=groups)
+            want = segment_linregr_ref(*args, num_groups=groups)
+            errs["segment_linregr"] = max(errs["segment_linregr"], *(
+                bitwise(torch, f"segment_linregr K 8 block {block} G "
+                        f"{groups}", got[q], want[q]) for q in want))
+            sk = (cols["item"], valid, bgids)
+            errs["segment_countmin"] = max(errs["segment_countmin"], bitwise(
+                torch, f"segment_countmin 4 x 128 block {block} G {groups}",
+                sf_ops.segment_countmin(*sk, depth=4, width=128,
+                                        num_groups=groups),
+                segment_countmin_ref(*sk, depth=4, width=128,
+                                     num_groups=groups)))
+            del cols, valid, bgids, args, got, want
+        del view, gk
+    print(f"[calib] xtx and countmin at ({nk}, 8) and 4 x 128, "
+          f"segment_linregr (K = 8) and segment_countmin (4 x 128) at "
+          f"({ns} rows) x groups {list(CAL_GROUPS)} x blocks "
+          f"{list(CAL_BLOCKS)}: bitwise "
+          "equal to the plain versions (dyadic data)")
+    del xk, yk, ik, ones
+    part_done("the calibration, its statement and kernel checks")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- naive Bayes on section h's table, 10 classes -----------------------
+    label = torch.randint(0, NB_CLASSES, (n,), generator=gen,
+                          dtype=torch.int32, device=dev)
+    tnb = Table({"x": td["x"], "y": label, "g": td["g"]})
+    model = twice(f"naive_bayes_fit ({n} x {K_MAIN}, {NB_CLASSES} classes)",
+                  lambda: naive_bayes.naive_bayes_fit(tnb, NB_CLASSES))
+    agg = naive_bayes.NaiveBayesAggregate(NB_CLASSES)
+    state = run_local(agg, tnb.select("x", "y"), finalize=False)
+    ref = {"count": torch.zeros(NB_CLASSES, dtype=torch.float64, device=dev),
+           "sum": torch.zeros((NB_CLASSES, K_MAIN), dtype=torch.float64,
+                              device=dev)}
+    ref["sumsq"] = ref["sum"].clone()
+    for r0 in range(0, n, 1_000_000):
+        x64 = td["x"][r0:r0 + 1_000_000].double()
+        oh = torch.nn.functional.one_hot(
+            label[r0:r0 + 1_000_000].long(), NB_CLASSES).double()
+        ref["count"] += oh.sum(0)
+        ref["sum"] += oh.T @ x64
+        ref["sumsq"] += oh.T @ (x64 * x64)
+    for k in ref:
+        require(torch.equal(state[k].double(), ref[k]),
+                f"naive_bayes fold state {k} differs from the float64 fold")
+    for a, b in zip(tree_leaves(model), tree_leaves(agg.final(state))):
+        bitwise(torch, "naive_bayes_fit model vs final(fold state)", a, b)
+    print("[methods] naive_bayes_fit: fold state bitwise equal to a float64 "
+          "fold (dyadic x)")
+    grouped = twice(f"naive_bayes_grouped (G = {G_MAIN})",
+                    lambda: naive_bayes.naive_bayes_grouped(
+                        tnb, "g", NB_CLASSES, G_MAIN))
+    for i in range(G_MAIN):
+        sel = td["g"] == i
+        solo = naive_bayes.naive_bayes_fit(Table(
+            {"x": td["x"][sel], "y": label[sel]}), NB_CLASSES)
+        for f in ("log_prior", "mean", "var"):
+            bitwise(torch, f"naive_bayes_grouped group {i} {f}",
+                    getattr(grouped, f)[i], getattr(solo, f))
+    print(f"[methods] naive_bayes_grouped: each of {G_MAIN} groups bitwise "
+          "equal to the solo fit on its rows")
+    del tnb, model, state, ref, grouped, td, label
+    part_done("naive Bayes")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- quantiles on a Zipf item column and a Gaussian column --------------
+    tq = Table({"item": zipf_items(torch, gen, n, dev),
+                "gauss": torch.randn((n,), generator=gen, device=dev),
+                "g": torch.randint(0, G_MAIN, (n,), generator=gen,
+                                   dtype=torch.int32, device=dev)})
+    for col in ("item", "gauss"):
+        v = tq[col].float()
+        est = twice(f"quantiles({col}, {Q_BINS} bins, {n} rows)",
+                    lambda: quantiles.quantiles(tq, list(QS), value_col=col,
+                                                bins=Q_BINS))
+        lo, hi = float(v.min()), float(v.max())
+        hist = run_local(quantiles.HistogramAggregate(lo, hi, Q_BINS, col),
+                         tq)
+        f = (v - lo) * quantiles.range_scale(lo, hi, Q_BINS)
+        count = torch.bincount(quantiles.bin_index(f, Q_BINS),
+                               minlength=Q_BINS).float()
+        bitwise(torch, f"quantiles {col} histogram vs torch.bincount", hist,
+                count)
+        exact = torch.quantile(v, torch.tensor(QS, device=dev))
+        width = (hi - lo) / Q_BINS
+        gap = float((est - exact).abs().max())
+        require(gap <= width, f"quantiles {col}: {gap} from torch.quantile, "
+                f"more than range/bins = {width}")
+        print(f"[methods] quantiles {col}: histogram equal to torch.bincount;"
+              f" max |estimate - torch.quantile| {gap:.4g} <= range/bins "
+              f"{width:.4g}")
+    with trace_execution() as tr:
+        qg = twice(f"quantiles_grouped(gauss, G = {G_MAIN})",
+                   lambda: quantiles.quantiles_grouped(
+                       tq, "g", list(QS), num_groups=G_MAIN,
+                       value_col="gauss", bins=Q_BINS))
+    require(len(tr.sorts) == 2, f"quantiles_grouped: {len(tr.sorts)} sorts "
+            "in two runs, want one each")
+    require(qg.shape == (G_MAIN, len(QS)) and bool(torch.isfinite(qg).all()),
+            "quantiles_grouped: not finite of the expected shape")
+    print("[methods] quantiles_grouped: one sort per statement (trace)")
+    del tq, v, hist, f, count, qg
+    part_done("quantiles")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- a decision tree on section e's blobs, class = blob id mod 4 --------
+    centers = torch.randn((K_KM, D_KM), generator=gen, device=dev) * CENTER_SD
+    lab = torch.randint(0, K_KM, (n,), generator=gen, device=dev)
+    tdt = Table({"x": centers[lab] + torch.randn((n, D_KM), generator=gen,
+                                                 device=dev),
+                 "y": (lab % DT_CLASSES).to(torch.int32)})
+    del lab
+    tree = twice(f"decision_tree_fit ({n} x {D_KM}, depth {DT_DEPTH}, "
+                 f"{DT_BINS} bins)", lambda: decision_tree.decision_tree_fit(
+                     tdt, num_classes=DT_CLASSES, max_depth=DT_DEPTH,
+                     n_bins=DT_BINS))
+    x = tdt["x"]
+    lo, hi = x.amin(0), x.amax(0) + 1e-6
+    for level in range(DT_DEPTH + 1):
+        st = run_local(decision_tree.SplitStatsAggregate(
+            tree, level, lo, hi, DT_BINS, DT_CLASSES), tdt)
+        require(float(st.sum()) == n * D_KM,
+                f"decision tree level {level}: split counts sum to "
+                f"{float(st.sum())}, want {n * D_KM}")
+    pred = decision_tree.decision_tree_predict(tree, x)
+    acc = float((pred == tdt["y"]).float().mean())
+    pre = Table({k: v[:DT_PREFIX] for k, v in tdt.columns.items()})
+    card = decision_tree.decision_tree_fit(
+        pre, num_classes=DT_CLASSES, max_depth=DT_DEPTH, n_bins=DT_BINS)
+    cpu = decision_tree.decision_tree_fit(
+        Table({k: v.cpu() for k, v in pre.columns.items()}),
+        num_classes=DT_CLASSES, max_depth=DT_DEPTH, n_bins=DT_BINS)
+    for f in ("feature", "threshold", "leaf_class"):
+        require(torch.equal(getattr(card, f).cpu(), getattr(cpu, f)),
+                f"decision tree on {DT_PREFIX} rows: {f} differs between "
+                "the card and the CPU")
+    print(f"[methods] decision_tree_fit: split counts sum to rows x features "
+          f"at every level; training accuracy {acc:.4f}; the tree on the "
+          f"first {DT_PREFIX} rows equal on the card and the CPU")
+    del tdt, x, pred, pre, card, cpu, centers
+    part_done("the decision tree")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- SVD of a 10M x 160 matrix with a decaying spectrum ----------------
+    u, _ = torch.linalg.qr(torch.randn((n, K_MAIN), generator=gen,
+                                       device=dev))
+    v, _ = torch.linalg.qr(torch.randn((K_MAIN, K_MAIN), generator=gen,
+                                       device=dev))
+    s_true = torch.ones(K_MAIN, device=dev)
+    s_true[:SVD_K] = SVD_TOP * SVD_DECAY ** torch.arange(
+        SVD_K, dtype=torch.float32, device=dev)
+    ta = Table({"a": (u * s_true) @ v.T})
+    del u, v
+    gram = torch.zeros((K_MAIN, K_MAIN), dtype=torch.float64, device=dev)
+    for r0 in range(0, n, 1_000_000):
+        a64 = ta["a"][r0:r0 + 1_000_000].double()
+        gram += a64.T @ a64
+    want = torch.sqrt(torch.linalg.svdvals(gram)[:SVD_K])
+    for name, fn in (("svd_power", svd.svd_power),
+                     ("svd_randomized", svd.svd_randomized)):
+        sing, _ = twice(f"{name} ({n} x {K_MAIN}, k = {SVD_K}, blocks of "
+                        f"{SVD_BLOCK})", lambda fn=fn: fn(
+                            ta, SVD_K, seed=SEED, block_size=SVD_BLOCK))
+        rel = float(((sing.double() - want) / want).abs().max())
+        require(rel <= SVD_RTOL, f"{name}: singular values {rel:.3e} "
+                f"(relative) from the float64 Gram's, over {SVD_RTOL}")
+        print(f"[methods] {name}: singular values within {rel:.3e} "
+              f"(relative) of svdvals of the float64 Gram")
+    del ta, gram
+    part_done("SVD")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- LDA: 100,000 documents over a 4,096-word vocabulary ---------------
+    rng = np.random.default_rng(SEED)
+    topics = torch.from_numpy(rng.dirichlet(np.full(LDA_VOCAB, 0.05),
+                                            LDA_TOPICS)).float().to(dev)
+    theta = torch.from_numpy(rng.dirichlet(np.full(LDA_TOPICS, 0.3),
+                                           LDA_DOCS)).float().to(dev)
+    words = torch.multinomial(theta @ topics, LDA_LEN, replacement=True,
+                              generator=gen)
+    docs = torch.zeros((LDA_DOCS, LDA_VOCAB), dtype=torch.int32, device=dev)
+    docs.scatter_add_(1, words, torch.ones_like(words, dtype=torch.int32))
+    del topics, theta, words
+    tl = Table({"counts": docs})
+    learned, trace = twice(
+        f"lda_fit ({LDA_DOCS} docs x {LDA_VOCAB} words, {LDA_TOPICS} topics, "
+        f"{LDA_ROUNDS} rounds, blocks of {LDA_BLOCK})",
+        lambda: lda.lda_fit(tl, LDA_TOPICS, LDA_VOCAB,
+                            max_iters=LDA_ROUNDS, tol=None, seed=SEED,
+                            block_size=LDA_BLOCK))
+    require(len(trace) == LDA_ROUNDS and all(
+        b < a for a, b in zip(trace, trace[1:])),
+        f"lda_fit: perplexity does not fall (the bound does not rise) every "
+        f"round: {trace}")
+    require(bool(torch.isfinite(learned).all()), "lda_fit: topics not finite")
+    beta = lda.dirichlet_topics(LDA_TOPICS, LDA_VOCAB, seed=SEED,
+                                device="cpu").log()
+    head = {"counts": docs[:LDA_CHECK_DOCS]}
+    e_card = run_local(lda.LDAEStepAggregate(beta.to(dev)), Table(head))
+    e_cpu = run_local(lda.LDAEStepAggregate(beta),
+                      Table({"counts": head["counts"].cpu()}))
+    for k in e_cpu:
+        scale = float(e_cpu[k].abs().max())
+        torch.testing.assert_close(e_card[k].cpu(), e_cpu[k], rtol=LDA_RTOL,
+                                   atol=LDA_ATOL_SHARE * scale)
+    print(f"[methods] lda_fit: perplexity by round {trace} (the bound rises "
+          f"every round); E-step state on {LDA_CHECK_DOCS} documents within "
+          f"rtol {LDA_RTOL} of the CPU port")
+    del tl, docs, learned, e_card, head
+    part_done("LDA")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- apriori over 10M transactions of 32 items, rules planted ----------
+    items = (torch.rand((AR_ROWS, AR_ITEMS), generator=gen, device=dev)
+             < AR_P).float()
+    items[:, 1] = torch.maximum(items[:, 0], items[:, 1])      # 0 -> 1
+    items[:, 3] = torch.maximum(items[:, 2] * (torch.rand(
+        AR_ROWS, generator=gen, device=dev) < 0.9).float(), items[:, 3])
+    tar = Table({"items": items})
+    res = twice(f"apriori ({AR_ROWS} x {AR_ITEMS}, blocks of {AR_BLOCK})",
+                lambda: assoc_rules.apriori(tar, min_support=0.05,
+                                            min_confidence=0.6, max_len=3,
+                                            block_size=AR_BLOCK))
+    for s, supp in res.supports.items():
+        count = int((items[:, list(s)] > 0).all(1).sum())
+        require(supp == float(np.float32(count) / AR_ROWS),
+                f"apriori: support of {s} {supp} != direct count {count}")
+    require(any(r[0] == (0,) and r[1] == (1,) for r in res.rules)
+            and any(r[0] == (2,) and r[1] == (3,) for r in res.rules),
+            f"apriori: a planted rule was not found: {res.rules}")
+    print(f"[methods] apriori: {len(res.supports)} frequent itemsets, "
+          f"supports equal to direct counts; {len(res.rules)} rules, the "
+          "planted 0 -> 1 and 2 -> 3 among them")
+    del tar, items, res
+    part_done("apriori")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- approximate string match over 1,000,000 strings -------------------
+    length = torch.randint(8, SM_WIDTH + 1, (SM_ROWS, 1), generator=gen,
+                           device=dev)
+    chars = torch.randint(ord("a"), ord("z") + 1, (SM_ROWS, SM_WIDTH),
+                          generator=gen, device=dev).to(torch.uint8)
+    chars[torch.arange(SM_WIDTH, device=dev)[None, :] >= length] = 0
+    planted = SM_ROWS // 3
+    near = SM_QUERY.replace("lazy", "hazy")
+    chars[planted] = string_match.encode_strings([near], SM_WIDTH,
+                                                 device=dev)[0]
+    ts = Table({"chars": chars, "doc_id": torch.arange(
+        SM_ROWS, dtype=torch.int32, device=dev)})
+    index = twice(f"trigram index ({SM_ROWS} strings x {SM_WIDTH}, "
+                  f"{SM_BUCKETS} buckets)", lambda: run_local(
+                      string_match.TrigramIndexAggregate(SM_ROWS, SM_BUCKETS),
+                      ts))
+    idx, scores = twice("approx_match", lambda: string_match.approx_match(
+        index, SM_QUERY, threshold=0.3, width=SM_WIDTH))
+    top = int(torch.argmax(scores))
+    require(top == planted and int(idx[0]) == planted,
+            f"approx_match: the planted near-duplicate (row {planted}) is "
+            f"not ranked first (top row {top}, first hit {int(idx[0])})")
+    pre = {k: v[:SM_PREFIX] for k, v in ts.columns.items()}
+    card = run_local(string_match.TrigramIndexAggregate(SM_PREFIX, SM_BUCKETS),
+                     Table(pre))
+    cpu = run_local(string_match.TrigramIndexAggregate(SM_PREFIX, SM_BUCKETS),
+                    Table({k: v.cpu() for k, v in pre.items()}))
+    require(torch.equal(card.cpu(), cpu), "trigram index on the first "
+            f"{SM_PREFIX} strings differs between the card and the CPU")
+    print(f"[methods] approx_match: the planted near-duplicate ranked first "
+          f"(score {float(scores[planted]):.4f}); index on {SM_PREFIX} "
+          "strings bitwise equal to the CPU port")
+    del ts, chars, index, scores, card, cpu
+    part_done("string match")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[methods] section j took {time.perf_counter() - t_section:.1f} s")
+    return steps
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2744,11 +3278,18 @@ def main() -> int:
     i_steps = stream_section(torch, dev, counters, errs, stream_host, seeds,
                              smi)
     del stream_host
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # j. the measured calibration on the card, then the methods of the
+    # tenth slice at full size
+    j_steps = methods_section(torch, dev, counters, errs, smi)
     for row in rows:
         name = row["name"]
         row["launches"] = counters.total[name]
         by_step = {f"{kind} {step}": got[name]
-                   for kind, st in (("server", steps), ("stream", i_steps))
+                   for kind, st in (("server", steps), ("stream", i_steps),
+                                    ("methods", j_steps))
                    for step, got in st.items() if got.get(name)}
         if by_step:
             row["launches_by_shape"] = {

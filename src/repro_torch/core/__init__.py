@@ -16,6 +16,8 @@ execution tracing.
 - ScanAgg / GroupedScanAgg / JoinedGroupedScanAgg / IterativeFit /
   StreamAgg / plan / execute / explain — logical statements, the planner
   that fuses them, and EXPLAIN
+- calibration — measured cost tables; when one is active the planner
+  ranks by measured seconds and sizes segment blocks by measurement
 - Join — the device-side sort-merge equi-join of a star schema
 - MaterializedHandle / materialize — living views (delta refresh)
 - AnalyticsServer / ServerHandle — cross-session admission windows,

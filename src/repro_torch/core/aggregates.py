@@ -37,6 +37,7 @@ import torch
 from ..device import resolve_device
 from ..kernels import registry as _kernels
 from ..tree import tree_index, tree_leaves, tree_map, tree_stack
+from . import calibration as _calibration
 from .table import (
     Columns, GroupedView, Table, _n_rows, as_column, host_tensor,
     stored_dtype,
@@ -68,6 +69,9 @@ class Aggregate:
     # layer's ``use_kernel`` flag (None = the generic segment fold).
     segment_kernel: str | None = None
     kernel_impl: str | None = None
+    # The planner's calibration bucket (``"xtx"``, ``"sketch"``, or the
+    # generic tables): see repro_torch.core.calibration.
+    cost_class: str = "generic"
 
     def segment_kernel_args(self, columns: Columns, valid, block_gids,
                             num_groups: int):
@@ -172,6 +176,10 @@ class FusedAggregate(Aggregate):
     @property
     def kernel_impl(self):
         return self.aggs[0].kernel_impl if len(self.aggs) == 1 else None
+
+    @property
+    def cost_class(self):
+        return self.aggs[0].cost_class if len(self.aggs) == 1 else "generic"
 
     def segment_kernel_args(self, columns, valid, block_gids, num_groups):
         return self.aggs[0].segment_kernel_args(columns, valid, block_gids,
@@ -445,10 +453,17 @@ def probe_segment_ops(agg: Aggregate, columns: Columns):
 def segment_block_size(n_rows: int, num_groups: int,
                        block_size: int | None = None) -> int:
     """Block size of the group-aligned layout: near the average segment,
-    power of two, clamped to [64, _SEGMENT_BLOCK]; an explicit
-    ``block_size`` wins.  (The measured calibration is not ported yet.)"""
+    power of two, clamped to [64, _SEGMENT_BLOCK].  An explicit
+    ``block_size`` wins; an ACTIVE measured calibration's best block for
+    this shape bucket beats the heuristic
+    (:mod:`repro_torch.core.calibration`)."""
     if block_size is not None:
         return max(1, int(block_size))
+    cal = _calibration.current()
+    if cal is not None:
+        b = cal.grouped_block_size(n_rows, num_groups)
+        if b:
+            return max(1, int(b))
     avg = max(1, -(-n_rows // max(1, num_groups)))
     return max(64, min(_SEGMENT_BLOCK, 1 << (avg - 1).bit_length()))
 

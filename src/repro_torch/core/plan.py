@@ -8,9 +8,11 @@ pass each (one ``run_many`` per ``(table, mask, block size)``, one
 ``run_grouped`` per ``(table, key)``, one shared key resolution and
 segment scan per ``(fact, dim, key, attr)`` star triple, one
 ``run_stream`` fold per block source, which is mandatory there: a shared
-iterator can be consumed only once) and picks the grouped method from
-the rows-moved heuristic; :func:`execute` runs one statement through it and
-:func:`explain` renders the physical plan, line for line as the
+iterator can be consumed only once) and picks the grouped method by
+measured seconds when an active calibration
+(:mod:`repro_torch.core.calibration`) covers every candidate, else by
+the rows-moved heuristic; :func:`execute` runs one statement through it
+and :func:`explain` renders the physical plan, line for line as the
 reference renders it.
 
 Fusion is refused loudly when it would be wrong: statements with
@@ -26,9 +28,6 @@ living view pins) and :func:`semantic_fingerprint` (the aggregate's
 view-backed and multi-table statements never get a semantic
 fingerprint.  The reference's jit flag has no counterpart in eager
 PyTorch, so it is absent from both.
-
-The measured calibration waits for a later slice: every cost is the
-rows-moved heuristic, and explain says so.
 
 ``explain()`` renders the reference's text line for line.  Where the two
 packages' statements differ, they differ only in kernel impl names,
@@ -49,6 +48,7 @@ from typing import Any, Callable, Mapping, Sequence
 
 import torch
 
+from . import calibration as _calibration
 from .aggregates import (
     Aggregate, FusedAggregate, probe_segment_ops, run_grouped, run_many,
     run_stream, segment_block_size,
@@ -229,6 +229,10 @@ class _Projected(Aggregate):
     def kernel_impl(self):
         return self.agg.kernel_impl
 
+    @property
+    def cost_class(self):
+        return self.agg.cost_class
+
     def segment_kernel_args(self, columns, valid, block_gids, num_groups):
         return self.agg.segment_kernel_args(self._project(columns), valid,
                                             block_gids, num_groups)
@@ -242,10 +246,39 @@ def _member_agg(node) -> Aggregate:
 
 
 # ---------------------------------------------------------------------------
-# Cost model: the rows-moved heuristic behind grouped method selection.
+# Cost model.  With an ACTIVE measured calibration candidates rank by
+# interpolated measured seconds; otherwise by the rows-moved heuristic.
 # The port has one scan engine, "local", so a scan pass has nothing to
-# select; the sharded engines bring the scan side of the model with them.
+# select, but its cost is measured where the calibration covers it.
 # ---------------------------------------------------------------------------
+
+_HEURISTIC = {"kind": "heuristic"}
+
+
+def _agg_cost_class(aggs) -> str:
+    """Calibration bucket of a (possibly fused) pass: the members' shared
+    ``cost_class`` when they agree, else the generic tables."""
+    classes = {getattr(a, "cost_class", "generic") for a in aggs}
+    return classes.pop() if len(classes) == 1 else "generic"
+
+
+def _measured_costs(cand_keys: Mapping[str, str], agg_cls: str, rows: int,
+                    groups: int | None = None):
+    """``(costs_in_seconds, source)`` from the active calibration, or
+    None unless EVERY candidate is covered: measured seconds never rank
+    against heuristic row counts in one comparison."""
+    cal = _calibration.current()
+    if cal is None:
+        return None
+    costs = {}
+    for cand, key in cand_keys.items():
+        s = cal.engine_seconds(key, agg_cls, rows, groups)
+        if s is None:
+            return None
+        costs[cand] = s
+    return costs, {"kind": "measured", "backend": cal.backend,
+                   "timestamp": cal.timestamp}
+
 
 def grouped_cost(method: str, rows: int, groups: int, block: int) -> float:
     """The segment layout scans the group-aligned blocks once (padding at
@@ -260,15 +293,22 @@ def grouped_cost(method: str, rows: int, groups: int, block: int) -> float:
 
 def select_grouped_method(rows: int, groups: int, *, segment_ok: bool,
                           block_size: int | None = None,
-                          forced: str = "auto"
-                          ) -> tuple[str, dict[str, float]]:
+                          forced: str = "auto", agg_cls: str = "generic"
+                          ) -> tuple[str, dict[str, float], dict]:
     """Pick segment vs masked for a grouped pass: ``(method, candidate
-    costs)``; a generic-merge aggregate (``segment_ok=False``) removes
-    the segment candidate."""
+    costs, cost source)``; a generic-merge aggregate
+    (``segment_ok=False``) removes the segment candidate.  Candidates
+    rank by measured seconds (calibration keys ``grouped-<method>``,
+    bucket ``agg_cls``) when the active calibration covers them all."""
     bs = segment_block_size(rows, groups, block_size)
     costs = {method: grouped_cost(method, rows, groups, bs)
              for method in (("segment",) if segment_ok else ())
              + ("masked",)}
+    source = _HEURISTIC
+    measured = _measured_costs({m: "grouped-" + m for m in costs}, agg_cls,
+                               rows, groups)
+    if measured is not None:
+        costs, source = measured
     if forced != "auto":
         if forced == "segment" and not segment_ok:
             raise ValueError(
@@ -276,8 +316,8 @@ def select_grouped_method(rows: int, groups: int, *, segment_ok: bool,
                 "(agg.segment_ops() is None); use 'masked'")
         if forced not in ("segment", "masked"):
             raise ValueError(f"unknown grouped method {forced!r}")
-        return forced, costs
-    return min(costs, key=lambda m: costs[m]), costs
+        return forced, costs, source
+    return min(costs, key=lambda m: costs[m]), costs, source
 
 
 def join_cost(strategy: str, fact_rows: int, dim_rows: int) -> float:
@@ -413,18 +453,24 @@ def fused_scan_pass(members: Sequence[tuple[int, ScanAgg]], *,
                          "'local'; the sharded engine is not ported)")
     idx = [i for i, _ in members]
     aggs = [_member_agg(n) for n in nodes]
+    rows = base.table.n_rows
+    costs, source = {"local": float(rows)}, _HEURISTIC
+    measured = _measured_costs({"local": "local"}, _agg_cost_class(aggs),
+                               rows)
+    if measured is not None:
+        costs, source = measured
 
     def run():
         out = run_many(aggs, base.table, block_size=base.block_size,
                        mask=base.mask, engine="local")
         return dict(zip(idx, out))
 
-    rows = base.table.n_rows
     return PhysicalPass(
         kind="scan", engine="local", members=list(members),
-        cost=float(rows),
+        cost=costs["local"],
         info={"table": base.table, "rows": rows, "mask": base.mask,
-              "block_size": base.block_size, "costs": {"local": rows}},
+              "block_size": base.block_size, "costs": costs,
+              "cost_source": source},
         run=run)
 
 
@@ -480,9 +526,9 @@ def fused_grouped_pass(members: Sequence[tuple[int, GroupedScanAgg]]
     member_aggs = [_member_agg(n) for n in nodes]
     segment_ok = all(probe_segment_ops(a, data_cols) is not None
                      for a in member_aggs)
-    method, costs = select_grouped_method(
+    method, costs, source = select_grouped_method(
         rows, groups, segment_ok=segment_ok, block_size=base.block_size,
-        forced=base.method)
+        forced=base.method, agg_cls=_agg_cost_class(member_aggs))
 
     idx = [i for i, _ in members]
     projections = [_normalize_projection(n.columns) for n in nodes]
@@ -502,7 +548,7 @@ def fused_grouped_pass(members: Sequence[tuple[int, GroupedScanAgg]]
         cost=costs[method],
         info={"table": base_tbl, "group_col": base.group_col,
               "groups": groups, "rows": rows, "mask": base.mask,
-              "costs": costs,
+              "costs": costs, "cost_source": source,
               "view_key": (id(base_tbl), base.group_col)},
         run=run)
 
@@ -542,9 +588,9 @@ def fused_join_pass(members: Sequence[tuple[int, JoinedGroupedScanAgg]]
     member_aggs = [_member_agg(n) for n in nodes]
     segment_ok = all(probe_segment_ops(a, dict(j.fact.columns)) is not None
                      for a in member_aggs)
-    method, costs = select_grouped_method(
+    method, costs, source = select_grouped_method(
         rows, groups, segment_ok=segment_ok, block_size=base.block_size,
-        forced=base.method)
+        forced=base.method, agg_cls=_agg_cost_class(member_aggs))
     join_costs = {s: join_cost(s, rows, j.dim.n_rows)
                   for s in ("sort-share", "gather-materialize")}
     # candidate costs include the key-resolution term, so the pass cost
@@ -569,6 +615,7 @@ def fused_join_pass(members: Sequence[tuple[int, JoinedGroupedScanAgg]]
         cost=costs[method],
         info={"table": j.fact, "group_col": j.attr_col, "groups": groups,
               "rows": rows, "mask": base.mask, "costs": costs,
+              "cost_source": source,
               "join": {"dim": j.dim, "on": f"{j.fact_key}={j.dim_key}",
                        "on_missing": j.on_missing, "costs": join_costs},
               # one partitioning sort per star triple, shared by every
@@ -734,21 +781,24 @@ class PhysicalPlan:
             if info.get("block_size") is not None:
                 bits.append(f"block={info['block_size']}")
             if p.cost is not None:
+                src = info.get("cost_source") or _HEURISTIC
+                measured = src.get("kind") == "measured"
                 rejected = {e: c for e, c in info.get("costs", {}).items()
                             if c != p.cost}
-                bits.append(f"cost={_fmt_cost(p.cost)}")
-                bits.append("[heuristic]")
+                bits.append(f"cost={_fmt_cost(p.cost, measured)}")
+                bits.append(f"[measured {src['backend']}@{src['timestamp']}]"
+                            if measured else "[heuristic]")
                 if rejected:
                     bits.append("(rejected: " + " ".join(
-                        f"{e}={_fmt_cost(c)}" for e, c in sorted(
+                        f"{e}={_fmt_cost(c, measured)}" for e, c in sorted(
                             rejected.items())) + ")")
                 if join is not None:
                     jc = join["costs"]
                     bits.append(
                         "(join: sort-share="
-                        f"{_fmt_cost(jc['sort-share'])} rejected "
+                        f"{_fmt_cost(jc['sort-share'], False)} rejected "
                         "gather-materialize="
-                        f"{_fmt_cost(jc['gather-materialize'])})")
+                        f"{_fmt_cost(jc['gather-materialize'], False)})")
             lines.append("  " + " ".join(bits))
             for i, n in p.members:
                 label = n.label or f"s{i}"
@@ -763,10 +813,12 @@ _KIND_NAMES = {"scan": "shared-scan", "grouped": "grouped-scan",
                "stream": "stream-scan"}
 
 
-def _fmt_cost(c: float) -> str:
-    """Heuristic costs are dimensionless row counts, rendered as
-    integers (the reference's measured seconds are not ported)."""
-    return str(int(c))
+def _fmt_cost(c: float, measured: bool) -> str:
+    """Heuristic costs are dimensionless row counts (integers); measured
+    costs are seconds and render with a unit."""
+    if not measured:
+        return str(int(c))
+    return f"{c:.2f}s" if c >= 1.0 else f"{c * 1e3:.2f}ms"
 
 
 def plan(statements: Sequence[Any]) -> PhysicalPlan:

@@ -35,10 +35,6 @@ returns a :class:`~repro_torch.core.server.ServerHandle`; the server
 fuses, deduplicates and caches across ALL attached sessions, and
 ``run()``/``handle.result()`` drain on demand.  The statement-issuing
 API is the same in both modes.
-
-Not ported yet, and raising ``NotImplementedError`` that names the
-ROADMAP item which brings it: ``naive_bayes`` with the remaining
-methods.
 """
 
 from __future__ import annotations
@@ -54,12 +50,6 @@ from .plan import (
 from .table import Table
 
 _UNSET = object()
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"Session.{what} is not ported to repro_torch yet (ROADMAP Queue 1 "
-        f"item {item})")
 
 
 class Handle:
@@ -248,8 +238,13 @@ class Session:
                          columns={"x": x_col, "y": y_col},
                          block_size=block_size, label="linregr")
 
-    def naive_bayes(self, *args, **kwargs):
-        _not_ported("naive_bayes", "9 (methods/naive_bayes.py)")
+    def naive_bayes(self, table: Table, num_classes: int, *,
+                    x_col: str = "x", y_col: str = "y",
+                    block_size=None) -> Handle:
+        from ..methods.naive_bayes import NaiveBayesAggregate
+        return self.scan(NaiveBayesAggregate(num_classes), table,
+                         columns={"x": x_col, "y": y_col},
+                         block_size=block_size, label="naive_bayes")
 
     def countmin_sketch(self, table: Table, *, depth: int = 4,
                         width: int = 1024, item_col: str = "item",

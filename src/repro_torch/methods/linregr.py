@@ -40,6 +40,7 @@ class LinregrAggregate(Aggregate):
     merge_ops = MERGE_SUM
     # grouped hot path: the whole segment fold as one kernel
     segment_kernel = "segment_linregr"
+    cost_class = "xtx"                    # planner calibration bucket
 
     def __init__(self, use_kernel: bool | str = False):
         self.kernel_impl = resolve_impl(use_kernel)

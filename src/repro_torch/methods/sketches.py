@@ -41,6 +41,7 @@ class CountMinAggregate(Aggregate):
 
     merge_ops = MERGE_SUM
     segment_kernel = "segment_countmin"
+    cost_class = "sketch"                 # planner calibration bucket
 
     def __init__(self, depth: int = 4, width: int = 1024,
                  use_kernel: bool | str = False, item_col: str = "item"):
@@ -93,6 +94,7 @@ class FMAggregate(Aggregate):
 
     merge_ops = MERGE_MAX
     segment_kernel = "segment_fm"
+    cost_class = "sketch"                 # planner calibration bucket
 
     def __init__(self, num_hashes: int = 8, bits: int = 32,
                  item_col: str = "item", use_kernel: bool | str = False):

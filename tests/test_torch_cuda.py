@@ -989,3 +989,124 @@ def test_stream_statements_on_card_fold_once(cuda_device):
     assert len(tr.scans) == 1
     assert _tree_equal(h_lr.result(), linregr(resident, use_kernel=True))
     assert torch.equal(h_fm.result(), fm_distinct_count(resident))
+
+
+# ---------------------------------------------------------------------------
+# The calibration harness's shapes, and the tenth slice's methods on the
+# card against the CPU port.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("block", [64, 128, 256, 512, 1024, 2048, 4096])
+def test_calibration_shapes_match_plain(cuda_device, block):
+    """The sweep's kernels at K = 8 and Count-Min 4 x 128, at each swept
+    block: bitwise the plain versions on dyadic data (any items)."""
+    draw = Draw(block)
+    G, n = 64, 100_000
+    gids, _ = group_layout(draw, n, G, "skewed")
+    t = Table.from_columns({"x": draw.dyadic((n, 8)), "y": draw.dyadic((n,)),
+                            "item": draw.ints((n,), 0, 9999), "g": gids},
+                           device=cuda_device)
+    cols, valid, bgids = t.group_by("g", G).aligned_blocks(block)
+    args = (cols["x"], cols["y"], valid, bgids)
+    got = sf_ops.segment_linregr(*args, num_groups=G)
+    want = sf_ref.segment_linregr_ref(*args, num_groups=G)
+    assert all(torch.equal(got[q], want[q]) for q in want)
+    sk = (cols["item"], valid, bgids)
+    assert torch.equal(
+        sf_ops.segment_countmin(*sk, depth=4, width=128, num_groups=G),
+        sf_ref.segment_countmin_ref(*sk, depth=4, width=128, num_groups=G))
+    x, y, items = t["x"], t["y"], t["item"]
+    for g, w in zip(xtx_ops.xtx_xty(x, y), xtx_ref.xtx_xty_ref(x, y)):
+        assert torch.equal(g, w)
+    ones = torch.ones((n,), dtype=torch.bool, device=cuda_device)
+    assert torch.equal(cm_ops.countmin_block(items, ones, 4, 128),
+                       cm_ref.countmin_block_ref(items, ones, 4, 128))
+
+
+def test_calibration_harness_on_card_launches_the_kernels(cuda_device,
+                                                          tmp_path):
+    from repro_torch.core import calibration
+    from repro_torch.launch.calibrate import calibrate
+    before = (xtx_ops.xtx_launches, sf_ops.segment_linregr_launches,
+              cm_ops.countmin_launches, sf_ops.segment_countmin_launches)
+    cal, path = calibrate([1 << 16], [8], 1, [64, 256], device=cuda_device,
+                          out=str(tmp_path / "cuda.json"), log=lambda s: None)
+    after = (xtx_ops.xtx_launches, sf_ops.segment_linregr_launches,
+             cm_ops.countmin_launches, sf_ops.segment_countmin_launches)
+    assert all(a > b for a, b in zip(after, before))
+    assert cal.backend == "cuda"
+    assert {"local", "grouped-segment", "grouped-masked"} <= set(cal.engines)
+    with calibration.use(path):
+        assert calibration.current().grouped_block_size(1 << 16, 8) in (64,
+                                                                        256)
+
+
+def _both(cols):
+    return (Table.from_columns(cols, device="cpu"),
+            Table.from_columns(cols, device="cuda"))
+
+
+def test_new_methods_on_card_match_the_cpu_port(cuda_device):
+    from repro_torch.methods import (
+        assoc_rules, decision_tree, lda, naive_bayes, quantiles,
+        sparse_vector, string_match, svd,
+    )
+    draw = Draw(2024)
+    n = 20_000
+    x = draw.dyadic((n, 6))
+    # labels from a rule, so every split the tree takes is a clear one
+    y = ((x[:, 0] > 0).astype(np.int32) + 2 * (x[:, 3] > -0.125))
+    cols = {"x": x, "y": y, "v": draw.normal((n,)),
+            "g": draw.ints((n,), 0, 7)}
+    cpu, card = _both(cols)
+    # the fold state bitwise; the model through log, which the card and
+    # the CPU round apart in the last ulp
+    nb = naive_bayes.NaiveBayesAggregate(4)
+    sa, sb = (run_local(nb, t.select("x", "y"), block_size=4096,
+                        finalize=False) for t in (cpu, card))
+    assert all(torch.equal(sa[k], sb[k].cpu()) for k in sa)
+    a, b = (naive_bayes.naive_bayes_fit(t, 4, block_size=4096)
+            for t in (cpu, card))
+    for f in ("log_prior", "mean", "var"):
+        torch.testing.assert_close(getattr(a, f), getattr(b, f).cpu(),
+                                   rtol=1e-6, atol=0)
+    for fn in (lambda t: quantiles.quantiles(t, [0.1, 0.5, 0.99], bins=1000),
+               lambda t: quantiles.quantiles_grouped(t, "g", [0.25, 0.75],
+                                                     bins=333)):
+        assert torch.equal(fn(cpu), fn(card).cpu())
+    ta, tb = (decision_tree.decision_tree_fit(t, num_classes=4, max_depth=3)
+              for t in (cpu, card))
+    for f in ("feature", "threshold", "leaf_class"):
+        assert torch.equal(getattr(ta, f), getattr(tb, f).cpu())
+    items = {"items": draw.bools((n, 6), p=0.3).astype(np.float32)}
+    ra, rb = (assoc_rules.apriori(t, min_support=0.05) for t in _both(items))
+    assert ra.supports == rb.supports and ra.rules == rb.rules
+    # a spectral gap after k, so both converge whatever their random start
+    # (the CPU's and the card's generators draw different numbers)
+    u = np.linalg.qr(draw.normal((4000, 12)).astype(np.float64))[0]
+    v = np.linalg.qr(draw.normal((12, 12)).astype(np.float64))[0]
+    spec = np.array([50.0, 30.0, 20.0] + [1.0] * 9)
+    mat = {"a": ((u * spec) @ v.T).astype(np.float32)}
+    sa, sb = (svd.svd_power(t, 3, n_iters=30)[0] for t in _both(mat))
+    torch.testing.assert_close(sa, sb.cpu(), rtol=1e-4, atol=0)
+    docs = {"counts": draw.ints((300, 50), 0, 3)}
+    beta = lda.dirichlet_topics(4, 50, seed=1, device="cpu")
+    ea, eb = (run_local(lda.LDAEStepAggregate(beta.to(t.device).log()), t)
+              for t in _both(docs))
+    for k in ea:
+        torch.testing.assert_close(ea[k], eb[k].cpu(), rtol=1e-5, atol=1e-5)
+    strs = ["tim tebow", "tom brady", "tim duncan", "tim tebow jr"] * 50
+    chars = string_match.encode_strings(strs, device="cpu")
+    ia, ib = (run_local(string_match.TrigramIndexAggregate(len(strs)), t)
+              for t in _both({"chars": chars, "doc_id": np.arange(len(strs))}))
+    assert torch.equal(ia, ib.cpu())
+    ha, hb = (string_match.approx_match(i, "tim tebow", threshold=0.4)
+              for i in (ia, ib))
+    assert torch.equal(ha[0], hb[0].cpu()) and torch.equal(ha[1],
+                                                           hb[1].cpu())
+    dense = torch.from_numpy(np.repeat(draw.dyadic((40,)), 3))
+    va, vb = (sparse_vector.rle_encode(dense.to(d), 128)
+              for d in ("cpu", cuda_device))
+    assert torch.equal(sparse_vector.rle_dot_rle(va, va),
+                       sparse_vector.rle_dot_rle(vb, vb).cpu())
+    assert torch.equal(sparse_vector.rle_decode(vb).cpu(), dense)

@@ -7,10 +7,6 @@ render exactly as the reference renders the same statements.  The only
 permitted difference is the table in ``repro_torch/core/plan.py``'s
 docstring: kernel impl names (``"pallas"`` there, ``"cuda"`` here), which
 the statements carry and the plan text never shows.
-
-The port has no histogram aggregate yet; the goldens' ``s2`` is a
-stand-in of the same name and semantics (64 bins of ``y`` over
-[-4, 4)), which explain only names.
 """
 
 import numpy as np
@@ -26,32 +22,12 @@ from repro.methods.sketches import FMAggregate as JFMAggregate
 from repro_torch.core import (
     GroupedScanAgg, IterativeFit, Join, ScanAgg, Session, Table, explain,
 )
-from repro_torch.core.aggregates import MERGE_SUM, Aggregate
 from repro_torch.methods.linregr import LinregrAggregate
 from repro_torch.methods.logregr import IRLSTask
+from repro_torch.methods.quantiles import HistogramAggregate
 from repro_torch.methods.sketches import CountMinAggregate, FMAggregate
 
 N, GROUPS = 512, 4
-
-
-class HistogramAggregate(Aggregate):
-    """Stand-in for the reference's histogram (not ported yet): equal
-    bins of ``value_col`` over [lo, hi)."""
-
-    merge_ops = MERGE_SUM
-
-    def __init__(self, lo, hi, bins, value_col):
-        self.lo, self.hi, self.bins, self.value_col = lo, hi, bins, value_col
-
-    def init(self, block):
-        return torch.zeros(self.bins, dtype=torch.float32)
-
-    def transition(self, state, block, mask):
-        v = block[self.value_col].to(torch.float32)
-        b = ((v - self.lo) / (self.hi - self.lo) * self.bins).floor()
-        b = b.clamp(0, self.bins - 1).long()
-        return state + torch.bincount(b, weights=mask.float(),
-                                      minlength=self.bins)
 
 
 def _cols():

@@ -10,14 +10,26 @@ and the analytics server print these labels.
 import numpy as np
 import pytest
 
+import repro.methods.assoc_rules as jassoc
+import repro.methods.decision_tree as jdtree
 import repro.methods.kmeans as jkmeans
+import repro.methods.lda as jlda
 import repro.methods.linregr as jlinregr
 import repro.methods.logregr as jlogregr
+import repro.methods.naive_bayes as jnb
+import repro.methods.quantiles as jquant
 import repro.methods.sketches as jsketches
+import repro.methods.svd as jsvd
+import repro_torch.methods.assoc_rules as tassoc
+import repro_torch.methods.decision_tree as tdtree
 import repro_torch.methods.kmeans as tkmeans
+import repro_torch.methods.lda as tlda
 import repro_torch.methods.linregr as tlinregr
 import repro_torch.methods.logregr as tlogregr
+import repro_torch.methods.naive_bayes as tnb
+import repro_torch.methods.quantiles as tquant
 import repro_torch.methods.sketches as tsketches
+import repro_torch.methods.svd as tsvd
 from repro.core.table import Table as JTable
 from repro_torch.core.table import Table as TTable
 from strategies import Draw
@@ -42,7 +54,9 @@ def _cols():
     draw = Draw(16)
     n = 64
     return {"x": draw.dyadic((n, 3)), "y": draw.bools((n,)).astype(np.float32),
-            "g": draw.ints((n,), 0, 3), "item": draw.ints((n,), 0, 9)}
+            "g": draw.ints((n,), 0, 3), "item": draw.ints((n,), 0, 9),
+            "v": draw.normal((n,)), "counts": draw.ints((n, 5), 0, 3),
+            "items": draw.bools((n, 4)).astype(np.float32)}
 
 
 _DIM_COLS = {"key": np.arange(10, dtype=np.int32),
@@ -71,9 +85,24 @@ CASES = [
      lambda m, t: m.linregr_joined(t, DIM[m.__name__.startswith("repro_torch")],
                                    fact_key="item", dim_key="key",
                                    attr_col="region")),
+    ("naive_bayes_fit", "naive_bayes", lambda m, t: m.naive_bayes_fit(t, 2)),
+    ("naive_bayes_grouped", "naive_bayes",
+     lambda m, t: m.naive_bayes_grouped(t, "g", 2, 4)),
+    ("quantiles", "quantiles", lambda m, t: m.quantiles(t, [0.5])),
+    ("quantiles_grouped", "quantiles",
+     lambda m, t: m.quantiles_grouped(t, "g", [0.5], num_groups=4)),
+    ("decision_tree_fit", "decision_tree",
+     lambda m, t: m.decision_tree_fit(t, num_classes=2, max_depth=2)),
+    ("apriori", "assoc_rules", lambda m, t: m.apriori(t)),
+    ("svd_power", "svd", lambda m, t: m.svd_power(t, 2, a_col="x")),
+    ("svd_randomized", "svd", lambda m, t: m.svd_randomized(t, 2, a_col="x")),
+    ("lda_fit", "lda", lambda m, t: m.lda_fit(t, 2, 5)),
 ]
 MODULES = {"linregr": (jlinregr, tlinregr), "sketches": (jsketches, tsketches),
-           "kmeans": (jkmeans, tkmeans), "logregr": (jlogregr, tlogregr)}
+           "kmeans": (jkmeans, tkmeans), "logregr": (jlogregr, tlogregr),
+           "naive_bayes": (jnb, tnb), "quantiles": (jquant, tquant),
+           "decision_tree": (jdtree, tdtree), "assoc_rules": (jassoc, tassoc),
+           "svd": (jsvd, tsvd), "lda": (jlda, tlda)}
 
 
 @pytest.mark.parametrize("name,module,call", CASES,

@@ -269,10 +269,9 @@ def _tiny():
                               device="cpu")
 
 
-# fit, logregr, the server, explain, joins, living views and streams are
-# ported: what stays raises (naive Bayes, a sharded fit)
+# fit, logregr, naive Bayes, the server, explain, joins, living views and
+# streams are ported: what stays raises (a sharded fit)
 @pytest.mark.parametrize("call", [
-    lambda s: s.naive_bayes(None, 2),
     lambda s: (s.fit(None, _tiny(), mesh=object()), s.run()),
 ])
 def test_unported_session_methods_raise(call):
