@@ -2207,6 +2207,366 @@ def methods_section(torch, dev, counters, errs, smi) -> dict:
     return steps
 
 
+# ---------------------------------------------------------------------------
+# k. the §5.1 convex layer and what runs on it, at full size, on tables made
+# on the card from the seed.
+# ---------------------------------------------------------------------------
+
+# the solvers' checks: max |solver - reference| within CONVEX_RTOL of the
+# reference's max |coef| (f32 solves of the same normal equations, or of the
+# same likelihood to convergence)
+CONVEX_RTOL = 1e-3
+# rows per block of the Newton passes: 10^7 / 16, so the fold pads no tail
+# (a padded tail copies every column), and torch.func.hessian's 160
+# per-tangent intermediates stay at 160 x 625,000 x 4 B = 0.4 GB each
+NEWTON_BLOCK = 625_000
+NEWTON_TOL, CG_TOL_SHARE = 1e-5, 1e-6
+GD_STEPSIZE, GD_ROUNDS = 2e-5, 5
+# Bismarck's Forest covertype workload: 581,012 rows x 54 features; the
+# Table 2 models by SGD, batch 128, one epoch each (with one epoch,
+# annealing's stepsize / (1 + epoch) is the stepsize itself, as the
+# benchmark's anneal=False has it)
+COV_ROWS, COV_FEATURES, SGD_BATCH, SGD_EPOCHS = 581_012, 54, 128, 1
+SGD_STEPS = {"least_squares": 0.002, "lasso": 0.002, "logistic": 0.01,
+             "svm": 0.01}
+SVM_ACCURACY = 0.97
+# MovieLens-1M: 6,040 users x 3,706 movies, 1,000,209 ratings; rank 10
+ML_USERS, ML_ITEMS, ML_RATINGS, ML_RANK = 6_040, 3_706, 1_000_209, 10
+ML_BATCH, ML_EPOCHS = 256, 2
+# CoNLL-2000 chunking: 8,936 training sentences (211,727 tokens, 23.7 a
+# sentence), 23 chunk tags; padded to T = 64 with a length mask; 2^18 hashed
+# features (word, previous word, position, dictionary) over a 20,000-word
+# vocabulary of which 10% is in the dictionary
+CONLL_SENTS, CONLL_T, CONLL_LABELS, CONLL_FEATURES = 8_936, 64, 23, 1 << 18
+CONLL_VOCAB, CONLL_MEAN_LEN, CRF_BATCH, CRF_STEPSIZE = 20_000, 23.7, 128, 0.3
+GIBBS_SWEEPS, MH_STEPS = 20, 200
+# xtx at narrow widths on 10^7 dyadic rows (the paper's Fig. 4 sweeps K)
+XTX_WIDTHS = (8, 10, 20, 40, 80, 160, 320)
+XTX_NARROW_REPS = 10
+
+
+def convex_section(torch, dev, counters, errs, smi) -> dict:
+    """Section k: the convex solvers at the main path's width (10^7 x
+    160), Table 2's models by SGD at Forest covertype's shape, low-rank
+    recommendation at MovieLens-1M's, the CRF at CoNLL-2000's, and xtx at
+    narrow widths beside its bound.  Each statement's first and repeated
+    seconds are printed.  The steps that launch kernels (the grouped OLS
+    task, and the linregr fits the solvers are held to) run between a
+    zero and a read of the launch counters; returns their launches by
+    step."""
+    from repro_torch.core import (
+        Table, conjugate_gradient, fit_grouped, gradient_descent, newton, sgd)
+    from repro_torch.kernels.xtx import ops as xtx_ops
+    from repro_torch.kernels.xtx.ref import xtx_xty_ref
+    from repro_torch.methods import crf, svd, svm
+    from repro_torch.methods.linregr import (
+        LinregrTask, linregr, linregr_grouped)
+    from repro_torch.methods.logregr import logistic_program, logregr
+    from repro_torch.methods.sgd_models import (
+        REGISTRY, fit_sgd_model, least_squares_program)
+
+    t_section = time.perf_counter()
+    steps: dict[str, dict[str, int]] = {}
+    summary: dict = {"device": smi}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 21)
+
+    def main_step(label, fn):
+        counters.zero()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[label] = {k: v for k, v in counters.read().items() if v}
+        return out
+
+    def twice(what, fn, step=None):
+        """``fn()`` run twice: the first result and both host seconds.
+        With ``step``, the first run is that main-path step (counted) and
+        the repeat only times it."""
+        out, first = timed(torch, fn if step is None
+                           else lambda: main_step(step, fn))
+        _, again = timed(torch, fn)
+        print(f"[convex] {what}: first {first:.4f} s, repeated {again:.4f} "
+              f"s; {smi}")
+        summary[what] = [first, again]
+        return out
+
+    def rel(got, want) -> float:
+        return float((got - want).abs().max() / want.abs().max())
+
+    t_part = [time.perf_counter()]
+
+    def part_done(what):
+        now = time.perf_counter()
+        print(f"[convex] {what}: {now - t_part[0]:.1f} s of section k")
+        t_part[0] = now
+
+    # -- the solvers at the main path's width: y = x b + e and a 0/1 label
+    # from sigmoid(x b_l), x and y dyadic (x b exact: b in multiples of 1/8)
+    n, k = N_MAIN, K_MAIN
+    x = dyadic(torch, gen, (n, k), dev)
+    b = torch.randint(-8, 9, (k,), generator=gen, device=dev).float() / 8
+    y = x @ b + dyadic(torch, gen, (n,), dev)
+    b_l = 2.0 * torch.randn((k,), generator=gen, device=dev)
+    lab = (torch.rand((n,), generator=gen, device=dev)
+           < torch.sigmoid(x @ b_l)).float()
+    g = torch.randint(0, G_MAIN, (n,), generator=gen, dtype=torch.int32,
+                      device=dev)
+    t_reg = Table({"x": x, "y": y})
+    t_cls = Table({"x": x, "y": lab})
+    zeros = torch.zeros((k,), device=dev)
+
+    ols = main_step("linregr (the solvers' reference)",
+                    lambda: linregr(t_reg, use_kernel=True)).coef
+    w_ls = twice(f"newton(least_squares_program) ({n}, {k}), 1 step",
+                 lambda: newton(least_squares_program(), t_reg, zeros,
+                                max_iters=1, tol=None, ridge=0.0,
+                                block_size=NEWTON_BLOCK))[0]
+    e_ls = rel(w_ls, ols)
+    require(e_ls <= CONVEX_RTOL, f"newton(least_squares) one step is "
+            f"{e_ls:.3e} of max |coef| off linregr")
+    irls = logregr(t_cls)
+    w_lg, tr_lg, conv_lg = twice(
+        f"newton(logistic_program) ({n}, {k}), tol {NEWTON_TOL}",
+        lambda: newton(logistic_program(), t_cls, zeros, max_iters=20,
+                       tol=NEWTON_TOL, block_size=NEWTON_BLOCK))
+    e_lg = rel(w_lg, irls.coef)
+    require(conv_lg and irls.converged, "newton(logistic) or IRLS did not "
+            "converge")
+    require(e_lg <= CONVEX_RTOL, f"newton(logistic) is {e_lg:.3e} of max "
+            "|coef| off IRLS")
+    rhs = x.T @ y
+    w_cg, res_cg, it_cg = twice(
+        f"conjugate_gradient X^T X w = X^T y ({n}, {k})",
+        lambda: conjugate_gradient(lambda v: x.T @ (x @ v), rhs,
+                                   tol=CG_TOL_SHARE * float(rhs.norm())))
+    e_cg = rel(w_cg, ols)
+    require(e_cg <= CONVEX_RTOL, f"conjugate_gradient is {e_cg:.3e} of max "
+            "|coef| off linregr")
+    _, tr_gd, _ = twice(
+        f"gradient_descent(logistic_program) ({n}, {k}), {GD_ROUNDS} rounds",
+        lambda: gradient_descent(logistic_program(), t_cls, zeros,
+                                 stepsize=GD_STEPSIZE, max_iters=GD_ROUNDS))
+    losses = [r[0] for r in tr_gd]
+    require(len(losses) == GD_ROUNDS and all(
+        a > c for a, c in zip(losses, losses[1:])),
+        f"gradient_descent: the loss does not fall every round: {losses}")
+    print(f"[convex] newton(least_squares) vs linregr {e_ls:.3e}; "
+          f"newton(logistic) {len(tr_lg)} rounds vs IRLS {irls.n_iters} "
+          f"rounds, {e_lg:.3e}; conjugate_gradient {it_cg} iterations "
+          f"(residual {float(res_cg):.3e}), {e_cg:.3e} (relative to max "
+          f"|coef|); gradient_descent losses {losses}")
+    summary.update({"newton_logistic_rounds": len(tr_lg),
+                    "irls_rounds": irls.n_iters, "cg_iterations": it_cg,
+                    "errors": [e_ls, e_lg, e_cg], "gd_losses": losses})
+    del w_ls, w_lg, w_cg, rhs, irls, t_cls, lab
+
+    # fit_grouped(LinregrTask) through xtx, one launch per non-empty group
+    tg = Table({"x": x, "y": y, "g": g})
+    groups = int((torch.bincount(g, minlength=G_MAIN) > 0).sum())
+    step = f"fit_grouped(LinregrTask) ({n}, {k}), G = {G_MAIN}"
+    fg = twice(f"fit_grouped(LinregrTask(use_kernel=True)) ({n}, {k}), "
+               f"G = {G_MAIN}", lambda: fit_grouped(
+                   LinregrTask(use_kernel=True), tg, "g", G_MAIN,
+                   max_iters=1, tol=None), step=step)
+    launched = steps[step]
+    require(launched.get("xtx", 0) == groups and set(launched) == {"xtx"},
+            f"fit_grouped(LinregrTask): launches {launched}, want xtx once "
+            f"per non-empty group ({groups})")
+    lg = main_step(f"linregr_grouped ({n}, {k}), G = {G_MAIN} (reference "
+                   "of fit_grouped)", lambda: linregr_grouped(
+                       tg, "g", G_MAIN, use_kernel=True))
+    e_fg = rel(fg.result.coef, lg.coef)
+    require(torch.equal(fg.result.num_rows, lg.num_rows) and e_fg <= 1e-4,
+            f"fit_grouped(LinregrTask) is {e_fg:.3e} off linregr_grouped")
+    # xtx at the task's launch shape: the first group's rows
+    view = tg.group_by("g", G_MAIN)
+    r0, r1 = int(view.offsets[0]), int(view.offsets[1])
+    xg, yg = view.table["x"][r0:r1], view.table["y"][r0:r1]
+    errs["xtx"] = max(errs["xtx"], *(bitwise(
+        torch, f"xtx at one group's rows ({r1 - r0}, {k})", a, c)
+        for a, c in zip(xtx_ops.xtx_xty(xg, yg), xtx_xty_ref(xg, yg))))
+    print(f"[convex] fit_grouped(LinregrTask): {launched.get('xtx', 0)} xtx "
+          f"launches for {groups} non-empty groups, coefficients {e_fg:.3e} "
+          "of max |coef| off linregr_grouped; xtx bitwise its plain version "
+          f"at ({r1 - r0}, {k})")
+    summary["fit_grouped_error"] = e_fg
+    del x, y, g, b, b_l, t_reg, tg, fg, lg, view, xg, yg, ols, zeros
+    part_done("the solvers at 10^7 x 160")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- Table 2 by SGD at Forest covertype's shape: two Gaussian classes at
+    # +-1.5 (tests/test_methods.py's separable draw), y = x b + 0.1 e
+    m, d = COV_ROWS, COV_FEATURES
+    cls = (torch.rand((m,), generator=gen, device=dev) < 0.5).float()
+    xc = torch.randn((m, d), generator=gen, device=dev) \
+        + 1.5 * (1.0 - 2.0 * cls)[:, None]
+    bc = torch.randn((d,), generator=gen, device=dev)
+    yc = xc @ bc + 0.1 * torch.randn((m,), generator=gen, device=dev)
+    tables = {"least_squares": Table({"x": xc, "y": yc}),
+              "lasso": Table({"x": xc, "y": yc}),
+              "logistic": Table({"x": xc, "y": cls}),
+              "svm": Table({"x": xc, "y": cls})}
+    every = torch.ones((m,), dtype=torch.bool, device=dev)
+    n_steps = m // SGD_BATCH * SGD_EPOCHS
+    summary["sgd"] = {}
+    for name, tbl in tables.items():
+        prog = REGISTRY[name]()
+        w0 = torch.zeros((d,), device=dev)
+        w, secs = timed(torch, lambda: fit_sgd_model(
+            name, tbl, w0, epochs=SGD_EPOCHS, stepsize=SGD_STEPS[name],
+            batch=SGD_BATCH, seed=SEED))
+        f0 = float(prog.total_loss(w0, tbl.columns, every))
+        f1 = float(prog.total_loss(w, tbl.columns, every))
+        require(f1 < f0, f"fit_sgd_model({name}): the objective did not "
+                f"fall ({f0} -> {f1})")
+        print(f"[convex] fit_sgd_model({name}) ({m}, {d}), batch "
+              f"{SGD_BATCH}: {secs / SGD_EPOCHS:.3f} s an epoch, "
+              f"{n_steps / secs:.0f} steps/s; objective {f0:.6g} -> "
+              f"{f1:.6g}; {smi}")
+        summary["sgd"][name] = {"s_per_epoch": secs / SGD_EPOCHS,
+                                "steps_per_s": n_steps / secs,
+                                "objective": [f0, f1]}
+    w, secs = timed(torch, lambda: svm.svm_fit(
+        tables["svm"], epochs=SGD_EPOCHS, batch=SGD_BATCH, seed=SEED))
+    acc = float((svm.svm_predict(w, xc) == cls.to(torch.int32))
+                .float().mean())
+    require(acc > SVM_ACCURACY, f"svm_fit accuracy {acc} <= {SVM_ACCURACY}")
+    print(f"[convex] svm_fit ({m}, {d}), {SGD_EPOCHS} epoch: accuracy "
+          f"{acc:.5f}, {secs:.3f} s; {smi}")
+    summary["svm_fit"] = {"accuracy": acc, "s": secs}
+    del xc, yc, cls, bc, tables, every, w
+    part_done("Table 2 by SGD")
+
+    # -- low-rank recommendation at MovieLens-1M's shape: ratings from a
+    # planted rank-10 model (unit-variance products) plus noise
+    scale = ML_RANK ** -0.25
+    l0 = scale * torch.randn((ML_USERS, ML_RANK), generator=gen, device=dev)
+    r0 = scale * torch.randn((ML_ITEMS, ML_RANK), generator=gen, device=dev)
+    ii = torch.randint(0, ML_USERS, (ML_RATINGS,), generator=gen, device=dev)
+    jj = torch.randint(0, ML_ITEMS, (ML_RATINGS,), generator=gen, device=dev)
+    vv = (l0[ii] * r0[jj]).sum(-1) \
+        + 0.1 * torch.randn((ML_RATINGS,), generator=gen, device=dev)
+    tr = Table({"i": ii.float(), "j": jj.float(), "v": vv})
+
+    def rmse(p):
+        pred = (p["L"][ii] * p["R"][jj]).sum(-1)
+        return float(torch.sqrt(torch.mean((pred - vv) ** 2)))
+
+    p0 = svd.lowrank_sgd(tr, ML_USERS, ML_ITEMS, ML_RANK, epochs=0,
+                         seed=SEED)
+    p, secs = timed(torch, lambda: svd.lowrank_sgd(
+        tr, ML_USERS, ML_ITEMS, ML_RANK, epochs=ML_EPOCHS, batch=ML_BATCH,
+        seed=SEED))
+    before, after = rmse(p0), rmse(p)
+    require(after < before, f"lowrank_sgd: RMSE did not fall ({before} -> "
+            f"{after})")
+    ml_steps = ML_RATINGS // ML_BATCH * ML_EPOCHS
+    print(f"[convex] lowrank_sgd {ML_USERS} x {ML_ITEMS}, {ML_RATINGS} "
+          f"ratings, rank {ML_RANK}, batch {ML_BATCH}: "
+          f"{secs / ML_EPOCHS:.3f} s an epoch, {ml_steps / secs:.0f} "
+          f"steps/s; RMSE {before:.4f} -> {after:.4f} (ratings' std "
+          f"{float(vv.std()):.4f}); {smi}")
+    summary["lowrank"] = {"s_per_epoch": secs / ML_EPOCHS,
+                          "steps_per_s": ml_steps / secs,
+                          "rmse": [before, after]}
+    del l0, r0, ii, jj, vv, tr, p0, p
+    part_done("low-rank recommendation")
+
+    # -- the CRF at CoNLL-2000 chunking's shape
+    B, T, L, F = CONLL_SENTS, CONLL_T, CONLL_LABELS, CONLL_FEATURES
+    toks = torch.randint(0, CONLL_VOCAB, (B, T), generator=gen,
+                         dtype=torch.int32, device=dev)
+    lengths = (CONLL_MEAN_LEN + 11.0 * torch.randn(
+        (B,), generator=gen, device=dev)).round().clamp(1, T)
+    mask = (torch.arange(T, device=dev)[None, :] < lengths[:, None]).float()
+    noise = torch.randint(0, L, (B, T), generator=gen, dtype=torch.int32,
+                          device=dev)
+    keep = torch.rand((B, T), generator=gen, device=dev) < 0.8
+    labels = torch.where(keep, (toks * 7) % L, noise).to(torch.int32)
+    dictionary = (torch.rand((CONLL_VOCAB,), generator=gen, device=dev)
+                  < 0.1).to(torch.int32)
+    feats = twice(f"extract_features ({B}, {T}) into 2^18",
+                  lambda: crf.extract_features(toks, F, dictionary))
+    cpu_feats = crf.extract_features(toks.cpu(), F, dictionary.cpu())
+    require(torch.equal(feats.cpu(), cpu_feats),
+            "extract_features on the card differs from the CPU port")
+    tc = Table({"feats": feats, "labels": labels, "mask": mask})
+    init = crf.crf_init_params(F, L, seed=SEED, device=dev)
+    ll0 = float(crf.crf_log_likelihood(init, feats, labels, mask))
+    params, secs = timed(torch, lambda: sgd(
+        crf.crf_program(F, L, mu=1e-4), tc, init, stepsize=CRF_STEPSIZE,
+        epochs=1, batch=CRF_BATCH, seed=SEED))
+    ll1 = float(crf.crf_log_likelihood(params, feats, labels, mask))
+    require(ll1 > ll0, f"CRF sgd: the log-likelihood did not rise ({ll0} "
+            f"-> {ll1})")
+    crf_steps = B // CRF_BATCH
+    print(f"[convex] sgd(crf_program) ({B}, {T}), {L} labels, batch "
+          f"{CRF_BATCH}: {secs:.3f} s an epoch, {crf_steps / secs:.1f} "
+          f"steps/s; log-likelihood {ll0:.6g} -> {ll1:.6g}; {smi}")
+    vit = twice(f"viterbi_decode ({B}, {T}, {L})",
+                lambda: crf.viterbi_decode(params, feats, mask))
+    cpu_params = {q: v.cpu() for q, v in params.items()}
+    require(torch.equal(vit.cpu(), crf.viterbi_decode(
+        cpu_params, cpu_feats, mask.cpu())),
+        "viterbi_decode on the card differs from the CPU port")
+    _, marg = twice(f"gibbs_sample ({B}, {T}), {GIBBS_SWEEPS} sweeps",
+                    lambda: crf.gibbs_sample(params, feats, mask, seed=SEED,
+                                             n_sweeps=GIBBS_SWEEPS))
+    sums = marg.sum(-1)
+    require(bool(((sums - 1.0).abs() < 1e-5).all()),
+            "gibbs_sample: marginals do not sum to 1")
+    _, rate = twice(f"mh_sample ({B}, {T}), {MH_STEPS} steps",
+                    lambda: crf.mh_sample(params, feats, mask, seed=SEED,
+                                          n_steps=MH_STEPS))
+    require(0.0 < float(rate) <= 1.0, f"mh_sample: acceptance {rate}")
+    acc = float((vit == labels)[mask > 0].float().mean())
+    print(f"[convex] CRF: Viterbi labels equal to the CPU port's on all {B} "
+          f"sentences (token accuracy {acc:.4f}); Gibbs marginals sum to 1; "
+          f"MH acceptance {float(rate):.4f}")
+    summary["crf"] = {"s_per_epoch": secs, "steps_per_s": crf_steps / secs,
+                      "log_likelihood": [ll0, ll1],
+                      "mh_acceptance": float(rate), "viterbi_accuracy": acc}
+    del toks, lengths, mask, noise, keep, labels, dictionary, feats, tc
+    del init, params, cpu_params, cpu_feats, vit, marg, sums
+    part_done("the CRF")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- xtx at narrow widths on 10^7 dyadic rows, one width at a time
+    narrow = []
+    for kw in XTX_WIDTHS:
+        xw = dyadic(torch, gen, (N_MAIN, kw), dev)
+        yw = dyadic(torch, gen, (N_MAIN,), dev)
+        errs["xtx"] = max(errs["xtx"], *(bitwise(
+            torch, f"xtx ({N_MAIN}, {kw})", a, c) for a, c in zip(
+                xtx_ops.xtx_xty(xw, yw), xtx_xty_ref(xw, yw))))
+        ms = cuda_ms(torch, lambda: xtx_ops.xtx_xty(xw, yw),
+                     XTX_NARROW_REPS)
+        mm = cuda_ms(torch, lambda: torch.matmul(xw.T, xw), XTX_NARROW_REPS)
+        w = kw + 1
+        t_ops = float(N_MAIN) * kw * (kw + 3) / PEAK_F32_FLOPS * 1e3
+        t_bytes = 4.0 * (N_MAIN * w + kw * w) / PEAK_BYTES * 1e3
+        row = {"k": kw, "rows": N_MAIN, "ms": ms, "matmul_ms": mm,
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "ops_ms": t_ops, "bytes_ms": t_bytes,
+               "bound_share": max(t_ops, t_bytes) / ms}
+        print(f"[convex] xtx ({N_MAIN}, {kw}): {ms:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+              f"torch.matmul(x.T, x) {mm:.4f} ms; bitwise its plain "
+              f"version; {smi}")
+        narrow.append(row)
+        del xw, yw
+        torch.cuda.empty_cache()
+    print(json.dumps({"xtx_narrow": narrow, "device": smi}))
+    part_done("xtx at narrow widths")
+    summary["seconds"] = time.perf_counter() - t_section
+    print(json.dumps({"convex_section": summary}))
+    print(f"[convex] section k took {summary['seconds']:.1f} s")
+    return steps
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3284,12 +3644,18 @@ def main() -> int:
     # j. the measured calibration on the card, then the methods of the
     # tenth slice at full size
     j_steps = methods_section(torch, dev, counters, errs, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # k. the convex layer and what runs on it, at full size
+    k_steps = convex_section(torch, dev, counters, errs, smi)
     for row in rows:
         name = row["name"]
         row["launches"] = counters.total[name]
         by_step = {f"{kind} {step}": got[name]
                    for kind, st in (("server", steps), ("stream", i_steps),
-                                    ("methods", j_steps))
+                                    ("methods", j_steps),
+                                    ("convex", k_steps))
                    for step, got in st.items() if got.get(name)}
         if by_step:
             row["launches_by_shape"] = {

@@ -13,6 +13,9 @@ execution tracing.
   §3.1.2 driver pattern: one host loop around a UDA pass per round, solo,
   streamed or one model per group; host_driver / device_driver /
   counted_driver for step functions with no table scan
+- ConvexProgram / gradient_descent / newton / sgd / parallel_sgd /
+  conjugate_gradient — the §5.1 convex layer: a model is a
+  sum-decomposable loss, the solvers run under the executor
 - ScanAgg / GroupedScanAgg / JoinedGroupedScanAgg / IterativeFit /
   StreamAgg / plan / execute / explain — logical statements, the planner
   that fuses them, and EXPLAIN
@@ -31,6 +34,10 @@ from .aggregates import (  # noqa: F401
     MERGE_MAX, MERGE_MIN, MERGE_SUM, Aggregate, FusedAggregate,
     probe_segment_ops, run_grouped, run_local, run_many, run_stream,
     segment_block_size, segment_block_update, segment_fold,
+)
+from .convex import (  # noqa: F401
+    ConvexProgram, GradientAggregate, HessianAggregate, conjugate_gradient,
+    gradient_descent, newton, parallel_sgd, sgd,
 )
 from .driver import (  # noqa: F401
     IterationResult, counted_driver, device_driver, host_driver,

@@ -40,7 +40,7 @@ from ..tree import tree_index, tree_leaves, tree_map, tree_stack
 from . import calibration as _calibration
 from .table import (
     Columns, GroupedView, Table, _n_rows, as_column, host_tensor,
-    stored_dtype,
+    require_no_mesh, stored_dtype,
 )
 from .trace import record as _record
 
@@ -204,11 +204,14 @@ class FusedAggregate(Aggregate):
 
 
 def run_many(aggs, table: Table, *, block_size: int | None = None,
-             mask: torch.Tensor | None = None, engine: str = "auto",
-             finalize: bool = True, trace_kind: str = "scan") -> Any:
+             mask: torch.Tensor | None = None, jit: bool = True,
+             engine: str = "auto", finalize: bool = True,
+             trace_kind: str = "scan") -> Any:
     """Execute several aggregates over ``table`` in ONE shared scan.
     Returns a dict when ``aggs`` is a mapping, else a tuple.
-    ``finalize=False`` returns the raw fused fold state."""
+    ``finalize=False`` returns the raw fused fold state.  ``jit`` is the
+    reference's: either value runs the eager fold, the un-jitted
+    answer."""
     if engine not in ("auto", "local"):
         raise ValueError(f"unknown engine {engine!r} (the port has 'auto' "
                          "and 'local'; the sharded engine is not ported)")
@@ -260,10 +263,12 @@ def _blocked_fold(agg: Aggregate, columns: Columns,
 
 
 def run_local(agg: Aggregate, table: Table, *, block_size: int | None = None,
-              mask: torch.Tensor | None = None, finalize: bool = True,
-              trace_kind: str = "scan") -> Any:
+              mask: torch.Tensor | None = None, jit: bool = True,
+              finalize: bool = True, trace_kind: str = "scan") -> Any:
     """Execute an aggregate over one table.  ``finalize=False`` returns
-    the raw fold state; ``trace_kind`` labels the recorded event."""
+    the raw fold state; ``trace_kind`` labels the recorded event.
+    ``jit=True`` and ``jit=False`` both run the eager fold (PyTorch has
+    no compiled program to skip)."""
     _record(trace_kind, engine="local", rows=table.n_rows)
     state = _blocked_fold(agg, dict(table.columns), mask, block_size)
     return agg.final(state) if finalize else state
@@ -563,6 +568,7 @@ def run_grouped(agg: Aggregate, table, group_col: str | None = None,
                 num_groups: int | None = None, *,
                 block_size: int | None = None,
                 mask: torch.Tensor | None = None, method: str = "auto",
+                mesh=None, row_axes=None, jit: bool = True,
                 finalize: bool = True, trace_kind: str = "scan") -> Any:
     """Grouped aggregation (``SELECT ..., agg(...) GROUP BY g``).
 
@@ -572,7 +578,9 @@ def run_grouped(agg: Aggregate, table, group_col: str | None = None,
     (O(G·n)), the fallback for generic-merge aggregates; ``"auto"`` picks
     segment whenever the aggregate supports it.  ``mask`` is a base row
     filter in the original row order.  ``finalize=False`` returns the
-    stacked ``(G, ...)`` fold states."""
+    stacked ``(G, ...)`` fold states.  ``mesh``/``row_axes`` (the sharded
+    grouped engine) must be None; ``jit`` either value (eager)."""
+    require_no_mesh("run_grouped", mesh, row_axes)
     view = table if isinstance(table, GroupedView) else None
     if view is not None:
         if num_groups is not None and num_groups != view.num_groups:

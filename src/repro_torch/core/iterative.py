@@ -32,9 +32,10 @@ a host loop that pulls the metric once per round.  ``mode="compiled"``
 is accepted and folds through :class:`PassRunner` (no scan event per
 round) where ``mode="host"`` calls the recorded ``run_local`` engine;
 neither fuses the loop on the device yet (a CUDA-graph body is later
-work).  ``tol=None`` runs exactly ``max_iters`` rounds.  The sharded
-engine and ``jit=False`` are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+work).  ``tol=None`` runs exactly ``max_iters`` rounds.  ``jit=True``
+and ``jit=False`` both run that loop: it is the reference's un-jitted
+answer.  The sharded engine is not ported yet and raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -51,25 +52,8 @@ from .aggregates import (
     Aggregate, _blocked_fold, _combine_leaf, probe_segment_ops, run_local,
     run_stream, segment_block_size,
 )
-from .table import Columns, Table, as_column
+from .table import Columns, Table, as_column, require_no_mesh
 from .trace import record as _record
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP Queue 1 item "
-        f"{item})")
-
-
-def _check_local(mesh, row_axes, jit: bool, engine: str = "local") -> None:
-    """The arguments that only the unported engines give meaning to."""
-    if mesh is not None or row_axes is not None or engine == "sharded":
-        _not_ported("the sharded engine (mesh=, row_axes=, "
-                    "engine='sharded')", "13 (run_sharded)")
-    if not jit:
-        _not_ported("jit=False (there is no compiled program to skip; a "
-                    "CUDA-graph loop body would be one)",
-                    "7 (CUDA-graph 'compiled' loop)")
 
 
 def relative_change(prev, new) -> torch.Tensor:
@@ -87,10 +71,13 @@ def relative_change(prev, new) -> torch.Tensor:
 class PassRunner:
     """Executes ONE shared scan: the blocked fold of the aggregate over
     ``columns`` under ``mask``, then its ``final``.  ``columns``/``mask``
-    are exposed to tasks that are not pure folds."""
+    are exposed to tasks that are not pure folds (SGD epochs gather
+    their minibatches from them).  ``row_axes`` is the reference's
+    (non-empty inside its sharded engine): empty only."""
 
     def __init__(self, columns: Columns, mask=None,
-                 block_size: int | None = None):
+                 block_size: int | None = None, row_axes=()):
+        require_no_mesh("PassRunner", None, row_axes)
         self.columns = columns
         self.mask = mask
         self.block_size = block_size
@@ -106,6 +93,7 @@ class _EagerRunner:
 
     def __init__(self, table: Table, mask=None, block_size: int | None = None):
         self.table = table
+        self.columns = dict(table.columns)
         self.mask = mask
         self.block_size = block_size
 
@@ -222,13 +210,15 @@ def fit(task: IterativeTask, table: Table, *, max_iters: int = 100,
     are one host loop that pulls the metric once per round (there is no
     fused device loop yet).  ``tol=None`` runs exactly ``max_iters``
     rounds.  ``warm_start`` seeds the driver state (skips
-    ``task.init_state``)."""
+    ``task.init_state``).  ``jit`` either value: the same loop."""
     if engine not in ("auto", "local", "sharded"):
         raise ValueError(f"unknown engine {engine!r} (use 'auto' or "
                          "'local')")
     if mode not in ("host", "compiled"):
         raise ValueError(f"unknown mode {mode!r}")
-    _check_local(mesh, row_axes, jit, engine)
+    # engine="sharded" asks for the unported engine as a mesh does
+    require_no_mesh("fit", engine if engine == "sharded" else mesh,
+                    row_axes)
     columns = dict(table.columns)
     state0 = _warm_state(warm_start, table.device) \
         if warm_start is not None \
@@ -318,8 +308,9 @@ def fit_grouped(task: IterativeTask, table: Table, key_col: str,
     carry a leading group axis, whose ``n_iters``/``converged`` are
     per-group numpy vectors, and whose ``stats`` records the layout plus
     (segment) the per-round active-row counts and total blocks scanned.
-    ``warm_start``, when given, must already be stacked per group."""
-    _check_local(mesh, row_axes, jit)
+    ``warm_start``, when given, must already be stacked per group.
+    ``jit`` either value: the same loop."""
+    require_no_mesh("fit_grouped", mesh, row_axes)
     cols = dict(table.columns)
     gids = cols.pop(key_col).to(torch.int32)
     if num_groups is None:

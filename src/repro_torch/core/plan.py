@@ -57,7 +57,7 @@ from .iterative import (
     IterativeTask, _as_state, _segment_task_ok, fit, fit_grouped, fit_stream,
 )
 from .join import Join
-from .table import GroupedView, Table
+from .table import GroupedView, Table, require_no_mesh
 from .trace import record as _record
 
 
@@ -77,6 +77,7 @@ class ScanAgg:
     mask: Any = None             # base row filter, table row order
     block_size: int | None = None
     engine: str = "auto"         # "auto" | "local"
+    jit: bool = True             # the reference's; eager either way
     label: str | None = None     # the statement's name in a Session
 
 
@@ -95,6 +96,9 @@ class GroupedScanAgg:
     mask: Any = None
     block_size: int | None = None
     method: str = "auto"         # "auto" | "segment" | "masked"
+    mesh: Any = None             # the sharded engine: None only
+    row_axes: Any = None
+    jit: bool = True             # the reference's; eager either way
     label: str | None = None     # the statement's name in a Session
 
 
@@ -119,6 +123,7 @@ class JoinedGroupedScanAgg:
     method: str = "auto"         # "auto" | "segment" | "masked"
     mesh: Any = None
     row_axes: Any = None
+    jit: bool = True             # the reference's; eager either way
     label: str | None = None
 
 
@@ -514,6 +519,8 @@ def fused_grouped_pass(members: Sequence[tuple[int, GroupedScanAgg]]
     if len({(n.num_groups, n.block_size, n.method) for n in nodes}) > 1:
         raise ValueError("fused_grouped_pass: members disagree on "
                          "num_groups/block_size/method")
+    for n in nodes:
+        require_no_mesh("GroupedScanAgg", n.mesh, n.row_axes)
 
     base_tbl = base.table.table if isinstance(base.table, GroupedView) \
         else base.table
@@ -575,10 +582,8 @@ def fused_join_pass(members: Sequence[tuple[int, JoinedGroupedScanAgg]]
     if len({(n.num_groups, n.block_size, n.method) for n in nodes}) > 1:
         raise ValueError("fused_join_pass: members disagree on "
                          "num_groups/block_size/method")
-    if any(n.mesh is not None or n.row_axes is not None for n in nodes):
-        raise NotImplementedError(
-            "JoinedGroupedScanAgg(mesh=...) is not ported to repro_torch "
-            "yet (ROADMAP Queue 1 item 13: the sharded engines)")
+    for n in nodes:
+        require_no_mesh("JoinedGroupedScanAgg", n.mesh, n.row_axes)
 
     groups = int(base.num_groups) if base.num_groups is not None \
         else j.attr_groups()

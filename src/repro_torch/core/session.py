@@ -139,26 +139,29 @@ class Session:
         return h
 
     def scan(self, agg, table: Table, *, columns=None, mask=None,
-             block_size=None, engine: str = "auto",
+             block_size=None, engine: str = "auto", jit: bool = True,
              label: str | None = None, post=None) -> Handle:
         return self.statement(
             ScanAgg(agg, table, columns=columns, mask=mask,
-                    block_size=block_size, engine=engine, label=label),
-            post=post)
+                    block_size=block_size, engine=engine, jit=jit,
+                    label=label), post=post)
 
     def grouped_scan(self, agg, table, group_col=None, num_groups=None, *,
                      columns=None, mask=None, block_size=None,
-                     method: str = "auto", label=None, post=None) -> Handle:
+                     method: str = "auto", mesh=None, row_axes=None,
+                     jit: bool = True, label=None, post=None) -> Handle:
         return self.statement(
             GroupedScanAgg(agg, table, group_col, num_groups,
                            columns=columns, mask=mask,
-                           block_size=block_size, method=method,
-                           label=label), post=post)
+                           block_size=block_size, method=method, mesh=mesh,
+                           row_axes=row_axes, jit=jit, label=label),
+            post=post)
 
     def joined_grouped_scan(self, agg, join, num_groups=None, *,
                             columns=None, mask=None, block_size=None,
                             method: str = "auto", mesh=None, row_axes=None,
-                            label=None, post=None) -> Handle:
+                            jit: bool = True, label=None, post=None
+                            ) -> Handle:
         """``SELECT dim.attr, agg(...) FROM fact JOIN dim GROUP BY
         dim.attr`` as one statement; ``join`` is a
         :class:`~repro_torch.core.join.Join`.  Statements over the same
@@ -167,7 +170,7 @@ class Session:
             JoinedGroupedScanAgg(agg, join, num_groups, columns=columns,
                                  mask=mask, block_size=block_size,
                                  method=method, mesh=mesh,
-                                 row_axes=row_axes, label=label),
+                                 row_axes=row_axes, jit=jit, label=label),
             post=post)
 
     def fit(self, task, table=None, *, label=None, post=None,
@@ -219,12 +222,12 @@ class Session:
 
     # -- method sugar (lazy imports: methods build on core) ----------------
     def profile(self, table: Table, *, distinct_counts: bool = False,
-                block_size=None) -> Handle:
+                block_size=None, jit: bool = True) -> Handle:
         """Every statistic of ``profile`` as a statement of its own; the
         planner fuses them into one scan."""
         from ..methods.profile import _shape_results, profile_aggregates
         aggs = profile_aggregates(table, distinct_counts=distinct_counts)
-        parts = [self.scan(agg, table, block_size=block_size,
+        parts = [self.scan(agg, table, block_size=block_size, jit=jit,
                            label=f"profile:{name.strip('_')}")
                  for name, agg in aggs.items()]
         names = list(aggs)

@@ -15,7 +15,9 @@ The memo and versioning contracts are the reference's: one stable sort
 per ``(table, key)`` (:meth:`Table.sort_permutation`), a ``group_by``
 memo stamped with the table version, ``append`` bumping the version and
 ``invalidate`` bumping version and epoch.  Distributed tables
-(``distribute``, ``sharded_blocks``) are not ported yet.
+(``distribute``, ``sharded_blocks``) are not ported yet: ``Table`` takes
+the reference's ``mesh``/``row_axes`` fields, and a mesh raises
+(:func:`require_no_mesh`).
 """
 
 from __future__ import annotations
@@ -30,6 +32,17 @@ from ..device import resolve_device
 from .trace import record
 
 Columns = Mapping[str, torch.Tensor]
+
+
+def require_no_mesh(what: str, mesh=None, row_axes=None) -> None:
+    """The reference's sharding arguments, as the port takes them:
+    ``mesh=None`` and empty ``row_axes`` are no-ops (the local engine is
+    the reference's answer without a mesh); anything else raises, naming
+    the ROADMAP item that ports the sharded engine."""
+    if mesh is not None or row_axes:
+        raise NotImplementedError(
+            f"{what}: the sharded engine (mesh=, row_axes=) is not ported "
+            "to repro_torch yet (ROADMAP Queue 1 item 13)")
 
 
 def _n_rows(columns: Columns) -> int:
@@ -85,9 +98,13 @@ def as_column(v, device) -> torch.Tensor:
 
 @dataclasses.dataclass(eq=False)
 class Table:
-    """Named columns sharing a leading row axis, on one device."""
+    """Named columns sharing a leading row axis, on one device.
+    ``mesh``/``row_axes`` are the reference's distribution fields: None
+    (or empty) only, until the sharded engine is ported."""
 
     columns: dict[str, torch.Tensor]
+    mesh: Any = None
+    row_axes: Any = None
     # group_by memo: (key_col, num_groups) -> (version, GroupedView);
     # sort memo: key_col -> (version, (sorted_keys, perm)).  Entries are
     # stamped with the version they were built at, so every lookup
@@ -102,6 +119,9 @@ class Table:
     # hooks ``hook(table)`` run after every version bump
     _mutation_hooks: list = dataclasses.field(default_factory=list,
                                               repr=False)
+
+    def __post_init__(self):
+        require_no_mesh("Table", self.mesh, self.row_axes)
 
     # -- construction ------------------------------------------------------
     @classmethod

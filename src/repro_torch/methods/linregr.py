@@ -5,7 +5,9 @@ The port's counterpart of the reference ``methods/linregr.py``.  State:
 pseudo-inverse solve plus the statistics MADlib's linregr returns (R²,
 standard errors, t statistics, p-values, condition number).  ``final``
 takes an optional leading group axis, so a grouped fold finalizes in
-one batched call.  ``LinregrTask`` waits for a later slice.
+one batched call.  :class:`LinregrTask` is OLS as a one-round executor
+task, which is what buys it ``GROUP BY`` fitting through
+:func:`~repro_torch.core.iterative.fit_grouped`.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import dataclasses
 import torch
 
 from ..core.aggregates import MERGE_SUM, Aggregate
+from ..core.iterative import IterativeTask
 from ..core.join import Join
 from ..core.plan import GroupedScanAgg, JoinedGroupedScanAgg, ScanAgg, execute
 from ..core.table import Table
@@ -113,6 +116,28 @@ class LinregrAggregate(Aggregate):
         return self.final(states)
 
 
+class LinregrTask(IterativeTask):
+    """OLS as a degenerate (single-pass, counted) executor task — which is
+    exactly what buys it ``GROUP BY`` fitting via ``fit_grouped``: one
+    transition per group and round on the segment layout, through
+    ``xtx`` with ``use_kernel``."""
+
+    def __init__(self, use_kernel: bool | str = False):
+        self.use_kernel = use_kernel
+
+    def init_state(self, columns):
+        return torch.zeros(())  # stateless: everything lives in the pass
+
+    def make_aggregate(self, state):
+        return LinregrAggregate(use_kernel=self.use_kernel)
+
+    def update(self, state, out):
+        return state
+
+    def finalize(self, state, out):
+        return out
+
+
 def linregr(table: Table, *, x_col: str = "x", y_col: str = "y",
             block_size: int | None = None, use_kernel: bool | str = False
             ) -> LinregrResult:
@@ -126,14 +151,16 @@ def linregr(table: Table, *, x_col: str = "x", y_col: str = "y",
 def linregr_grouped(table: Table, key_col: str,
                     num_groups: int | None = None, *, x_col: str = "x",
                     y_col: str = "y", block_size: int | None = None,
-                    use_kernel: bool | str = False) -> LinregrResult:
+                    use_kernel: bool | str = False, mesh=None
+                    ) -> LinregrResult:
     """``SELECT g, (linregr(y, x)).* FROM data GROUP BY g`` — one model
     per group in a shared scan; every result field has a leading group
-    axis.  The partitioning sort is shared through the group_by memo."""
+    axis.  The partitioning sort is shared through the group_by memo.
+    ``mesh`` must be None."""
     return execute(GroupedScanAgg(
         LinregrAggregate(use_kernel), table, key_col, num_groups,
         columns={"x": x_col, "y": y_col}, block_size=block_size,
-        label="linregr_grouped"))
+        mesh=mesh, label="linregr_grouped"))
 
 
 def linregr_joined(fact: Table, dim: Table, *, fact_key: str,

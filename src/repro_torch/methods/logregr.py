@@ -11,8 +11,9 @@ outer loop is :class:`IRLSTask` under the unified iterative executor
 (no kernel: the reference leaves them to XLA too), in f32 without TF32.
 
 :func:`logregr_stream` fits out of core, streaming the blocks of a fresh
-block source every round.  Not ported yet: the §5.1 SGD solver
-(``logistic_program``, ``logregr_sgd``, with ``core/convex.py``).
+block source every round.  The §5.1 SGD path (Table 2's "Logistic
+Regression" row) is :func:`logistic_program` under
+:mod:`repro_torch.core.convex`, fit by :func:`logregr_sgd`.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import dataclasses
 import torch
 
 from ..core.aggregates import MERGE_SUM, Aggregate
+from ..core.convex import ConvexProgram
+from ..core.convex import sgd as sgd_solver
 from ..core.iterative import IterativeTask
 from ..core.plan import IterativeFit, execute
 from ..core.table import Table
@@ -166,3 +169,28 @@ def logregr_grouped(table: Table, key_col: str,
                                tol=tol, block_size=block_size, mesh=mesh,
                                label="logregr_grouped"))
     return _result(res)
+
+
+# ---------------------------------------------------------------------------
+# §5.1 SGD path (Table 2 "Logistic Regression" row).
+# ---------------------------------------------------------------------------
+
+def logistic_program(mu: float = 0.0) -> ConvexProgram:
+    """Σ log(1 + exp(-y·xᵀw)) with y ∈ {−1,+1} encoded from {0,1}."""
+
+    def loss(params, block, mask):
+        sgn = 2.0 * block["y"] - 1.0
+        return torch.sum(torch.nn.functional.softplus(
+            -sgn * (block["x"] @ params)) * mask.to(torch.float32))
+
+    reg = (lambda p: 0.5 * mu * torch.sum(p ** 2)) if mu > 0 else None
+    return ConvexProgram(loss=loss, regularizer=reg)
+
+
+def logregr_sgd(table: Table, *, epochs: int = 5, stepsize: float = 0.5,
+                batch: int = 128, seed=0, mu: float = 0.0) -> torch.Tensor:
+    """Logistic regression by SGD from w = 0; ``seed`` (an int or a
+    ``torch.Generator`` on the table's device) drives the shuffles."""
+    w0 = torch.zeros((table["x"].shape[-1],), device=table.device)
+    return sgd_solver(logistic_program(mu), table, w0, stepsize=stepsize,
+                      epochs=epochs, batch=batch, seed=seed)

@@ -93,14 +93,15 @@ def naive_bayes_fit(table: Table, num_classes: int, *,
 def naive_bayes_grouped(table: Table, key_col: str, num_classes: int,
                         num_groups: int | None = None, *,
                         block_size: int | None = None,
-                        method: str = "auto") -> NaiveBayesModel:
+                        method: str = "auto", mesh=None
+                        ) -> NaiveBayesModel:
     """``SELECT g, naive_bayes(...) FROM data GROUP BY g``: one NB model
     per group through the partitioned grouped-scan core; every model
-    field carries a leading group axis."""
+    field carries a leading group axis.  ``mesh`` must be None."""
     return execute(GroupedScanAgg(
         NaiveBayesAggregate(num_classes), table, key_col, num_groups,
         columns=("x", "y"), block_size=block_size, method=method,
-        label="naive_bayes_grouped"))
+        mesh=mesh, label="naive_bayes_grouped"))
 
 
 def naive_bayes_predict(model: NaiveBayesModel,

@@ -53,13 +53,13 @@ def _shape_results(results: dict) -> dict:
 
 
 def profile(table: Table, *, distinct_counts: bool = False,
-            block_size: int | None = None) -> dict:
+            block_size: int | None = None, jit: bool = True) -> dict:
     """Univariate stats for every numeric column (plus approximate
     distinct counts of the integer columns when asked), in ONE data pass
-    through the planner."""
+    through the planner.  ``jit`` either value (eager)."""
     sess = Session()
     handle = sess.profile(table, distinct_counts=distinct_counts,
-                          block_size=block_size)
+                          block_size=block_size, jit=jit)
     sess.run()
     return handle.result()
 

@@ -131,8 +131,8 @@ def quantiles(table: Table, qs, *, value_col: str = "v", bins: int = 4096,
 
 def quantiles_grouped(table: Table, key_col: str, qs, *,
                       num_groups: int | None = None, value_col: str = "v",
-                      bins: int = 4096, block_size: int | None = None
-                      ) -> torch.Tensor:
+                      bins: int = 4096, block_size: int | None = None,
+                      mesh=None) -> torch.Tensor:
     """Per-group approximate quantiles (``... GROUP BY g``) in two grouped
     passes: a grouped profile fixes each group's range, then one grouped
     histogram pass bins every row against its own group's range.
@@ -141,15 +141,18 @@ def quantiles_grouped(table: Table, key_col: str, qs, *,
 
     The two statements share ONE partitioning sort through the
     ``Table.group_by`` memo; the group id rides along as a data column
-    for the histogram's range lookup."""
+    for the histogram's range lookup.  ``mesh`` (the sharded grouped
+    engine) must be None."""
     gcol = table[key_col]
     t = Table({value_col: table[value_col], "__g__": gcol, key_col: gcol})
     prof = execute(GroupedScanAgg(
         ProfileAggregate(), t, key_col, num_groups, columns=(value_col,),
-        block_size=block_size, label="quantiles_grouped:range"))[value_col]
+        block_size=block_size, mesh=mesh,
+        label="quantiles_grouped:range"))[value_col]
     lo, hi = prof["min"], prof["max"]
     hist = execute(GroupedScanAgg(
         GroupedHistogramAggregate(lo, hi, bins, value_col), t, key_col,
-        num_groups, block_size=block_size, label="quantiles_grouped:hist"))
+        num_groups, block_size=block_size, mesh=mesh,
+        label="quantiles_grouped:hist"))
     width = (hi - lo) / _f32(float(bins), hist.device)
     return _interp_quantiles(hist, lo, width, qs, bins)

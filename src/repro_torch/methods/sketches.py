@@ -161,16 +161,18 @@ def countmin_sketch_grouped(table: Table, key_col: str,
                             depth: int = 4, width: int = 1024,
                             item_col: str = "item",
                             block_size: int | None = None,
-                            use_kernel: bool | str = False) -> torch.Tensor:
+                            use_kernel: bool | str = False,
+                            mesh=None) -> torch.Tensor:
     """One Count-Min sketch per group: a ``(num_groups, depth, width)``
     counter stack from one partitioned grouped scan, bit-identical to
     sketching each group's rows alone.  Emitted over the original table
     with an ``item_col`` projection, so batched grouped statements share
-    one partitioning sort through the ``group_by`` memo."""
+    one partitioning sort through the ``group_by`` memo.  ``mesh`` must
+    be None."""
     return execute(GroupedScanAgg(
         CountMinAggregate(depth, width, use_kernel=use_kernel,
                           item_col=item_col), table, key_col,
-        num_groups, columns=(item_col,), block_size=block_size,
+        num_groups, columns=(item_col,), block_size=block_size, mesh=mesh,
         label="countmin_grouped"))
 
 
@@ -179,13 +181,13 @@ def fm_distinct_count_grouped(table: Table, key_col: str,
                               num_hashes: int = 8, bits: int = 32,
                               item_col: str = "item",
                               block_size: int | None = None,
-                              use_kernel: bool | str = False
+                              use_kernel: bool | str = False, mesh=None
                               ) -> torch.Tensor:
     """Per-group Flajolet-Martin estimates (``SELECT g, count(DISTINCT
     item) GROUP BY g``, approximated): a ``(num_groups,)`` vector from one
-    grouped scan."""
+    grouped scan.  ``mesh`` must be None."""
     return execute(GroupedScanAgg(
         FMAggregate(num_hashes, bits, item_col=item_col,
                     use_kernel=use_kernel), table, key_col,
-        num_groups, columns=(item_col,), block_size=block_size,
+        num_groups, columns=(item_col,), block_size=block_size, mesh=mesh,
         label="fm_grouped"))

@@ -12,8 +12,9 @@ in-database algorithms over a row-distributed matrix table:
 An integer ``seed`` or a ``torch.Generator`` (on the table's device)
 replaces the reference's ``key``.  ``torch.linalg.qr`` and ``eigh`` pick
 their own signs, so results compare by singular values and subspaces,
-not by vectors.  ``lowrank_program`` and ``lowrank_sgd`` (the Table 2
-recommender) need the convex solver layer and raise until it is ported.
+not by vectors.  :func:`lowrank_program` and :func:`lowrank_sgd` are
+Table 2's recommender: low-rank matrix factorization by SGD under
+:mod:`repro_torch.core.convex`.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..core.aggregates import MERGE_SUM, Aggregate
+from ..core.convex import ConvexProgram, sgd
 from ..core.plan import ScanAgg, execute
 from ..core.table import Table, _generator
 
@@ -84,15 +86,45 @@ def svd_randomized(table: Table, k: int, *, oversample: int = 8,
     return _ritz(q, _run(AtAQAggregate(q), t, block_size), k)
 
 
-def _needs_convex(what: str):
-    raise NotImplementedError(
-        f"{what} needs the convex solver layer (core/convex.py), which is "
-        "not ported to repro_torch yet (ROADMAP Queue 1 item 9)")
+# ---------------------------------------------------------------------------
+# Table 2 "Recommendation": low-rank matrix factorization by SGD.
+# ---------------------------------------------------------------------------
+
+def lowrank_program(n_rows: int, n_cols: int, rank: int, mu: float = 1e-2
+                    ) -> ConvexProgram:
+    """Σ (L_i · R_j − v)² over rating rows {i, j, v} (ids stored as
+    floats, as the reference's table holds them), + μ/2 (‖L‖² + ‖R‖²)."""
+
+    def loss(params, block, mask):
+        l = params["L"][block["i"].to(torch.int64)]
+        r = params["R"][block["j"].to(torch.int64)]
+        pred = torch.sum(l * r, -1)
+        return torch.sum(((pred - block["v"]) ** 2) * mask.to(torch.float32))
+
+    def reg(params):
+        return 0.5 * mu * (torch.sum(params["L"] ** 2)
+                           + torch.sum(params["R"] ** 2))
+
+    return ConvexProgram(loss=loss, regularizer=reg)
 
 
-def lowrank_program(*args, **kwargs):
-    _needs_convex("lowrank_program")
-
-
-def lowrank_sgd(*args, **kwargs):
-    _needs_convex("lowrank_sgd")
+def lowrank_sgd(table: Table, n_rows: int, n_cols: int, rank: int, *,
+                mu: float = 1e-5, epochs: int = 80, stepsize: float = 0.1,
+                batch: int = 256, seed=0, init_scale: float = 0.5):
+    """Fit ``{"L": (n_rows, rank), "R": (n_cols, rank)}``.  One
+    ``torch.Generator`` (``seed``, an int or a generator on the table's
+    device) draws L, then R, then the shuffles, where the reference
+    splits its key three ways."""
+    dev = table.device
+    gen = _generator(seed, dev)
+    # init away from the L=R=0 saddle; constant stepsize (annealing stalls
+    # the plateau escape on this non-convex objective)
+    params = {
+        "L": init_scale * torch.randn((n_rows, rank), generator=gen,
+                                      device=dev),
+        "R": init_scale * torch.randn((n_cols, rank), generator=gen,
+                                      device=dev),
+    }
+    prog = lowrank_program(n_rows, n_cols, rank, mu)
+    return sgd(prog, table, params, stepsize=stepsize, epochs=epochs,
+               batch=batch, seed=gen, anneal=False)

@@ -1110,3 +1110,98 @@ def test_new_methods_on_card_match_the_cpu_port(cuda_device):
     assert torch.equal(sparse_vector.rle_dot_rle(va, va),
                        sparse_vector.rle_dot_rle(vb, vb).cpu())
     assert torch.equal(sparse_vector.rle_decode(vb).cpu(), dense)
+
+
+# ---------------------------------------------------------------------------
+# The convex layer and what runs on it, on the card against the CPU port.
+# ---------------------------------------------------------------------------
+
+def _logistic_cols(draw, n, d):
+    x = draw.normal((n, d))
+    b = draw.normal((d,))
+    p = 1.0 / (1.0 + np.exp(-(x.astype(np.float64) @ b)))
+    return {"x": x, "y": (draw.uniform((n,)) < p).astype(np.float32)}
+
+
+@pytest.mark.parametrize("name", ["least_squares", "logistic"])
+def test_newton_on_card_matches_the_cpu_port(cuda_device, name):
+    from repro_torch.core import newton
+    from repro_torch.methods.logregr import logistic_program
+    from repro_torch.methods.sgd_models import least_squares_program
+    draw = Draw(3030)
+    cols = _logistic_cols(draw, 50_000, 12)
+    prog = {"least_squares": least_squares_program(),
+            "logistic": logistic_program()}[name]
+    (wa, ta, ca), (wb, tb, cb) = (
+        newton(prog, t, torch.zeros(12, device=t.device), max_iters=20,
+               tol=1e-5, block_size=8192) for t in _both(cols))
+    assert len(ta) == len(tb) and ca == cb and ca
+    torch.testing.assert_close(wb.cpu(), wa, rtol=1e-4, atol=1e-5)
+
+
+def test_sgd_on_card_matches_the_cpu_port(cuda_device):
+    """Full batch: the shuffle only reorders the one minibatch's sum, so
+    the card's and the CPU's generators cannot part them."""
+    from repro_torch.core import sgd
+    from repro_torch.methods.logregr import logistic_program
+    from repro_torch.methods.svm import svm_fit
+    draw = Draw(3031)
+    cols = _logistic_cols(draw, 4096, 8)
+    ws = [sgd(logistic_program(), t, torch.zeros(8, device=t.device),
+              stepsize=1.0, epochs=3, batch=4096, seed=1) for t in _both(cols)]
+    torch.testing.assert_close(ws[1].cpu(), ws[0], rtol=1e-4, atol=1e-5)
+    card = _both(cols)[1]
+    a = svm_fit(card, epochs=2, batch=64, seed=5)
+    b = svm_fit(card, epochs=2, batch=64, seed=5)
+    assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+def test_crf_on_card_matches_the_cpu_port(cuda_device):
+    from repro_torch.methods import crf
+    draw = Draw(3032)
+    toks = draw.ints((300, 20), 0, 999)
+    lengths = draw.ints((300,), 1, 20)
+    mask = (np.arange(20)[None, :] < lengths[:, None]).astype(np.float32)
+    dictionary = draw.ints((1000,), 0, 1)
+    fa, fb = (crf.extract_features(torch.from_numpy(toks).to(dev), 1 << 12,
+                                   torch.from_numpy(dictionary).to(dev))
+              for dev in ("cpu", cuda_device))
+    assert torch.equal(fa, fb.cpu())
+    params = {"emit": torch.from_numpy(draw.normal((1 << 12, 5))),
+              "trans": torch.from_numpy(draw.normal((5, 5)))}
+    m = torch.from_numpy(mask)
+    va = crf.viterbi_decode(params, fa, m)
+    on_card = {k: v.to(cuda_device) for k, v in params.items()}
+    vb = crf.viterbi_decode(on_card, fb, m.to(cuda_device))
+    assert vb.dtype == torch.int32 and torch.equal(va, vb.cpu())
+    labels, marg = crf.gibbs_sample(on_card, fb, m.to(cuda_device), seed=1,
+                                    n_sweeps=4)
+    torch.testing.assert_close(marg.sum(-1).cpu(), torch.ones(300, 20))
+    _, rate = crf.mh_sample(on_card, fb, m.to(cuda_device), seed=2,
+                            n_steps=50)
+    assert 0.0 < float(rate) <= 1.0
+
+
+def test_fit_grouped_linregr_task_on_card_launches_xtx_per_group(
+        cuda_device):
+    from repro_torch.core import fit_grouped
+    from repro_torch.methods.linregr import LinregrTask
+    draw = Draw(3033)
+    n = 30_000
+    gids, _ = group_layout(draw, n, 9, "empty")
+    cols = {"x": draw.dyadic((n, 20)), "y": draw.dyadic((n,)), "g": gids}
+    cpu, card = _both(cols)
+    before = xtx_ops.xtx_launches
+    got = fit_grouped(LinregrTask(use_kernel=True), card, "g", 9,
+                      max_iters=1, tol=None)
+    torch.cuda.synchronize()
+    assert xtx_ops.xtx_launches - before == len(np.unique(gids))
+    want = fit_grouped(LinregrTask(), cpu, "g", 9, max_iters=1, tol=None)
+    assert torch.equal(got.result.num_rows.cpu(), want.result.num_rows)
+    full = want.result.num_rows > 0
+    torch.testing.assert_close(got.result.coef.cpu()[full],
+                               want.result.coef[full], rtol=1e-4, atol=1e-5)
+    assert set(got.stats) == set(want.stats)
+    for k in want.stats:
+        assert np.array_equal(np.asarray(got.stats[k]),
+                              np.asarray(want.stats[k])), k

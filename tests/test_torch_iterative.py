@@ -139,9 +139,14 @@ def test_unported_engines_raise_naming_their_item():
     _, x, init = _blobs(11, 64)
     t, _ = _tables({"x": x})
     for kw in ({"mesh": object()}, {"row_axes": ("data",)},
-               {"engine": "sharded"}, {"jit": False}):
+               {"engine": "sharded"}):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             fit(km.KMeansTask(init), t, **kw)
+    # jit=False is the reference's un-jitted run: the same eager loop
+    eager = fit(km.KMeansTask(init), t, jit=False)
+    want = fit(km.KMeansTask(init), t)
+    assert eager.n_iters == want.n_iters
+    assert torch.equal(eager.state["cents"], want.state["cents"])
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         fit_grouped(km.KMeansTask(init), t.with_column(
             "g", torch.zeros(64, dtype=torch.int32)), "g", mesh=object())
