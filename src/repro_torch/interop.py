@@ -14,9 +14,10 @@ centroids or IRLS coefficients, as numpy arrays, are the port's
 ``init_centroids`` and ``warm_start`` as they are, and a ``FitResult``
 state goes back through :func:`state_to_numpy`.  An LM's parameters
 carry across with :func:`model_params_from_numpy` and
-:func:`model_params_to_numpy`: the reference's params pytree (its
-layers stacked along a leading axis) against the port's per-layer
-``nn.Module``.  Nothing here imports the reference package: the caller
+:func:`model_params_to_numpy`: the reference's params pytree (the
+layers of each position of the family's block pattern stacked along a
+leading axis) against the port's per-layer ``nn.Module``, for every
+family.  Nothing here imports the reference package: the caller
 converts its arrays with ``numpy.asarray``.
 """
 
@@ -30,7 +31,7 @@ import torch
 from .core.table import Table
 from .device import resolve_device
 from .models.config import ModelConfig
-from .models.model import Model
+from .models.model import Model, period_pattern
 from .tree import tree_map
 
 
@@ -69,51 +70,67 @@ def _leaf(tree, path: str):
     return tree
 
 
+def _layer_slots(cfg: ModelConfig):
+    """Where layer i sits in the reference's tree: ``(period, index)``
+    for the ``n_full`` full periods of the family's pattern (length P:
+    layer i is index i // P of ``periods[str(i % P)]``), then ``("tail",
+    j)`` for the rest."""
+    p = len(period_pattern(cfg))
+    n_stacked = cfg.n_layers // p * p
+    return [(str(i % p), i // p) if i < n_stacked else ("tail", i - n_stacked)
+            for i in range(cfg.n_layers)]
+
+
+def params_from_numpy(module: torch.nn.Module, tree) -> None:
+    """Copy a nested dict of numpy arrays into ``module``'s parameters of
+    the same dotted names, in place."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            p.copy_(_tensor(_leaf(tree, name)))
+
+
 def model_params_from_numpy(cfg: ModelConfig, tree, device=None) -> Model:
     """The reference's params pytree for ``cfg`` (numpy arrays: ``embed``,
-    ``out_norm``, ``lm_head`` unless tied, ``periods["0"]`` with every
-    layer stacked along a leading axis, and ``tail``) -> the port's
-    :class:`Model` on ``device`` (the card unless ``device="cpu"``).
-    Layer ``i`` is index ``i`` of the stacked arrays; layers past the
-    stack come from ``tail``."""
+    ``out_norm``, ``lm_head`` unless tied, ``periods`` with each position
+    of the family's block pattern stacked along a leading axis, and
+    ``tail``) -> the port's :class:`Model` on ``device`` (the card unless
+    ``device="cpu"``)."""
     model = Model(cfg, device)
-    stacked = tree["periods"]["0"]
-    n_full = int(np.asarray(stacked["norm1"]).shape[0]) if stacked else 0
     with torch.no_grad():
-        for name, p in model.named_parameters():
-            if not name.startswith("blocks."):
-                p.copy_(_tensor(tree[name]))
-                continue
-            _, i, path = name.split(".", 2)
-            i = int(i)
-            a = (np.asarray(_leaf(stacked, path))[i] if i < n_full
-                 else _leaf(tree["tail"][i - n_full], path))
-            p.copy_(_tensor(a))
+        for name, p in model.named_parameters(recurse=False):
+            p.copy_(_tensor(tree[name]))
+    for blk, (where, j) in zip(model.blocks, _layer_slots(cfg)):
+        if where == "tail":
+            params_from_numpy(blk, tree["tail"][j])
+        else:
+            params_from_numpy(blk, tree_map(lambda a: np.asarray(a)[j],
+                                            tree["periods"][where]))
     return model
 
 
 def model_params_to_numpy(model: Model) -> dict:
     """The inverse of :func:`model_params_from_numpy`: the reference's
-    pytree layout, every layer stacked into ``periods["0"]`` and ``tail``
-    empty.  bfloat16 parameters come out as f32 arrays (exact)."""
+    pytree layout, each pattern position's full periods stacked into
+    ``periods`` (``{}`` where there is no full period) and the rest in
+    ``tail``.  bfloat16 parameters come out as f32 arrays (exact)."""
     def arr(t):
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
-    out: dict = {}
-    layers: list[dict] = []
-    for name, p in model.named_parameters():
-        if not name.startswith("blocks."):
-            out[name] = arr(p)
-            continue
-        _, i, path = name.split(".", 2)
-        if int(i) == len(layers):
-            layers.append({})
-        node = layers[int(i)]
-        *parents, leaf = path.split(".")
-        for part in parents:
-            node = node.setdefault(part, {})
-        node[leaf] = arr(p)
-    out["periods"] = {"0": tree_map(lambda *xs: np.stack(xs), *layers)}
+    out: dict = {name: arr(p)
+                 for name, p in model.named_parameters(recurse=False)}
+    stacks: dict[str, list] = {
+        str(i): [] for i in range(len(period_pattern(model.cfg)))}
     out["tail"] = []
+    for blk, (where, _) in zip(model.blocks, _layer_slots(model.cfg)):
+        layer: dict = {}
+        for name, p in blk.named_parameters():
+            node = layer
+            *parents, leaf = name.split(".")
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = arr(p)
+        (out["tail"] if where == "tail" else stacks[where]).append(layer)
+    out["periods"] = {k: tree_map(lambda *xs: np.stack(xs), *v) if v else {}
+                      for k, v in stacks.items()}
     return out

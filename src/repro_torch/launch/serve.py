@@ -1,6 +1,8 @@
-"""Serving: batched decode with a KV cache.
+"""Serving: batched decode with a KV or recurrent cache.
 
-Counterpart of the reference package's ``launch/serve.py``: a model of
+Counterpart of the reference package's ``launch/serve.py``, for every
+decoder family (the encoder-only audio family raises ``ValueError``): a
+model of
 random weights drawn from ``seed``, a teacher-forced prefill of a random
 prompt through ``decode_step`` (which drives the cache path end to end),
 then sampled generation.  The first generated token is the prefill's
@@ -11,6 +13,7 @@ returned tokens are drawn with ``torch.multinomial`` over
 unless ``device="cpu"``.
 
     python -m repro_torch.launch.serve --arch qwen3-8b --full
+    python -m repro_torch.launch.serve --arch recurrentgemma-2b --full
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
-"""LM scaffolding, dense family: ``config`` (``ModelConfig``), ``layers``
-(norms, RoPE, attention through the flash_attention kernel, SwiGLU) and
-``model`` (``init_model``, ``forward``, ``init_decode_state``,
-``decode_step``)."""
+"""LM scaffolding, every family: ``config`` (``ModelConfig``), ``layers``
+(norms, RoPE and M-RoPE, attention through the flash_attention kernel,
+SwiGLU), ``moe``, ``rglru`` and ``xlstm`` (the MoE FFN, the RG-LRU and
+xLSTM blocks) and ``model`` (``init_model``, ``forward``,
+``init_decode_state``, ``decode_step``)."""
 
 from .config import ModelConfig, layer_kinds
 from .model import (

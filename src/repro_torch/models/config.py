@@ -4,8 +4,7 @@ The port's copy of the reference package's ``models/config.py``, the same
 in behaviour.  One frozen dataclass covers all six families (dense / moe
 / audio / hybrid / vlm / ssm); family-specific fields are ignored
 elsewhere.  Configs for the ten assigned architectures live in
-repro_torch.configs.<id>.  The port runs the dense family so far
-(:mod:`repro_torch.models.model` raises for the others).
+repro_torch.configs.<id>.
 """
 
 from __future__ import annotations

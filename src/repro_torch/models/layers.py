@@ -1,4 +1,4 @@
-"""Dense LM layers: counterparts of the reference package's
+"""LM layers: counterparts of the reference package's
 ``models/layers.py``.
 
 The functions keep the reference's layouts (``x @ w`` with w of shape
@@ -8,12 +8,11 @@ tests compare like with like.  The parameter containers are
 reference's ``ParamStore`` subtrees, with the same parameter names and
 shapes.  Their parameters take no gradient: this is the serving path,
 and the flash kernel has no backward yet.
-
-``apply_mrope`` (vlm) and ``cross_entropy`` (training) come with their
-slices (ROADMAP Queue 1 items 11 and 12).
 """
 
 from __future__ import annotations
+
+import itertools
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +21,14 @@ from torch import nn
 from ..kernels.registry import dispatch
 
 NEG_INF = -1e30
+
+# How :func:`repro_torch.models.model.init_model` draws a leaf: each
+# module's ``INIT`` maps its own parameters to (init, scale), as the
+# reference's ``ParamStore.add`` calls give them.  A normal draw's scale
+# None is fan_in^-0.5, fan_in the first axis.
+NORMAL = ("normal", None)
+ONES = ("ones", None)
+ZEROS = ("zeros", None)
 
 
 def param(shape, dtype, device) -> nn.Parameter:
@@ -33,6 +40,9 @@ def param(shape, dtype, device) -> nn.Parameter:
 class Attention(nn.Module):
     """``wq`` (d, H Dh), ``wk``/``wv`` (d, Hk Dh), ``wo`` (H Dh, d), and
     with qk_norm ``q_norm``/``k_norm`` (Dh,)."""
+
+    INIT = {"wq": NORMAL, "wk": NORMAL, "wv": NORMAL, "wo": NORMAL,
+            "q_norm": ONES, "k_norm": ONES}
 
     def __init__(self, cfg, dtype, device):
         super().__init__()
@@ -48,6 +58,8 @@ class Attention(nn.Module):
 
 class FFN(nn.Module):
     """SwiGLU weights ``w_gate``/``w_up`` (d, d_ff), ``w_down`` (d_ff, d)."""
+
+    INIT = {"w_gate": NORMAL, "w_up": NORMAL, "w_down": NORMAL}
 
     def __init__(self, cfg, dtype, device):
         super().__init__()
@@ -82,15 +94,32 @@ def rope_frequencies(d_head: int, theta: float, device=None):
                                    device=device) / half)
 
 
-def apply_rope(x, positions, theta=10_000.0):
-    """x (..., S, H, Dh), positions (..., S) -> rotated x."""
-    freqs = rope_frequencies(x.shape[-1], theta, x.device)   # (Dh/2,)
-    angles = positions[..., None].to(torch.float32) * freqs  # (...,S,Dh/2)
+def _rotate(x, angles):
+    """x (..., S, H, Dh) rotated by angles (..., S, Dh/2), in f32."""
     cos = torch.cos(angles)[..., None, :]                    # (...,S,1,Dh/2)
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x, positions, theta=10_000.0):
+    """x (..., S, H, Dh), positions (..., S) -> rotated x."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)   # (Dh/2,)
+    return _rotate(x, positions[..., None].to(torch.float32) * freqs)
+
+
+def apply_mrope(x, positions_thw, sections, theta=10_000.0):
+    """Qwen2-VL M-RoPE: positions_thw (3, ..., S) give separate temporal /
+    height / width indices; the frequency bands are split by ``sections``
+    (summing to Dh/2) and each band rotates by its own component.  Band
+    j is the number of section ends at or below j, at most 2."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)   # (Dh/2,)
+    j = torch.arange(x.shape[-1] // 2, device=x.device)
+    band = sum(j >= end for end in itertools.accumulate(sections))
+    band = band.clamp(max=2)                                 # (Dh/2,) {0,1,2}
+    pos = torch.movedim(positions_thw.to(torch.float32)[band], 0, -1)
+    return _rotate(x, pos * freqs)                           # pos (...,S,Dh/2)
 
 
 # ---------------------------------------------------------------------------
@@ -194,7 +223,9 @@ def attention_chunked(q, k, v, *, causal: bool, window: int | None = None,
     return torch.cat(outs, dim=1)
 
 
-def _project_qkv(p: Attention, cfg, x, positions):
+def _project_qkv(p: Attention, cfg, x, positions, mrope_positions=None):
+    """q, k, v (B, S, H or Hk, Dh), rotated by M-RoPE when ``cfg.mrope``
+    and ``mrope_positions`` (3, B, S) are given, else by plain RoPE."""
     b, s, _ = x.shape
     h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q = (x @ p.wq).reshape(b, s, h, dh)
@@ -203,20 +234,27 @@ def _project_qkv(p: Attention, cfg, x, positions):
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope and mrope_positions is not None:
+        q = apply_mrope(q, mrope_positions, cfg.mrope_sections,
+                        cfg.rope_theta)
+        k = apply_mrope(k, mrope_positions, cfg.mrope_sections,
+                        cfg.rope_theta)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
 def run_attention(p: Attention, cfg, x, positions, *, window=None,
-                  use_flash: bool = True, chunked_threshold: int = 2048):
+                  use_flash: bool = True, mrope_positions=None,
+                  chunked_threshold: int = 2048):
     """Full-sequence attention (prefill).  With ``use_flash`` and no
     window, the flash_attention kernel takes every S: it never builds the
     (S, S) scores.  Otherwise the reference's split: sequences longer than
     ``chunked_threshold`` go through :func:`attention_chunked`, shorter
     ones through :func:`attention_scores`."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(p, cfg, x, positions)
+    q, k, v = _project_qkv(p, cfg, x, positions, mrope_positions)
     if use_flash and window is None:
         out = attention_scores(q, k, v, causal=cfg.causal, use_flash=True)
     elif s > chunked_threshold:
@@ -227,7 +265,7 @@ def run_attention(p: Attention, cfg, x, positions, *, window=None,
 
 
 def run_attention_decode(p: Attention, cfg, x, cache_k, cache_v, pos, *,
-                         window=None):
+                         window=None, mrope_positions=None):
     """One decode step.  x (B,1,d); cache_k/v (B,S,Hk,Dh) ring buffers,
     written IN PLACE (the reference returns new arrays; the port saves the
     copy) and returned; ``pos`` is either (B,) per-sequence positions or a
@@ -238,7 +276,7 @@ def run_attention_decode(p: Attention, cfg, x, cache_k, cache_v, pos, *,
     pos_t = torch.as_tensor(pos, device=x.device).long()
     uniform = pos_t.dim() == 0
     pos_vec = pos_t.expand(b) if uniform else pos_t
-    q, k, v = _project_qkv(p, cfg, x, pos_vec[:, None])
+    q, k, v = _project_qkv(p, cfg, x, pos_vec[:, None], mrope_positions)
     if uniform:
         slot = torch.remainder(pos_t, s).reshape(1)
         cache_k.index_copy_(1, slot, k.to(cache_k.dtype))

@@ -1,13 +1,16 @@
-"""Model assembly, dense family: init / forward (prefill) / decode.
+"""Model assembly, every family: init / forward (prefill) / decode.
 
 Counterpart of the reference package's ``models/model.py``.  The model is
-an ``nn.Module`` with one :class:`Block` per layer in an ``nn.ModuleList``:
-there is no period stacking, and the reference's ``tagged_scan`` over
-layers is a Python loop.  The serving path only: no autograd, no remat.
+an ``nn.Module`` with one :class:`Block` per layer in an ``nn.ModuleList``,
+each of its layer's kind (``layer_kinds``: attn for dense, moe, vlm and
+audio; the (rglru, rglru, local) period for hybrid; (mlstm, slstm) for
+ssm).  There is no period stacking: the reference's ``tagged_scan`` over
+layers is a Python loop, and ``interop`` maps layer i to its period slot.
+The serving path only: no autograd, no remat.
 
-The families the port does not run yet raise ``NotImplementedError``
-naming their ROADMAP item, as do the sharding options (the port has no
-mesh: the reference's ``constrain`` has no counterpart here).
+The sharding options raise ``NotImplementedError`` naming their ROADMAP
+item (the port has no mesh: the reference's ``constrain`` has no
+counterpart here).
 """
 
 from __future__ import annotations
@@ -17,24 +20,15 @@ from torch import nn
 
 from ..device import resolve_device
 from . import layers as L
+from . import moe as MOE
+from . import rglru as RG
+from . import xlstm as XL
 from .config import ModelConfig, layer_kinds
-
-_FAMILY_ITEMS = {
-    "moe": "Queue 1 item 11 (MoE)",
-    "hybrid": "Queue 1 item 11 (RG-LRU hybrid)",
-    "ssm": "Queue 1 item 11 (xLSTM)",
-    "vlm": "Queue 1 item 11 (M-RoPE / vlm)",
-    "audio": "Queue 1 item 11 (audio encoder)",
-}
 
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item for what the
     port does not run yet."""
-    if cfg.family in _FAMILY_ITEMS:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP {_FAMILY_ITEMS[cfg.family]})")
     if cfg.seq_parallel:
         raise NotImplementedError(
             f"{cfg.name}: seq_parallel is not ported yet (ROADMAP Queue 1 "
@@ -46,8 +40,15 @@ def check_ported(cfg: ModelConfig) -> None:
 
 
 def period_pattern(cfg: ModelConfig) -> list[str]:
+    """The family's repeating block pattern: the reference stacks the
+    parameters of pattern position p of every full period together."""
     check_ported(cfg)
-    pat = ["attn"]
+    if cfg.family == "hybrid":
+        pat = list(cfg.block_pattern or ("rglru", "rglru", "local"))
+    elif cfg.family == "ssm":
+        pat = ["mlstm"] * (cfg.slstm_every - 1) + ["slstm"]
+    else:
+        pat = ["attn"]
     assert layer_kinds(cfg)[:len(pat)] == pat
     return pat
 
@@ -57,15 +58,35 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 class Block(nn.Module):
-    """Pre-norm residual block: ``norm1``, ``attn``, ``norm2``, ``ffn``."""
+    """Pre-norm residual block of one kind: ``norm1`` and then
+    ``attn``, ``norm2`` and ``moe`` or ``ffn`` (attn, local);
+    ``rglru`` and, with a d_ff, ``norm2`` and ``ffn`` (rglru); ``mlstm``;
+    ``slstm``."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    INIT = {"norm1": L.ONES, "norm2": L.ONES}
+
+    def __init__(self, cfg: ModelConfig, kind: str, dtype, device):
         super().__init__()
+        self.kind = kind
         self.norm1 = L.param((cfg.d_model,), dtype, device)
-        self.attn = L.Attention(cfg, dtype, device)
-        self.norm2 = L.param((cfg.d_model,), dtype, device)
-        if cfg.d_ff > 0:
-            self.ffn = L.FFN(cfg, dtype, device)
+        if kind in ("attn", "local"):
+            self.attn = L.Attention(cfg, dtype, device)
+            self.norm2 = L.param((cfg.d_model,), dtype, device)
+            if cfg.is_moe:
+                self.moe = MOE.MoE(cfg, dtype, device)
+            elif cfg.d_ff > 0:
+                self.ffn = L.FFN(cfg, dtype, device)
+        elif kind == "rglru":
+            self.rglru = RG.RGLRU(cfg, dtype, device)
+            if cfg.d_ff > 0:
+                self.norm2 = L.param((cfg.d_model,), dtype, device)
+                self.ffn = L.FFN(cfg, dtype, device)
+        elif kind == "mlstm":
+            self.mlstm = XL.MLSTM(cfg, dtype, device)
+        elif kind == "slstm":
+            self.slstm = XL.SLSTM(cfg, dtype, device)
+        else:
+            raise ValueError(kind)
 
 
 class Model(nn.Module):
@@ -73,6 +94,9 @@ class Model(nn.Module):
     embeddings are tied, and ``blocks``.  Parameters are allocated, not
     initialised: :func:`init_model` draws them, and
     :func:`repro_torch.interop.model_params_from_numpy` loads them."""
+
+    INIT = {"embed": ("normal", 1.0), "out_norm": L.ONES,
+            "lm_head": L.NORMAL}
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -84,8 +108,8 @@ class Model(nn.Module):
         self.out_norm = L.param((cfg.d_model,), dt, dev)
         if not cfg.tie_embeddings:
             self.lm_head = L.param((cfg.d_model, cfg.vocab), dt, dev)
-        self.blocks = nn.ModuleList(Block(cfg, dt, dev)
-                                    for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(Block(cfg, kind, dt, dev)
+                                    for kind in layer_kinds(cfg))
 
     def w_out(self) -> torch.Tensor:
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
@@ -98,26 +122,31 @@ class Model(nn.Module):
 @torch.no_grad()
 def init_model(cfg: ModelConfig, *, generator: torch.Generator,
                device=None) -> Model:
-    """A :class:`Model` drawn as the reference draws it: every matrix
-    normal x fan_in^-0.5 (fan_in its first axis), ``embed`` normal x 1.0,
-    the norms ones; drawn in f32 and cast to ``cfg.dtype``.  The draws come
-    from ``generator``, which lives on the model's device (the card unless
-    ``device="cpu"``).  Its numbers are not JAX's: tests that compare the
-    two packages carry JAX's weights over with ``interop``."""
+    """A :class:`Model` drawn leaf by leaf as the reference's
+    ``ParamStore.add`` calls draw it: each module's ``INIT`` table gives
+    a leaf's (init, scale); a normal draw without a scale is scaled by
+    fan_in^-0.5, fan_in the leaf's first axis (E for the experts); drawn
+    in f32 and cast to ``cfg.dtype``.  The draws come from ``generator``,
+    which lives on the model's device (the card unless ``device="cpu"``).
+    Its numbers are not JAX's: tests that compare the two packages carry
+    JAX's weights over with ``interop``."""
     model = Model(cfg, device)
     dev = model.embed.device
     if generator.device.type != dev.type:
         raise ValueError(f"init_model: the generator lives on "
                          f"{generator.device}, the model on {dev}")
-    for name, p in model.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if "norm" in leaf:
-            p.fill_(1.0)
-            continue
-        scale = 1.0 if leaf == "embed" else p.shape[0] ** -0.5
-        w = torch.randn(p.shape, generator=generator, dtype=torch.float32,
-                        device=dev)
-        p.copy_(w.mul_(scale))
+    for module in model.modules():
+        for name, p in module.named_parameters(recurse=False):
+            init, scale = module.INIT[name]
+            if init != "normal":
+                p.fill_(1.0 if init == "ones" else 0.0)
+                continue
+            if scale is None:
+                scale = (p.shape[0] if p.dim() > 1
+                         else max(p.shape[0], 1)) ** -0.5
+            w = torch.randn(p.shape, generator=generator,
+                            dtype=torch.float32, device=dev)
+            p.copy_(w.mul_(scale))
     return model
 
 
@@ -126,55 +155,134 @@ def init_model(cfg: ModelConfig, *, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 def _run_block(cfg: ModelConfig, p: Block, x, positions, *,
-               use_flash: bool = True):
-    """Pre-norm residual block."""
+               mrope_positions=None, aux_acc=None, use_flash: bool = True):
+    """Pre-norm residual block; returns (x, aux_acc)."""
+    kind = p.kind
     h = L.rms_norm(x, p.norm1, cfg.norm_eps)
-    x = x + L.run_attention(p.attn, cfg, h, positions, use_flash=use_flash)
-    if cfg.d_ff > 0:
-        x = x + L.run_ffn(p.ffn, L.rms_norm(x, p.norm2, cfg.norm_eps))
-    return x
+    if kind in ("attn", "local"):
+        window = cfg.local_window if kind == "local" else None
+        x = x + L.run_attention(p.attn, cfg, h, positions, window=window,
+                                use_flash=use_flash,
+                                mrope_positions=mrope_positions)
+        h2 = L.rms_norm(x, p.norm2, cfg.norm_eps)
+        if cfg.is_moe:
+            out, aux = MOE.run_moe(p.moe, cfg, h2)
+            x = x + out
+            if aux_acc is not None:
+                aux_acc = {k: aux_acc[k] + aux[k] for k in aux_acc}
+        elif cfg.d_ff > 0:
+            x = x + L.run_ffn(p.ffn, h2)
+    elif kind == "rglru":
+        out, _ = RG.run_rglru(p.rglru, cfg, h)
+        x = x + out
+        if cfg.d_ff > 0:
+            x = x + L.run_ffn(p.ffn, L.rms_norm(x, p.norm2, cfg.norm_eps))
+    elif kind == "mlstm":
+        x = x + XL.run_mlstm(p.mlstm, cfg, h)
+    else:
+        out, _ = XL.run_slstm(p.slstm, cfg, h)
+        x = x + out
+    return x, aux_acc
 
 
 @torch.no_grad()
-def forward(model: Model, tokens: torch.Tensor, *, use_flash: bool = True):
-    """tokens (B, S) -> (logits (B, S, V), aux dict).  ``aux`` is empty for
-    the dense family.  With ``use_flash`` (the default) every layer's
-    attention is one flash_attention call; without it the reference's
-    split between full scores and the chunked path."""
+def forward(model: Model, tokens=None, *, embeddings=None,
+            mrope_positions=None, collect_aux: bool = True,
+            use_flash: bool = True):
+    """tokens (B, S) -> (logits (B, S, V), aux dict).
+
+    ``embeddings`` (B, S_e, d) (stub frame or patch embeddings) are cast
+    to the model's dtype and come first; token embeddings follow them.
+    ``mrope_positions`` (3, B, S) rotate attention by M-RoPE where
+    ``cfg.mrope``.  ``aux`` holds ``aux_loss`` and ``drop_frac`` summed
+    over the layers for MoE, and is empty otherwise; ``collect_aux`` is
+    the reference's argument and, as there, changes nothing.  With
+    ``use_flash`` (the default) every attention layer without a window is
+    one flash_attention call; windowed layers, and every layer without
+    it, take the reference's split between full scores and the chunked
+    path."""
     cfg = model.cfg
-    x = model.embed[tokens]
+    if embeddings is not None:
+        x = embeddings.to(_dtype(cfg))
+        if tokens is not None:
+            x = torch.cat([x, model.embed[tokens]], dim=1)
+    else:
+        x = model.embed[tokens]
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    aux = ({k: torch.zeros((), dtype=torch.float32, device=x.device)
+            for k in ("aux_loss", "drop_frac")} if cfg.is_moe else None)
     for blk in model.blocks:
-        x = _run_block(cfg, blk, x, positions, use_flash=use_flash)
+        x, aux = _run_block(cfg, blk, x, positions,
+                            mrope_positions=mrope_positions, aux_acc=aux,
+                            use_flash=use_flash)
     x = L.rms_norm(x, model.out_norm, cfg.norm_eps)
-    return x @ model.w_out(), {}
+    return x @ model.w_out(), (aux or {})
 
 
 # ---------------------------------------------------------------------------
 # Decode (serving)
 # ---------------------------------------------------------------------------
 
+def _layer_state(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
+                 dev) -> dict:
+    dt = _dtype(cfg)
+    if kind in ("attn", "local"):
+        s = min(cfg.local_window, max_seq) if kind == "local" else max_seq
+        shape = (batch, s, cfg.n_kv_heads, cfg.d_head)
+        return {"k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev)}
+    if kind == "rglru":
+        return {"h": torch.zeros((batch, cfg.d_model), dtype=torch.float32,
+                                 device=dev),
+                "conv": torch.zeros((batch, cfg.conv1d_width - 1,
+                                     cfg.d_model), dtype=dt, device=dev)}
+    if kind == "mlstm":
+        return XL.init_mlstm_state(cfg, batch, dev)
+    return XL.init_slstm_state(cfg, batch, dev)
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       device=None) -> list[dict]:
-    """One ``{"k", "v"}`` ring buffer of (batch, max_seq, Hk, Dh) per
-    layer, zeros in ``cfg.dtype``, on the card unless ``device="cpu"``."""
-    period_pattern(cfg)
+    """One cache per layer, on the card unless ``device="cpu"``: a
+    ``{"k", "v"}`` ring buffer of (batch, S, Hk, Dh) in ``cfg.dtype``
+    (S = max_seq, or min(local_window, max_seq) for a local layer);
+    ``{"h"}`` f32 and ``{"conv"}`` (batch, W-1, d) in ``cfg.dtype`` for
+    an RG-LRU layer; the f32 mLSTM ``{"C", "n", "m"}`` and sLSTM
+    ``{"c", "n", "h", "m"}`` states."""
+    check_ported(cfg)
     dev = resolve_device(device)
-    shape = (batch, max_seq, cfg.n_kv_heads, cfg.d_head)
-    return [{"k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
-             "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev)}
-            for _ in range(cfg.n_layers)]
+    return [_layer_state(cfg, kind, batch, max_seq, dev)
+            for kind in layer_kinds(cfg)]
 
 
 def _decode_block(cfg: ModelConfig, p: Block, cache: dict, x, pos):
+    kind = p.kind
     h = L.rms_norm(x, p.norm1, cfg.norm_eps)
-    out, ck, cv = L.run_attention_decode(p.attn, cfg, h, cache["k"],
-                                         cache["v"], pos)
-    cache = {"k": ck, "v": cv}
-    x = x + out
-    if cfg.d_ff > 0:
-        x = x + L.run_ffn(p.ffn, L.rms_norm(x, p.norm2, cfg.norm_eps))
+    if kind in ("attn", "local"):
+        window = cfg.local_window if kind == "local" else None
+        out, ck, cv = L.run_attention_decode(p.attn, cfg, h, cache["k"],
+                                             cache["v"], pos, window=window)
+        cache = {"k": ck, "v": cv}
+        x = x + out
+        h2 = L.rms_norm(x, p.norm2, cfg.norm_eps)
+        if cfg.is_moe:
+            x = x + MOE.run_moe(p.moe, cfg, h2)[0]
+        elif cfg.d_ff > 0:
+            x = x + L.run_ffn(p.ffn, h2)
+    elif kind == "rglru":
+        out, (hh, conv) = RG.run_rglru_decode(p.rglru, cfg, h,
+                                              (cache["h"], cache["conv"]))
+        cache = {"h": hh, "conv": conv}
+        x = x + out
+        if cfg.d_ff > 0:
+            x = x + L.run_ffn(p.ffn, L.rms_norm(x, p.norm2, cfg.norm_eps))
+    elif kind == "mlstm":
+        out, cache = XL.run_mlstm_decode(p.mlstm, cfg, h, cache)
+        x = x + out
+    else:
+        out, cache = XL.run_slstm_decode(p.slstm, cfg, h, cache)
+        x = x + out
     return x, cache
 
 
@@ -182,8 +290,9 @@ def _decode_block(cfg: ModelConfig, p: Block, cache: dict, x, pos):
 def decode_step(model: Model, state: list[dict], token: torch.Tensor, pos):
     """One token for the whole stack.  token (B, 1) int; pos is (B,)
     per-sequence positions or a scalar (synchronized batch decode).
-    Returns (logits (B, V), state): the caches are updated in place and
-    returned."""
+    Returns (logits (B, V), state): attention caches are updated in place
+    and returned, recurrent states replaced.  As in the reference, decode
+    takes no M-RoPE positions: a vlm decodes with plain RoPE."""
     cfg = model.cfg
     x = model.embed[token]
     pos = torch.as_tensor(pos, device=x.device)   # one copy, not one a layer

@@ -1,0 +1,131 @@
+"""Mixture-of-experts FFN with capacity-factor routing (GShard-style).
+
+Counterpart of the reference package's ``models/moe.py``: tokens are
+bucketed per expert up to capacity C by a stable sort over their expert
+assignments, gathered into an (E, C, d) tensor, pushed through the
+per-expert SwiGLU as batched matmuls, and combined back with the router
+weights.  Overflow tokens are dropped (``drop_frac`` in the aux stats).
+
+Two choices keep the port's answers those of the reference on the card:
+
+* top-k goes through a stable descending sort, so tied probabilities
+  keep the lower expert first, as ``jax.lax.top_k`` does (``torch.topk``
+  promises no order among ties, and bf16 router logits tie often);
+* the combine is a gather, not a scatter-add: each token takes its kept
+  slots in slot order (expert order) and sums them left to right in the
+  output dtype, where the reference's scatter-add sums them.  An atomic
+  ``index_add_`` would change the order, and in bf16 the bits, from run
+  to run.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .layers import NORMAL, param
+
+
+class MoE(nn.Module):
+    """``router`` (d, E); experts ``w_gate``/``w_up`` (E, d, F) and
+    ``w_down`` (E, F, d).  The experts' fan-in is their first axis, E, as
+    the reference's ``ParamStore.add`` takes it."""
+
+    INIT = {"router": NORMAL, "w_gate": NORMAL, "w_up": NORMAL,
+            "w_down": NORMAL}
+
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+        self.router = param((d, e), dtype, device)
+        self.w_gate = param((e, d, f), dtype, device)
+        self.w_up = param((e, d, f), dtype, device)
+        self.w_down = param((e, f, d), dtype, device)
+
+
+def _capacity(n_tokens: int, cfg) -> int:
+    c = int(n_tokens * cfg.top_k * cfg.capacity_factor / cfg.n_experts)
+    return max(8, -(-c // 8) * 8)  # round up to 8, as the reference does
+
+
+def run_moe(p: MoE, cfg, x):
+    """x (B, S, d) -> (B, S, d), aux dict {"aux_loss", "drop_frac"} (f32
+    scalars).
+
+    When ``cfg.moe_token_chunk`` is set and divides a larger batch, the
+    tokens go through the experts in chunks of that many (the capacity is
+    then a chunk's), and the aux stats are averaged over the chunks."""
+    b, s, d = x.shape
+    n = b * s
+    chunk = cfg.moe_token_chunk
+    if chunk and n > chunk and n % chunk == 0:
+        outs, auxs = zip(*(_moe_tokens(p, cfg, xi)
+                           for xi in x.reshape(n // chunk, 1, chunk, d)))
+        aux = {k: torch.mean(torch.stack([a[k] for a in auxs]))
+               for k in auxs[0]}
+        return torch.cat(outs).reshape(b, s, d), aux
+    return _moe_tokens(p, cfg, x)
+
+
+def _moe_tokens(p: MoE, cfg, x):
+    b, s, d = x.shape
+    n = b * s
+    e, k = cfg.n_experts, cfg.top_k
+    dev = x.device
+    xf = x.reshape(n, d)
+
+    logits = (xf @ p.router).to(torch.float32)                # (N, E)
+    probs = torch.softmax(logits, -1)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[:, :k], top_e[:, :k]                 # (N, k)
+    top_p = top_p / torch.sum(top_p, -1, keepdim=True)        # renormalise
+
+    # load-balance auxiliary loss (Switch/GShard form)
+    me = torch.mean(probs, dim=0)                             # (E,)
+    ce = torch.mean(torch.sum(F.one_hot(top_e, e).to(torch.float32),
+                              dim=1), dim=0)
+    aux_loss = e * torch.sum(me * ce) * cfg.router_aux_weight
+
+    # sort-based capacity dispatch
+    cap = _capacity(n, cfg)
+    flat_e = top_e.reshape(-1)                                # (N*k,)
+    flat_p = top_p.reshape(-1)
+    flat_tok = torch.arange(n, device=dev).repeat_interleave(k)
+    order = torch.argsort(flat_e, stable=True)                # by expert
+    se, sp, stok = flat_e[order], flat_p[order], flat_tok[order]
+    # position of each assignment within its expert's bucket
+    pos_in_e = torch.arange(n * k, device=dev) - torch.searchsorted(
+        se, se, side="left")
+    keep = pos_in_e < cap
+    slot = torch.where(keep, se * cap + pos_in_e, e * cap)    # overflow slot
+    tok_ec = torch.zeros(e * cap, dtype=torch.long, device=dev)
+    w_ec = torch.zeros(e * cap, dtype=torch.float32, device=dev)
+    valid_ec = torch.zeros(e * cap, dtype=torch.float32, device=dev)
+    kept = slot[keep]
+    tok_ec[kept] = stok[keep]
+    w_ec[kept] = sp[keep]
+    valid_ec[kept] = 1.0
+    tok_ec, w_ec, valid_ec = (t.reshape(e, cap)
+                              for t in (tok_ec, w_ec, valid_ec))
+
+    xe = xf[tok_ec] * valid_ec[..., None].to(x.dtype)         # (E, C, d)
+    gate = torch.bmm(xe, p.w_gate)
+    up = torch.bmm(xe, p.w_up)
+    down = torch.bmm(F.silu(gate) * up, p.w_down)
+    down = down * (w_ec * valid_ec)[..., None].to(x.dtype)
+
+    # combine: each token's kept slots in slot order, summed left to
+    # right; a dropped assignment reads the zero row past the buckets
+    slot_of = torch.empty_like(slot)
+    slot_of[order] = slot
+    by_expert = torch.argsort(top_e, dim=-1)                  # slot order
+    slots = torch.gather(slot_of.reshape(n, k), 1, by_expert)
+    rows = torch.cat([down.reshape(e * cap, d),
+                      down.new_zeros((1, d))])[slots]         # (N, k, d)
+    out = rows[:, 0]
+    for j in range(1, k):
+        out = out + rows[:, j]
+    dropped = 1.0 - torch.sum(valid_ec) / max(n * k, 1)
+    return out.reshape(b, s, d).to(x.dtype), {
+        "aux_loss": aux_loss, "drop_frac": dropped}

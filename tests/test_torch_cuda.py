@@ -525,7 +525,7 @@ def test_flash_attention_kernel_matches_plain(cuda_device, b, hq, hk, s, d,
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("b,hq,hk", [(1, 4, 1), (3, 6, 2)])
 @pytest.mark.parametrize("s", [1, 77, 300, 1000])
-@pytest.mark.parametrize("d", [16, 64, 96, 128])
+@pytest.mark.parametrize("d", [16, 64, 80, 96, 128])
 def test_flash_attention_tc_kernel_matches_plain(cuda_device, d, s, b, hq, hk,
                                                  causal):
     """bf16 through the tensor-core kernel, every D of the repo's configs,
@@ -543,6 +543,26 @@ def test_flash_attention_tc_kernel_matches_plain(cuda_device, d, s, b, hq, hk,
             fa_ops.flash_attention_ffma_launches) == (
         before[0] + 1, before[1] + 1, before[2])
     assert got.shape == want.shape and got.dtype == torch.bfloat16
+    err = float((got.float() - want).abs().max())
+    assert err <= 2.0 ** -7 * float(want.abs().max())
+    assert _bf16_row_ratio(got, want) <= 2.0 ** -7
+
+
+@pytest.mark.parametrize("b,hq,hk,s,d,causal", [
+    (2, 16, 16, 1024, 128, True), (2, 12, 2, 1024, 128, True),
+    (2, 16, 16, 1024, 80, False), (3, 16, 16, 333, 80, False)])
+def test_flash_attention_tc_at_the_family_shapes(cuda_device, b, hq, hk, s,
+                                                 d, causal):
+    """The layer shapes of moonshot-v1-16b-a3b (Hq = Hk = 16), qwen2-vl-2b
+    (12/2 GQA) and hubert-xlarge (non-causal D = 80, which the kernel
+    zero-pads to its D = 128 tile), at S = 1024 and a ragged S: one
+    tensor-core launch, within one bf16 step of the plain version."""
+    q, k, v = _flash_inputs(cuda_device, b, hq, hk, s, d, torch.bfloat16)
+    before = fa_ops.flash_attention_tc_launches
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    want = fa_ref.flash_attention_ref(q, k, v, causal=causal).float()
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention_tc_launches == before + 1
     err = float((got.float() - want).abs().max())
     assert err <= 2.0 ** -7 * float(want.abs().max())
     assert _bf16_row_ratio(got, want) <= 2.0 ** -7
@@ -664,6 +684,70 @@ def test_forward_goes_through_flash_attention(cuda_device, arch):
         outs.append(lg)
     torch.testing.assert_close(torch.stack(outs, 1), fwd, rtol=2e-3,
                                atol=2e-4)
+
+
+def _family_inputs(cfg, device, b=2, s=40):
+    """The forward's keyword inputs for ``cfg``'s family: frame
+    embeddings (audio); 4 patch embeddings, tokens and M-RoPE positions
+    at (t = 0, h, w) then text (vlm); tokens."""
+    draw = Draw(s + cfg.d_model)
+    if cfg.family == "audio":
+        return {"embeddings": torch.from_numpy(
+            draw.normal((b, s, cfg.d_model))).to(device)}
+    toks = torch.from_numpy(draw.ints((b, s), 0, cfg.vocab - 1)).to(device)
+    if cfg.family != "vlm":
+        return {"tokens": toks}
+    hh, ww = torch.meshgrid(torch.arange(2), torch.arange(2), indexing="ij")
+    img = torch.stack([torch.zeros(4, dtype=torch.long), hh.ravel(),
+                       ww.ravel()])
+    text = (torch.arange(s - 4) + 2).expand(3, s - 4)
+    pos = torch.cat([img, text], 1)[:, None].expand(3, b, s)
+    return {"tokens": toks[:, 4:],
+            "embeddings": torch.from_numpy(
+                draw.normal((b, 4, cfg.d_model))).to(device),
+            "mrope_positions": pos.to(device)}
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "dbrx-132b",
+                                  "hubert-xlarge", "recurrentgemma-2b",
+                                  "qwen2-vl-2b", "xlstm-350m"])
+def test_family_forward_on_card_matches_cpu(cuda_device, arch):
+    """The reduced config's forward (f32) on the card, through the FFMA
+    flash kernel once per attention layer without a window, against the
+    same weights' forward on the CPU (plain versions): rtol = atol = 1e-4,
+    the flash kernel's f32 bound, as cuBLAS and the CPU sum matmuls in
+    other orders; the MoE aux alike."""
+    from repro_torch.interop import (model_params_from_numpy,
+                                     model_params_to_numpy)
+    from repro_torch.models.config import layer_kinds
+
+    cfg = reduced_config(arch)
+    cpu = M.init_model(cfg, generator=torch.Generator().manual_seed(0),
+                       device="cpu")
+    card = model_params_from_numpy(cfg, model_params_to_numpy(cpu),
+                                   device=cuda_device)
+    inp = _family_inputs(cfg, "cpu")
+    want, want_aux = M.forward(cpu, inp.get("tokens"), **{
+        k: v for k, v in inp.items() if k != "tokens"})
+    before = fa_ops.flash_attention_launches
+    got, aux = M.forward(card, **{k: v.to(cuda_device)
+                                  for k, v in inp.items()})
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention_launches - before == sum(
+        k == "attn" for k in layer_kinds(cfg))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert set(aux) == set(want_aux)
+    for k in aux:
+        torch.testing.assert_close(aux[k].cpu(), want_aux[k], rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "recurrentgemma-2b",
+                                  "qwen2-vl-2b", "xlstm-350m"])
+def test_family_serve_on_card(cuda_device, arch):
+    toks, timings = serve(arch, batch=2, prompt_len=4, gen_len=5)
+    assert toks.shape == (2, 5) and toks.device.type == "cuda"
+    assert timings["decode_tok_s"] > 0
 
 
 def test_serve_on_card(cuda_device):

@@ -1,5 +1,5 @@
 """The port's LM serving path (``repro_torch.models``, ``configs``) against
-the JAX package, on the reduced dense configs, on the CPU.
+the JAX package, on the reduced configs of every family, on the CPU.
 
 Weights come from the reference's ``init_model`` and cross with
 ``interop.model_params_from_numpy``; tokens and activations are numpy
@@ -14,6 +14,10 @@ draws.  Everything is f32 unless a test says otherwise.  Tolerances:
   the last bit can move a bf16 rounding.
 * decode against forward, port alone: rtol 2e-3, atol 2e-4, the bounds
   of the reference's own ``test_decode_matches_forward``.
+* the hybrid family's forward and its RG-LRU states against JAX: rtol
+  1e-4, atol 1e-4, the RG-LRU prefill's scan tolerance
+  (``test_torch_rglru.py``): the port's log-depth scan groups the
+  recurrence otherwise than XLA's ``associative_scan``.
 """
 
 import dataclasses
@@ -33,10 +37,15 @@ from repro_torch.interop import model_params_from_numpy, \
     model_params_to_numpy
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
+from repro_torch.models.config import layer_kinds
 from strategies import Draw
 
 DENSE = ["qwen3-8b", "qwen3-14b", "phi3-mini-3.8b", "stablelm-1.6b"]
+OTHERS = ["moonshot-v1-16b-a3b", "dbrx-132b", "hubert-xlarge",
+          "recurrentgemma-2b", "qwen2-vl-2b", "xlstm-350m"]
+DECODERS = [a for a in OTHERS if a != "hubert-xlarge"]
 RTOL = ATOL = 1e-5
+SCAN_TOL = 1e-4
 BF16_TOL = 2.0 ** -7
 
 
@@ -61,6 +70,45 @@ def _tokens(cfg, b, s, seed=0):
 
 def _t(a):
     return torch.from_numpy(np.asarray(a))
+
+
+def _tol(arch):
+    return SCAN_TOL if arch == "recurrentgemma-2b" else RTOL
+
+
+def _mrope_positions(b, grid, n_text):
+    """(3, b, grid^2 + n_text) int32: a grid x grid patch image at
+    (t = 0, h, w), then text whose t = h = w count on from the grid's
+    largest position."""
+    hh, ww = np.meshgrid(np.arange(grid), np.arange(grid), indexing="ij")
+    img = np.stack([np.zeros(grid * grid), hh.ravel(), ww.ravel()])
+    text = np.broadcast_to(np.arange(n_text) + grid, (3, n_text))
+    pos = np.concatenate([img, text], 1).astype(np.int32)
+    return np.ascontiguousarray(np.broadcast_to(pos[:, None],
+                                                (3, b, pos.shape[1])))
+
+
+def _inputs(cfg, b, s, seed=0):
+    """The forward's keyword inputs for ``cfg``'s family as numpy arrays,
+    as ``input_specs`` lays them out: frame embeddings (audio); 4 patch
+    embeddings, s - 4 tokens and M-RoPE positions (vlm); tokens."""
+    draw = Draw(seed)
+    if cfg.family == "audio":
+        return {"embeddings": draw.normal((b, s, cfg.d_model))}
+    if cfg.family == "vlm":
+        return {"tokens": _tokens(cfg, b, s - 4, seed),
+                "embeddings": draw.normal((b, 4, cfg.d_model)),
+                "mrope_positions": _mrope_positions(b, 2, s - 4)}
+    return {"tokens": _tokens(cfg, b, s, seed)}
+
+
+def _jax_layer_state(jcfg, jstate, i):
+    """Layer i's cache in the reference's period-stacked decode state."""
+    p = len(JM.period_pattern(jcfg))
+    n_stacked = jcfg.n_layers // p * p
+    if i >= n_stacked:
+        return jstate["tail"][i - n_stacked]
+    return jax.tree.map(lambda a: a[i // p], jstate["periods"][str(i % p)])
 
 
 # -- configs -----------------------------------------------------------------
@@ -138,6 +186,23 @@ def test_rms_norm_matches_jax(dtype):
         np.testing.assert_allclose(
             got.float().numpy(), want, rtol=BF16_TOL,
             atol=BF16_TOL * float(np.abs(want).max()))
+
+
+def test_apply_mrope_matches_jax():
+    """Distinct t, h and w positions over the bands of sections (2, 3, 3)
+    of Dh / 2 = 8; and with t = h = w, M-RoPE is plain RoPE bit for bit."""
+    draw = Draw(21)
+    x = draw.normal((2, 9, 4, 16))
+    pos = np.stack([draw.ints((2, 9), 0, 50) for _ in range(3)])
+    pos = pos.astype(np.int32)
+    got = L.apply_mrope(_t(x), _t(pos), (2, 3, 3), 10_000.0)
+    want = JL.apply_mrope(jnp.asarray(x), jnp.asarray(pos), (2, 3, 3),
+                          10_000.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+    same = np.ascontiguousarray(np.broadcast_to(pos[:1], pos.shape))
+    assert torch.equal(L.apply_mrope(_t(x), _t(same), (2, 3, 3)),
+                       L.apply_rope(_t(x), _t(pos[0])))
 
 
 def test_apply_rope_matches_jax():
@@ -286,6 +351,133 @@ def test_decode_matches_forward(arch):
                                rtol=2e-3, atol=2e-4)
 
 
+@pytest.mark.parametrize("use_flash", [True, False])
+@pytest.mark.parametrize("arch", OTHERS)
+def test_family_forward_matches_jax(jax_params, arch, use_flash):
+    """Logits and (MoE) aux against the reference's forward: one
+    flash_attention dispatch per attention layer without a window (none
+    for the RG-LRU hybrid's local layers or the xLSTM); vlm with patch
+    embeddings and M-RoPE positions, audio with frame embeddings."""
+    cfg, jcfg = tbase.reduced_config(arch), jbase.reduced_config(arch)
+    params, tree = jax_params(arch)
+    model = model_params_from_numpy(cfg, tree, device="cpu")
+    inp = _inputs(cfg, 2, 16, seed=3)
+    want, jaux = JM.forward(params, jcfg, inp.get("tokens"), **{
+        k: jnp.asarray(v) for k, v in inp.items() if k != "tokens"})
+    with trace_execution() as tr:
+        got, aux = M.forward(model, *([_t(inp["tokens"])]
+                                      if "tokens" in inp else []),
+                             use_flash=use_flash, collect_aux=False, **{
+                                 k: _t(v) for k, v in inp.items()
+                                 if k != "tokens"})
+    assert got.shape == (2, 16, cfg.vocab)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=_tol(arch), atol=_tol(arch))
+    assert set(aux) == set(jaux) == ({"aux_loss", "drop_frac"}
+                                     if cfg.is_moe else set())
+    for k in aux:
+        np.testing.assert_allclose(float(aux[k]), float(jaux[k]),
+                                   rtol=RTOL, atol=ATOL)
+    flash_layers = sum(k == "attn" for k in layer_kinds(cfg))
+    assert [e.engine for e in tr.kernels] == \
+        ["ref"] * (flash_layers if use_flash else 0)
+
+
+@pytest.mark.parametrize("arch", DECODERS)
+def test_family_decode_step_matches_jax(jax_params, arch):
+    """Scalar and (B,) positions, alternating, for 12 steps over caches of
+    8: the attention ring buffers wrap (the hybrid's local window of 8
+    too); logits every step and every layer's cache or state after."""
+    cfg, jcfg = tbase.reduced_config(arch), jbase.reduced_config(arch)
+    params, tree = jax_params(arch)
+    model = model_params_from_numpy(cfg, tree, device="cpu")
+    toks = _tokens(cfg, 2, 12, seed=4)
+    step = jax.jit(lambda p, s, t, pos: JM.decode_step(p, jcfg, s, t, pos))
+    jstate = JM.init_decode_state(jcfg, 2, 8)
+    state = M.init_decode_state(cfg, 2, 8, device="cpu")
+    for t in range(12):
+        pos = np.int32(t) if t % 2 else np.full((2,), t, np.int32)
+        want, jstate = step(params, jstate, jnp.asarray(toks[:, t:t + 1]),
+                            jnp.asarray(pos))
+        got, state = M.decode_step(model, state, _t(toks[:, t:t + 1]),
+                                   _t(pos))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=RTOL, atol=ATOL,
+                                   err_msg=f"step {t}")
+    assert len(state) == cfg.n_layers
+    for i, cache in enumerate(state):
+        jcache = _jax_layer_state(jcfg, jstate, i)
+        assert set(cache) == set(jcache), i
+        for k, v in cache.items():
+            assert v.dtype == getattr(torch, str(jcache[k].dtype)), (i, k)
+            np.testing.assert_allclose(v.numpy(), np.asarray(jcache[k]),
+                                       rtol=RTOL, atol=ATOL,
+                                       err_msg=f"layer {i} {k}")
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "xlstm-350m",
+                                  "qwen2-vl-2b"])
+def test_family_decode_matches_forward(arch):
+    """Teacher-forced decode reproduces the forward logits (port alone,
+    weights from the port's own init_model), the hybrid's local window of
+    8 inside the 12 tokens.  The vlm decodes with plain RoPE, which is
+    M-RoPE at t = h = w: its forward with such positions is the same."""
+    cfg = tbase.reduced_config(arch)
+    model = M.init_model(cfg, generator=torch.Generator().manual_seed(0),
+                         device="cpu")
+    toks = _t(_tokens(cfg, 2, 12, seed=2))
+    fwd, _ = M.forward(model, toks)
+    if cfg.mrope:
+        same = torch.arange(12)[None, None].expand(3, 2, 12)
+        assert torch.equal(M.forward(model, toks, mrope_positions=same)[0],
+                           fwd)
+    state = M.init_decode_state(cfg, 2, 16, device="cpu")
+    outs = []
+    for t in range(12):
+        lg, state = M.decode_step(model, state, toks[:, t:t + 1], t)
+        outs.append(lg)
+    np.testing.assert_allclose(fwd.numpy(), torch.stack(outs, 1).numpy(),
+                               rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.parametrize("arch", OTHERS)
+def test_family_interop_round_trip_is_exact(jax_params, arch):
+    """The reference's tree -> the port -> the same tree, leaf for leaf:
+    each pattern position's stack and the tail (recurrentgemma-2b at full
+    depth has 2 tail layers; checked on its layout below)."""
+    cfg = tbase.reduced_config(arch)
+    _, tree = jax_params(arch)
+    back = model_params_to_numpy(model_params_from_numpy(cfg, tree,
+                                                         device="cpu"))
+    flat, treedef = jax.tree.flatten(tree)
+    flat_back, treedef_back = jax.tree.flatten(back)
+    assert treedef == treedef_back
+    for a, b in zip(flat, flat_back):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_interop_places_the_tail():
+    """Five layers of (rglru, rglru, local): one full period, then two
+    tail layers, both ways, against the reference's init layout."""
+    arch = "recurrentgemma-2b"
+    cfg = dataclasses.replace(tbase.reduced_config(arch), n_layers=5)
+    jcfg = dataclasses.replace(jbase.reduced_config(arch), n_layers=5)
+    params, _ = JM.init_model(jcfg, jax.random.PRNGKey(1))
+    tree = jax.tree.map(np.asarray, params)
+    assert len(tree["tail"]) == 2
+    model = model_params_from_numpy(cfg, tree, device="cpu")
+    assert [b.kind for b in model.blocks] == ["rglru", "rglru", "local",
+                                              "rglru", "rglru"]
+    np.testing.assert_array_equal(model.blocks[4].rglru.lam.numpy(),
+                                  tree["tail"][1]["rglru"]["lam"])
+    np.testing.assert_array_equal(model.blocks[2].attn.wq.numpy(),
+                                  tree["periods"]["2"]["attn"]["wq"][0])
+    back = model_params_to_numpy(model)
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
+    for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(back)):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_interop_round_trip_is_exact(jax_params):
     cfg = tbase.reduced_config("qwen3-8b")
     _, tree = jax_params("qwen3-8b")
@@ -323,26 +515,48 @@ def test_init_model_draws():
     assert abs(float(wq.std()) * cfg.d_model ** 0.5 - 1.0) < 0.05
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("moonshot-v1-16b-a3b", "item 11"), ("dbrx-132b", "item 11"),
-    ("hubert-xlarge", "item 11"), ("recurrentgemma-2b", "item 11"),
-    ("qwen2-vl-2b", "item 11"), ("xlstm-350m", "item 11")])
-def test_unported_families_raise(arch, item):
+@pytest.mark.parametrize("arch,want", [
+    ("moonshot-v1-16b-a3b", {"moe.router": 64 ** -0.5,
+                             "moe.w_gate": 8 ** -0.5, "moe.w_up": 8 ** -0.5,
+                             "moe.w_down": 8 ** -0.5}),
+    ("recurrentgemma-2b", {"rglru.lam": "ones", "rglru.conv_b": "zeros",
+                           "rglru.conv_w": 4 ** -0.5,
+                           "rglru.w_a": 64 ** -0.5}),
+    ("xlstm-350m", {"mlstm.w_if": 0.02, "slstm.r_gates": 0.02,
+                    "mlstm.wq": 128 ** -0.5, "slstm.w_gates": 64 ** -0.5})])
+def test_init_model_draws_per_leaf(arch, want):
+    """Each leaf drawn as the reference's ParamStore.add call draws it:
+    ``lam`` ones, ``conv_b`` zeros, ``w_if`` and ``r_gates`` at std
+    0.02, the (E, d, F) experts at E^-0.5 (their fan-in is E), the rest
+    at fan_in^-0.5; the means near 0.  Every leaf of every layer."""
     cfg = tbase.reduced_config(arch)
-    for make in (lambda: M.init_model(
-            cfg, generator=torch.Generator(), device="cpu"),
-            lambda: M.init_decode_state(cfg, 1, 4, device="cpu")):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP Queue 1 {item}"):
-            make()
+    model = M.init_model(cfg, generator=torch.Generator().manual_seed(0),
+                         device="cpu")
+    seen = set()
+    for name, p in model.named_parameters():
+        leaf = name.split(".", 2)[-1]
+        if leaf not in want:
+            continue
+        seen.add(leaf)
+        if want[leaf] in ("ones", "zeros"):
+            fill = 1.0 if want[leaf] == "ones" else 0.0
+            assert torch.equal(p, torch.full_like(p, fill)), name
+        else:
+            assert abs(float(p.std()) / want[leaf] - 1.0) < 0.1, name
+            assert abs(float(p.mean())) < 0.1 * want[leaf], name
+    assert seen == set(want)
 
 
+@pytest.mark.parametrize("arch", ["qwen3-8b", "moonshot-v1-16b-a3b"])
 @pytest.mark.parametrize("change", [{"seq_parallel": True},
                                     {"moe_impl": "a2a"}])
-def test_sharding_options_raise(change):
-    cfg = dataclasses.replace(tbase.reduced_config("qwen3-8b"), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-        M.Model(cfg, device="cpu")
+def test_sharding_options_raise(arch, change):
+    cfg = dataclasses.replace(tbase.reduced_config(arch), **change)
+    for make in (lambda: M.Model(cfg, device="cpu"),
+                 lambda: M.init_decode_state(cfg, 1, 4, device="cpu")):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1 item 13"):
+            make()
 
 
 def test_entry_points_need_a_card_or_the_cpu():

@@ -1,5 +1,5 @@
 """The port's serving entry point (``repro_torch.launch.serve``) on the
-CPU, at the reduced dense configs: shapes, counts, the sampler's
+CPU, at the reduced configs of every decoder family: shapes, counts, the sampler's
 determinism and the device policy.  Its logits are those of ``decode_step``, which
 ``test_torch_models.py`` holds against JAX."""
 
@@ -13,7 +13,10 @@ from repro_torch.launch import serve as S
 from repro_torch.models import model as M
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "stablelm-1.6b"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "stablelm-1.6b",
+                                  "moonshot-v1-16b-a3b", "dbrx-132b",
+                                  "recurrentgemma-2b", "qwen2-vl-2b",
+                                  "xlstm-350m"])
 def test_serve_on_cpu(arch):
     toks, timings = S.serve(arch, batch=3, prompt_len=5, gen_len=7,
                             device="cpu")
@@ -58,10 +61,10 @@ def test_serve_low_temperature_is_greedy():
 
 
 def test_serve_rejects():
+    """The encoder-only family has no decode path (every decoder family
+    serves: ``test_serve_on_cpu``)."""
     with pytest.raises(ValueError, match="encoder-only"):
         S.serve("hubert-xlarge", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        S.serve("dbrx-132b", device="cpu")
 
 
 def test_serve_needs_a_card_or_the_cpu(monkeypatch):
