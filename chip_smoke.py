@@ -149,7 +149,28 @@ l. then, with section g's models freed, the other LM families at full
    MoE, RG-LRU and sLSTM timed alone; the kernel at the three flash
    families' layer shapes (D = 80 non-causal among them) beside its
    bound, its plain version and scaled_dot_product_attention.  dbrx-132b
-   (263 GB of bf16) does not fit one card and is not run.
+   (263 GB of bf16) does not fit one card and is not run;
+m. then, with section l's models freed, LM training: the flash_attention
+   backward kernel (``csrc/flash_attention_bwd.cu``) and the forward
+   kernel against their plain versions at stablelm-1.6b's, qwen3-8b's and
+   hubert-xlarge's layer shapes, a ragged S at D = 16 and stablelm's layer
+   at launch.train's 8 x 128, in f32 and bf16, a second backward call
+   bitwise the first, timed beside its bound, the plain version and
+   scaled_dot_product_attention's backward; stablelm-1.6b at full width
+   and depth in bf16 (weights from a seed, f32 AdamW moments): the flash
+   path against ``use_flash=False`` on one micro-batch (loss, per-leaf
+   gradient cosine), then 4 steps of ``make_train_step(grad_accum=4)`` on
+   8 x 4096 tokens a step from ``TokenStream`` through
+   ``make_lm_batches`` (the main path: step seconds, tokens/s, peak
+   memory, loss, grad norm and lr, 96 backward and 192 forward flash
+   launches a step under remat), the same check at the weights the steps
+   left, and the same 4 steps from the same weights with
+   ``use_flash=False`` (the losses side by side); two f32 layers at full
+   width against ``use_flash=False``; ``python -m
+   repro_torch.launch.train --arch
+   stablelm-1.6b --full --steps 4`` in-process (its corpus profile through
+   ``countmin``); a checkpoint round trip and a resume at the reduced
+   config under ``build/``.
 
 The last line is ``{"ok": true, "device": {...}}``.  Imports neither JAX
 nor the JAX package.
@@ -589,6 +610,16 @@ def flash_bound_ms(b, hq, hk, s, d, causal=True) -> tuple[float, float]:
     return ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
+def bf16_row_ratio(torch, got, want) -> float:
+    """The worst row (b, h, s): max |got - want| along D over max |want|
+    along D (0 where both are 0)."""
+    want = want.float()
+    err_ = (got.float() - want).abs().amax(-1)
+    scale_ = want.abs().amax(-1)
+    ratio = torch.where(err_ == 0, torch.zeros_like(err_), err_ / scale_)
+    return float(ratio.max())
+
+
 def lm_section(torch, dev, counters, errs) -> dict:
     """Section g, the LM serving path at qwen3-8b's full width: the
     flash_attention kernel against its plain version, the prefill forward
@@ -621,16 +652,6 @@ def lm_section(torch, dev, counters, errs) -> dict:
     def path_launches():
         return (fa_ops.flash_attention_tc_launches,
                 fa_ops.flash_attention_ffma_launches)
-
-    def bf16_row_ratio(got, want):
-        """The worst row (b, h, s): max |got - want| along D over max
-        |want| along D (0 where both are 0)."""
-        want = want.float()
-        err_ = (got.float() - want).abs().amax(-1)
-        scale_ = want.abs().amax(-1)
-        ratio = torch.where(err_ == 0, torch.zeros_like(err_),
-                            err_ / scale_)
-        return float(ratio.max())
 
     def through(kernel, fn):
         """fn() once; require that it launched ``kernel`` ("tc" or
@@ -671,7 +692,7 @@ def lm_section(torch, dev, counters, errs) -> dict:
         require(e <= FLASH_BF16_RTOL * scale, f"flash_attention bf16 "
                 f"{(b, hq, hk, s, d, causal)}: max |kernel - plain| {e} > "
                 f"2^-7 x {scale}")
-        row = bf16_row_ratio(got, want)
+        row = bf16_row_ratio(torch, got, want)
         require(row <= FLASH_BF16_RTOL, f"flash_attention bf16 "
                 f"{(b, hq, hk, s, d, causal)}: a row's max |kernel - plain| "
                 f"is {row} of its max |plain| > 2^-7")
@@ -687,7 +708,7 @@ def lm_section(torch, dev, counters, errs) -> dict:
     scale = float(want.float().abs().max())
     require(e <= FLASH_BF16_RTOL * scale, f"flash_attention bf16 "
             f"{FLASH_MAIN}: max |kernel - plain| {e} > 2^-7 x {scale}")
-    row = bf16_row_ratio(got, want)
+    row = bf16_row_ratio(torch, got, want)
     require(row <= FLASH_BF16_RTOL, f"flash_attention bf16 {FLASH_MAIN}: "
             f"a row's max |kernel - plain| is {row} of its max |plain| "
             f"> 2^-7")
@@ -1301,6 +1322,500 @@ def families_section(torch, dev, counters, smi) -> dict:
     print(f"[families] section l took {summary['seconds']:.1f} s")
     require(not fails, "section l: " + "; ".join(fails))
     return summary
+
+
+# ---------------------------------------------------------------------------
+# m. LM training at full width: stablelm-1.6b (the reference training
+# driver's default arch) in bf16 at train_4k's sequence, 8 sequences a step
+# in 4 micro-batches of (2, 4096); the backward kernel at the training
+# shape and beside it.
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "stablelm-1.6b"
+TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 8, 4, 4
+# (B, Hq, Hk, S, D, causal): stablelm's layer, qwen3-8b's GQA, hubert's
+# non-causal D = 80, a ragged S at D = 16 and stablelm's layer at
+# launch.train's defaults (8 sequences of 128), each in f32 and bf16.  The
+# forward kernel is held at each of them too: the train steps and the
+# driver launch it at the first and the last.
+BWD_SHAPES = ((LM_BATCH, 32, 32, LM_SEQ, 64, True),
+              (LM_BATCH, 32, 8, LM_SEQ, 128, True),
+              (LM_BATCH, 16, 16, LM_SEQ, 80, False),
+              (LM_BATCH, 8, 2, 1000, 16, True),
+              (TRAIN_BATCH, 32, 32, 128, 64, True))
+# The backward kernel against its plain version: both compute in f32 from
+# the same inputs and sum over up to S products in other orders, so in f32
+# they differ by a few ulps of the largest entry (held within BWD_F32_REL
+# of max |plain| per output); in bf16 both round dq, dk and dv once, so
+# they may differ by one bf16 step: 2^-7 x max |plain|.
+BWD_F32_REL = 1e-4
+BWD_BF16_REL = 2.0 ** -7
+# The flash path against use_flash=False in bf16, at full width and depth,
+# on step 1's first micro-batch: attention_chunked rounds the pre-scaled q
+# and p to bf16 where the kernels keep f32, and the two differ by about a
+# bf16 step in each layer's attention output.  The loss is a mean over
+# 8,192 positions of such differences carried to the logits, so it may
+# move by a fraction of one bf16 step of itself (held within
+# TRAIN_LOSS_REL); each gradient leaf is a sum of per-position products
+# that each carry a few bf16 steps of error, so the two leaves point the
+# same way: their cosine similarity is held to TRAIN_COS_MIN.
+TRAIN_LOSS_REL = 2.0 ** -7
+TRAIN_COS_MIN = 0.99
+# In f32, at two full-width layers: the two paths sum the same f32
+# products in other orders (section g's f32 rule), every gradient within
+# TRAIN_F32_REL of its leaf's max |use_flash=False|.
+TRAIN_F32_REL = 1e-3
+TRAIN_F32_LAYERS = 2
+# the schedule of the full-width steps: warmup 1, cosine to TRAIN_STEPS
+TRAIN_LR = 3e-4
+TRAIN_INIT_SEED = SEED + 230
+
+
+def bwd_bound_ms(b, hq, hk, s, d, causal, elt_bytes, peak):
+    """(operations ms, bytes ms) of the attention backward: its five
+    products are 2.5 x the forward's 4 B Hq D P operations (P the unmasked
+    pairs: S (S + 1) / 2 causal, S^2 not) over ``peak``; q, k, v, o, dO
+    read once and dq, dk, dv written once, ``elt_bytes`` an element, over
+    the memory rate."""
+    ops = 2.5 * 4.0 * b * hq * d * (s * (s + 1) / 2 if causal else s * s)
+    nbytes = elt_bytes * (4.0 * b * hq * s * d + 4.0 * b * hk * s * d)
+    return ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def sdpa_bwd_ms(torch, F, q, k, v, do, causal: bool, reps: int) -> float:
+    """CUDA-event ms of the backward of scaled_dot_product_attention on
+    the same inputs, its forward outside the timed region."""
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                       enable_gqa=True)
+    return cuda_ms(torch, lambda: torch.autograd.grad(
+        o, (qs, ks, vs), do, retain_graph=True), reps)
+
+
+def leaf_cosines(torch, got, want) -> list[float]:
+    """The cosine similarity of each pair of gradient leaves, in f32."""
+    out = []
+    for a, b in zip(got, want):
+        a, b = a.float().reshape(-1), b.float().reshape(-1)
+        norms = torch.linalg.vector_norm(a) * torch.linalg.vector_norm(b)
+        out.append(float(torch.dot(a, b) / norms.clamp(min=1e-30)))
+    return out
+
+
+def train_section(torch, dev, counters, errs, smi) -> dict:
+    """Section m, LM training on the card: the backward kernel against its
+    plain version at BWD_SHAPES in f32 and bf16 (and a second call bitwise
+    the first), timed beside its bound, the plain version and SDPA's
+    backward, and the forward kernel against its plain version on the
+    same inputs; stablelm-1.6b at full width and depth in bf16 against
+    ``use_flash=False`` on one micro-batch (loss, per-leaf gradient cosine),
+    TRAIN_STEPS steps of ``make_train_step(grad_accum=TRAIN_ACCUM)`` on
+    batches of TRAIN_BATCH x LM_SEQ from ``TokenStream`` (the main path:
+    counters zeroed before and read after), the micro-batch check again at
+    the trained weights, the same steps with ``use_flash=False`` (losses
+    compared), two f32 layers against
+    ``use_flash=False``; ``launch.train --full --steps 4`` in-process (its
+    corpus profile through ``countmin``), and a checkpoint round trip and
+    resume at the reduced config under ``build/``.  Every check is made
+    before the first miss ends the section.  Returns the backward kernel's
+    row and the launches by step."""
+    import dataclasses
+    import functools
+    import math
+    import shutil
+    from unittest import mock
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data import TokenStream, make_lm_batches
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bwd_ref, flash_attention_ref
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model as M
+    from repro_torch.train import init_train_state, make_train_step
+
+    t_section = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 23)
+    fails: list[str] = []
+    out: dict = {"kernel": {}, "steps": []}
+
+    # -- the backward kernel against its plain version ----------------------
+    for shape in BWD_SHAPES:
+        b, hq, hk, s, d, causal = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            name = "f32" if dtype == torch.float32 else "bf16"
+            # (B, S, H, D) storage seen through transpose(1, 2), as the
+            # model's projections give them
+            q, k, v, do = [torch.randn((b, s, h, d), generator=gen,
+                                       device=dev).to(dtype).transpose(1, 2)
+                           for h in (hq, hk, hk, hq)]
+            # the forward kernel on these inputs (tensor cores in bf16, FFMA
+            # in f32, as in the model) against its plain version, to
+            # section g's limits
+            path = "ffma" if dtype == torch.float32 else "tc"
+            tc0 = fa_ops.flash_attention_tc_launches
+            ffma0 = fa_ops.flash_attention_ffma_launches
+            o = fa_ops.flash_attention(q, k, v, causal=causal)
+            ran = (fa_ops.flash_attention_tc_launches - tc0,
+                   fa_ops.flash_attention_ffma_launches - ffma0)
+            o_plain = flash_attention_ref(q, k, v, causal=causal)
+            e_fwd = float((o.float() - o_plain.float()).abs().max())
+            s_fwd = float(o_plain.float().abs().max())
+            if dtype == torch.float32:
+                row_fwd = None
+                fwd_ok = e_fwd <= FLASH_F32_ATOL
+            else:
+                row_fwd = bf16_row_ratio(torch, o, o_plain)
+                fwd_ok = (e_fwd <= FLASH_BF16_RTOL * s_fwd
+                          and row_fwd <= FLASH_BF16_RTOL)
+            del o_plain
+            errs["flash_attention"] = max(errs["flash_attention"], e_fwd)
+            print(f"[train] flash_attention (forward) {tuple(shape[:5])} "
+                  f"{name} {'causal' if causal else 'non-causal'}, {path} "
+                  f"kernel: max |kernel - plain| {e_fwd:.3e} (max |plain| "
+                  f"{s_fwd:.3e}"
+                  + ("" if row_fwd is None else
+                     f"; worst row {row_fwd:.3e} of its max |plain|")
+                  + ")")
+            if ran != ((0, 1) if path == "ffma" else (1, 0)):
+                fails.append(f"flash_attention {shape} {name}: launches "
+                             f"(tc, ffma) {ran}, want one on {path}")
+            if not fwd_ok:
+                fails.append(f"flash_attention {shape} {name}: max |kernel "
+                             f"- plain| {e_fwd} (max |plain| {s_fwd}, worst "
+                             f"row {row_fwd})")
+            got = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
+            again = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            del again
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = flash_attention_bwd_ref(q, k, v, o, do, causal=causal)
+            end.record()
+            end.synchronize()
+            plain_ms = start.elapsed_time(end)
+            rel = BWD_F32_REL if dtype == torch.float32 else BWD_BF16_REL
+            errs_k = [float((x.float() - y.float()).abs().max())
+                      for x, y in zip(got, want)]
+            scales = [float(y.float().abs().max()) for y in want]
+            ok = all(e <= rel * sc for e, sc in zip(errs_k, scales))
+            del got, want
+            torch.cuda.empty_cache()
+            ms = cuda_ms(torch, lambda: fa_ops.flash_attention_bwd(
+                q, k, v, o, do, causal=causal), 3)
+            elt = 4 if dtype == torch.float32 else 2
+            peak = PEAK_F32_FLOPS if dtype == torch.float32 \
+                else PEAK_BF16_FLOPS
+            t_ops, t_bytes = bwd_bound_ms(b, hq, hk, s, d, causal, elt, peak)
+            bound = max(t_ops, t_bytes)
+            by = "operations" if t_ops >= t_bytes else "bytes"
+            lib_ms = sdpa_bwd_ms(torch, F, q, k, v, do, causal, 3)
+            out["kernel"][f"{tuple(shape)} {name}"] = {
+                "shape": list(shape[:5]), "causal": causal, "dtype": name,
+                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": bound, "bound_by": by, "ops_ms": t_ops,
+                "bytes_ms": t_bytes, "max_abs_err": max(errs_k),
+                "rel_err": [e / sc for e, sc in zip(errs_k, scales)],
+                "bitwise_repeat": same, "forward_max_abs_err": e_fwd}
+            print(f"[train] flash_attention_bwd {tuple(shape[:5])} {name} "
+                  f"{'causal' if causal else 'non-causal'}: kernel "
+                  f"{ms:.3f} ms (CUDA events), bound {bound:.4f} ms ({by}; "
+                  f"{bound / ms:.2%} of it), plain {plain_ms:.2f} ms, SDPA "
+                  f"backward {lib_ms:.4f} ms; max |err| dq/dk/dv "
+                  + "/".join(f"{e:.3e}" for e in errs_k)
+                  + " against max |plain| "
+                  + "/".join(f"{sc:.3e}" for sc in scales)
+                  + f" (limit {rel:.1e} of it); second call bitwise "
+                  f"{same}; {smi}")
+            if not ok:
+                fails.append(f"flash_attention_bwd {shape} {name}: errors "
+                             f"{errs_k} exceed {rel} x {scales}")
+            if not same:
+                fails.append(f"flash_attention_bwd {shape} {name}: a second "
+                             "call differs from the first")
+            del q, k, v, do, o
+            torch.cuda.empty_cache()
+    main_key = f"{tuple(BWD_SHAPES[0])} bf16"
+    errs["flash_attention_bwd"] = out["kernel"][main_key]["max_abs_err"]
+
+    # -- stablelm-1.6b at full width and depth, bf16 --------------------------
+    cfg = get_config(TRAIN_ARCH)
+
+    def fresh_state():
+        """The train state drawn from TRAIN_INIT_SEED: the same weights
+        each call."""
+        g = torch.Generator(device=dev)
+        g.manual_seed(TRAIN_INIT_SEED)
+        return init_train_state(cfg, generator=g, device=dev)
+
+    def lm_batches():
+        return make_lm_batches(TokenStream(
+            vocab=cfg.vocab, seq_len=LM_SEQ, batch=TRAIN_BATCH, seed=SEED),
+            device=dev)
+
+    def steps_fn():
+        return make_train_step(cfg, base_lr=TRAIN_LR, warmup=1,
+                               total_steps=TRAIN_STEPS,
+                               grad_accum=TRAIN_ACCUM)
+
+    def flash_vs_plain(model, batch, what):
+        """Loss and gradient of ``batch``'s first micro-batch through the
+        flash kernels and through ``use_flash=False``: the loss within
+        TRAIN_LOSS_REL, each leaf's cosine at least TRAIN_COS_MIN."""
+        mb = {k: v[:TRAIN_BATCH // TRAIN_ACCUM] for k, v in batch.items()}
+        leaves = list(model.parameters())
+        names = [n for n, _ in model.named_parameters()]
+
+        def loss_grads(use_flash):
+            total, _ = M.train_loss(model, mb, use_flash=use_flash)
+            return float(total.detach()), torch.autograd.grad(total, leaves)
+
+        (l_fl, g_fl), s_fl = timed(torch, lambda: loss_grads(True))
+        (l_pl, g_pl), s_pl = timed(torch, lambda: loss_grads(False))
+        cos = leaf_cosines(torch, g_fl, g_pl)
+        del g_fl, g_pl
+        torch.cuda.empty_cache()
+        i_min = min(range(len(cos)), key=cos.__getitem__)
+        d_loss = abs(l_fl - l_pl)
+        print(f"[train] flash vs use_flash=False {what}, bf16, micro-batch "
+              f"({TRAIN_BATCH // TRAIN_ACCUM}, {LM_SEQ}): loss {l_fl:.6f} vs "
+              f"{l_pl:.6f} (|diff| {d_loss:.3e}, limit "
+              f"{TRAIN_LOSS_REL * abs(l_pl):.3e}); gradient cosine per leaf: "
+              f"min {cos[i_min]:.6f} ({names[i_min]}), mean "
+              f"{sum(cos) / len(cos):.6f} over {len(cos)} leaves (floor "
+              f"{TRAIN_COS_MIN}); loss and gradient {s_fl:.2f} s (flash) vs "
+              f"{s_pl:.2f} s (chunked), host clock")
+        if not (math.isfinite(l_fl) and d_loss <= TRAIN_LOSS_REL * abs(l_pl)):
+            fails.append(f"train flash vs use_flash=False {what}: loss {l_fl} "
+                         f"vs {l_pl}")
+        if not cos[i_min] >= TRAIN_COS_MIN:
+            fails.append(f"train flash vs use_flash=False {what}: gradient "
+                         f"cosine {cos[i_min]} at {names[i_min]}")
+        return {"loss": [l_fl, l_pl], "min_cos": cos[i_min],
+                "min_cos_leaf": names[i_min], "seconds": [s_fl, s_pl]}
+
+    torch.cuda.reset_peak_memory_stats()
+    state, s_init = timed(torch, fresh_state)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    print(f"[train] {TRAIN_ARCH}: {n_params} parameters ({cfg.dtype}, remat "
+          f"{cfg.remat}) and f32 AdamW moments on the card in {s_init:.2f} s")
+    batches = lm_batches()
+    first = next(batches)
+    # the flash path against use_flash=False on step 1's first micro-batch
+    out["flash_vs_plain"] = flash_vs_plain(state.model, first, "at init")
+
+    # the main path: TRAIN_STEPS steps of TRAIN_ACCUM micro-batches
+    step_fn = steps_fn()
+    tokens = TRAIN_BATCH * LM_SEQ
+    want_bwd = cfg.n_layers * TRAIN_ACCUM
+    want_fwd = want_bwd * (2 if cfg.remat else 1)
+    batch = first
+    counters.zero()
+    for i in range(TRAIN_STEPS):
+        if i:
+            batch = next(batches)
+        before = counters.peek()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, mets = step_fn(state, batch)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        got = {k: v - before[k] for k, v in counters.peek().items()}
+        rec = {"seconds": sec, "tokens_s": tokens / sec,
+               "loss": float(mets["loss"]),
+               "grad_norm": float(mets["grad_norm"]), "lr": float(mets["lr"]),
+               "flash_fwd": got["flash_attention"],
+               "flash_fwd_tc": got["flash_attention_tc"],
+               "flash_bwd": got["flash_attention_bwd"]}
+        out["steps"].append(rec)
+        print(f"[train] step {i}: {sec:.3f} s ({rec['tokens_s']:.0f} tokens/s,"
+              f" host clock, synchronized); loss {rec['loss']:.6f}, "
+              f"grad_norm {rec['grad_norm']:.6f}, lr {rec['lr']:.3e}; flash "
+              f"forward {rec['flash_fwd']} ({rec['flash_fwd_tc']} on tensor "
+              f"cores), backward {rec['flash_bwd']}")
+        if not (math.isfinite(rec["loss"])
+                and math.isfinite(rec["grad_norm"])):
+            fails.append(f"train step {i}: loss {rec['loss']}, grad_norm "
+                         f"{rec['grad_norm']}")
+        if (rec["flash_bwd"], rec["flash_fwd"], rec["flash_fwd_tc"]) != (
+                want_bwd, want_fwd, want_fwd):
+            fails.append(f"train step {i}: flash launches forward "
+                         f"{rec['flash_fwd']} (tc {rec['flash_fwd_tc']}), "
+                         f"backward {rec['flash_bwd']}; want {want_fwd} on "
+                         f"the tensor cores and {want_bwd}")
+    launched = counters.read()
+    batches.close()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    later = out["steps"][1:] or out["steps"]
+    mean_s = sum(r["seconds"] for r in later) / len(later)
+    out["train"] = {"arch": TRAIN_ARCH, "params": n_params,
+                    "batch": [TRAIN_BATCH, LM_SEQ],
+                    "grad_accum": TRAIN_ACCUM, "step_s": mean_s,
+                    "tokens_s": tokens / mean_s, "peak_gb": peak_gb,
+                    "launches": {k: launched[k] for k in (
+                        "flash_attention", "flash_attention_tc",
+                        "flash_attention_bwd")}}
+    print(f"[train] {TRAIN_ARCH} bf16, {TRAIN_STEPS} steps of "
+          f"{TRAIN_BATCH} x {LM_SEQ} tokens ({TRAIN_ACCUM} micro-batches): "
+          f"{mean_s:.3f} s a step after the first ({tokens / mean_s:.0f} "
+          f"tokens/s), peak {peak_gb:.2f} GB (max_memory_allocated); "
+          f"{smi}")
+    # the gradient once the weights have left their init: the last step's
+    # batch at the weights the steps left
+    out["flash_vs_plain_trained"] = flash_vs_plain(
+        state.model, batch, f"after {TRAIN_STEPS} steps")
+    del state, step_fn, batch, first, mets
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the witness of the loss's course: the same steps from the same
+    # weights on the same batches with every attention on use_flash=False
+    # (attention_chunked under autograd, no flash kernel).  Steps 0 and 1
+    # see the initial weights (step 0's lr is 0), so their losses are held
+    # within TRAIN_LOSS_REL as at init; after the first update the two runs'
+    # weights part where AdamW's first step, lr sign(g), meets a gradient
+    # within bf16 rounding of zero, so later losses are reported side by
+    # side, not held.
+    state, step_fn, batches = fresh_state(), steps_fn(), lm_batches()
+    before = counters.peek()
+    plain_losses = []
+    with mock.patch.object(M, "train_loss", functools.partial(
+            M.train_loss, use_flash=False)):
+        for i in range(TRAIN_STEPS):
+            state, mets = step_fn(state, next(batches))
+            plain_losses.append(float(mets["loss"]))
+    batches.close()
+    flash_ran = {k: v - before[k] for k, v in counters.peek().items()
+                 if k.startswith("flash") and v != before[k]}
+    flash_losses = [r["loss"] for r in out["steps"]]
+    out["plain_steps"] = {"loss": plain_losses, "flash_loss": flash_losses}
+    print(f"[train] the same {TRAIN_STEPS} steps with use_flash=False: "
+          f"losses {[round(x, 6) for x in plain_losses]} against the flash "
+          f"path's {[round(x, 6) for x in flash_losses]}; flash launches "
+          f"{flash_ran or 0}")
+    if not (all(map(math.isfinite, plain_losses)) and not flash_ran
+            and all(abs(a - b) <= TRAIN_LOSS_REL * abs(b) for a, b in
+                    zip(flash_losses[:2], plain_losses[:2]))):
+        fails.append(f"train use_flash=False steps: losses {plain_losses} "
+                     f"against {flash_losses}, flash launches {flash_ran}")
+    del state, step_fn, mets
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # two f32 layers at full width: flash (FFMA forward, backward kernel)
+    # against use_flash=False (attention_chunked in f32)
+    cfg32 = dataclasses.replace(cfg, n_layers=TRAIN_F32_LAYERS,
+                                dtype="float32")
+    model = M.init_model(cfg32, generator=gen, device=dev)
+    model.requires_grad_(True)
+    toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ), generator=gen,
+                         device=dev)
+    mb = {"tokens": toks, "labels": torch.roll(toks, -1, 1),
+          "mask": torch.ones(toks.shape, device=dev)}
+    params32 = list(model.parameters())
+    grads = []
+    for use_flash in (True, False):
+        total, _ = M.train_loss(model, mb, use_flash=use_flash)
+        grads.append(torch.autograd.grad(total, params32))
+    rel32 = [float((a - b).abs().max()) / float(b.abs().max())
+             for a, b in zip(*grads)]
+    print(f"[train] {TRAIN_F32_LAYERS} f32 layers at full width: flash "
+          f"against use_flash=False, max |dgrad| / max |grad| per leaf at "
+          f"most {max(rel32):.3e} (limit {TRAIN_F32_REL})")
+    out["f32_max_rel"] = max(rel32)
+    if not max(rel32) <= TRAIN_F32_REL:
+        fails.append(f"train f32 layers: gradients differ by {max(rel32)} "
+                     "of their max")
+    del model, grads, params32, mb, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the driver as a user runs it: the reference's defaults (batch 8, seq
+    # 128), the corpus profile on
+    counters.zero()
+    losses, s_drv = timed(torch, lambda: launch_train.main(
+        ["--arch", TRAIN_ARCH, "--full", "--steps", "4"]))
+    drv = counters.read()
+    out["driver"] = {"losses": losses, "seconds": s_drv,
+                     "launches": {k: drv[k] for k in (
+                         "countmin", "flash_attention",
+                         "flash_attention_bwd")}}
+    print(f"[train] launch.train --arch {TRAIN_ARCH} --full --steps 4: "
+          f"losses {[round(x, 4) for x in losses]}, {s_drv:.2f} s; launches "
+          f"countmin {drv['countmin']}, flash forward "
+          f"{drv['flash_attention']}, backward {drv['flash_attention_bwd']}")
+    if not (len(losses) == 4 and all(map(math.isfinite, losses))
+            and drv["countmin"] == 2
+            and drv["flash_attention_bwd"] == 4 * cfg.n_layers):
+        fails.append(f"launch.train: losses {losses}, launches {drv}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a checkpoint round trip and a resume at the reduced config, in build/
+    d = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    rcfg = reduced_config(TRAIN_ARCH)
+    src = init_train_state(rcfg, generator=gen, device=dev)
+    dst = init_train_state(rcfg, generator=gen, device=dev)
+    ckpt.save(str(d), src, 3)
+    ckpt.restore(str(d), dst)
+    flat_src, flat_dst = ckpt._flatten(src), ckpt._flatten(dst)
+    round_trip = all(torch.equal(flat_src[k], flat_dst[k]) for k in flat_src)
+    shutil.rmtree(d)
+    kw = dict(batch=2, seq=32, ckpt_dir=str(d), base_lr=1e-3,
+              profile_data=False, log_every=100)
+    l1 = launch_train.train(TRAIN_ARCH, steps=6, ckpt_every=3, **kw)
+    l2 = launch_train.train(TRAIN_ARCH, steps=9, resume=True, **kw)
+    resumed = ckpt.latest_step(str(d))
+    shutil.rmtree(d)
+    print(f"[train] checkpoint at the reduced config: restore bitwise "
+          f"{round_trip}; resume from step 6 ran {len(l2)} steps to "
+          f"{resumed}, first loss {l2[0]:.4f} against {l1[0]:.4f} at step 0")
+    if not (round_trip and len(l1) == 6 and len(l2) == 3 and resumed == 9
+            and l2[0] < l1[0]):
+        fails.append(f"checkpoint: round trip {round_trip}, losses {l1} then "
+                     f"{l2}, latest step {resumed}")
+    del src, dst, flat_src, flat_dst
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    k_main = out["kernel"][main_key]
+    steps_key = (f"m {TRAIN_ARCH} train steps {tuple(BWD_SHAPES[0][:5])} "
+                 "causal")
+    drv_key = "m launch.train --full (8, 32, 32, 128, 64) causal"
+    out["row"] = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/layers.py:170",
+        "launches": launched["flash_attention_bwd"]
+        + drv["flash_attention_bwd"],
+        "max_abs_err": errs["flash_attention_bwd"], "ms": k_main["ms"],
+        "plain_ms": k_main["plain_ms"], "bound_ms": k_main["bound_ms"],
+        "bound_by": k_main["bound_by"], "library_ms": k_main["library_ms"],
+        "shape": k_main["shape"], "ops_ms": k_main["ops_ms"],
+        "bytes_ms": k_main["bytes_ms"],
+        "bound_share": k_main["bound_ms"] / k_main["ms"],
+        "launches_by_shape": {steps_key: launched["flash_attention_bwd"],
+                              drv_key: drv["flash_attention_bwd"]},
+        "shapes": out["kernel"]}
+    out["flash_launches"] = {
+        steps_key + " (forward twice under remat)": launched[
+            "flash_attention"],
+        drv_key: drv["flash_attention"]}
+    out["countmin_launches"] = {"m launch.train corpus_profile":
+                                drv["countmin"]}
+    out["seconds"] = time.perf_counter() - t_section
+    print(json.dumps({"train_section": {k: v for k, v in out.items()
+                                        if k != "row"}}))
+    print(f"[train] section m took {out['seconds']:.1f} s")
+    require(not fails, "section m: " + "; ".join(fails))
+    return out
 
 
 # h. the analytics server: sessions on threads against one server, on a
@@ -3044,7 +3559,8 @@ def main() -> int:
                          "segment_fm": sf_ops, "kmeans_assign": km_ops,
                          "flash_attention": fa_ops,
                          "flash_attention_tc": fa_ops,
-                         "flash_attention_ffma": fa_ops})
+                         "flash_attention_ffma": fa_ops,
+                         "flash_attention_bwd": fa_ops})
 
     # 1. device -------------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -4108,8 +4624,29 @@ def main() -> int:
            f"{'causal' if k['causal'] else 'non-causal'}":
            fam["launches"][arch] for arch, k in fam["kernel"].items()}}
     row["family_shapes"] = fam["kernel"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # m. LM training at full width and depth, once section l's models are
+    # freed: its flash forward launches join row 7's, its corpus profile's
+    # Count-Min launches row 5's, and the backward kernel is row 8
+    tr = train_section(torch, dev, counters, errs, smi)
+    row["max_abs_err"] = errs["flash_attention"]
+    row["launches"] = counters.total["flash_attention"]
+    row["launches_tc"] = counters.total["flash_attention_tc"]
+    row["launches_by_shape"].update(tr["flash_launches"])
     print(json.dumps({"kernel": row}))
     rows.append(row)
+    for r in rows:
+        if r["name"] == "countmin":
+            r["launches"] = counters.total["countmin"]
+            r["launches_by_shape"] = {**r.get("launches_by_shape", {}),
+                                      **tr["countmin_launches"]}
+            print(json.dumps({"kernel_launches": {
+                "name": "countmin", "launches": r["launches"],
+                "launches_by_shape": r["launches_by_shape"]}}))
+    print(json.dumps({"kernel": tr["row"]}))
+    rows.append(tr["row"])
 
     # 6. summary ------------------------------------------------------------
     print(json.dumps({"kernels": [

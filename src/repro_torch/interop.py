@@ -17,12 +17,16 @@ carry across with :func:`model_params_from_numpy` and
 :func:`model_params_to_numpy`: the reference's params pytree (the
 layers of each position of the family's block pattern stacked along a
 leading axis) against the port's per-layer ``nn.Module``, for every
-family.  Nothing here imports the reference package: the caller
-converts its arrays with ``numpy.asarray``.
+family.  A training state carries across with
+:func:`train_state_from_numpy` and :func:`train_state_to_numpy`: the
+parameters as above, the AdamW moments in the same layout (f32), the
+update count and the step.  Nothing here imports the reference package:
+the caller converts its arrays with ``numpy.asarray``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Mapping
 
 import numpy as np
@@ -32,6 +36,7 @@ from .core.table import Table
 from .device import resolve_device
 from .models.config import ModelConfig
 from .models.model import Model, period_pattern
+from .optim import AdamWState
 from .tree import tree_map
 
 
@@ -134,3 +139,51 @@ def model_params_to_numpy(model: Model) -> dict:
     out["periods"] = {k: tree_map(lambda *xs: np.stack(xs), *v) if v else {}
                       for k, v in stacks.items()}
     return out
+
+
+def _f32_named(cfg: ModelConfig, tree, device) -> dict:
+    """A params-shaped tree of the reference's layout -> f32 tensors keyed
+    by the port's parameter names."""
+    m = model_params_from_numpy(dataclasses.replace(cfg, dtype="float32"),
+                                tree, device)
+    return {k: p.detach() for k, p in m.named_parameters()}
+
+
+def train_state_from_numpy(cfg: ModelConfig, params_tree, opt_tree, step,
+                           device=None):
+    """The reference's ``TrainState`` as numpy (``params``, ``opt`` =
+    ``AdamWState(mu, nu, count)`` or the tuple ``(mu, nu, count)``,
+    ``step``) -> the port's :class:`repro_torch.train.TrainState` on
+    ``device`` (the card unless ``device="cpu"``), its parameters
+    requiring a gradient."""
+    from .train.trainer import TrainState
+    dev = resolve_device(device)
+    model = model_params_from_numpy(cfg, params_tree, dev)
+    model.requires_grad_(True)
+    mu, nu, count = opt_tree
+    opt = AdamWState(_f32_named(cfg, mu, dev), _f32_named(cfg, nu, dev),
+                     torch.tensor(int(np.asarray(count)), dtype=torch.int32,
+                                  device=dev))
+    return TrainState(model, opt, torch.tensor(
+        int(np.asarray(step)), dtype=torch.int32, device=dev))
+
+
+def train_state_to_numpy(state) -> tuple:
+    """The inverse of :func:`train_state_from_numpy`: ``(params, (mu, nu,
+    count), step)`` in the reference's layout, bfloat16 parameters as f32
+    arrays (exact), the count and step as int32 scalars."""
+    model = state.model
+    cfg32 = dataclasses.replace(model.cfg, dtype="float32")
+
+    def moments(named: dict) -> dict:
+        m = Model(cfg32, model.embed.device)
+        with torch.no_grad():
+            for k, p in m.named_parameters():
+                p.copy_(named[k])
+        return model_params_to_numpy(m)
+
+    opt = state.opt
+    return (model_params_to_numpy(model),
+            (moments(opt.mu), moments(opt.nu),
+             np.int32(opt.count.item())),
+            np.int32(state.step.item()))

@@ -19,7 +19,8 @@ Kernels:
   kmeans_assign    — nearest centroid of every row, with the per-centroid
                      sums and counts (the fused k-means transition)
   flash_attention  — causal GQA attention forward with an online softmax
-                     (the LM prefill's attention)
+                     (the LM prefill's attention), and its backward
+                     ``flash_attention_bwd`` (the LM train step's)
 The sketches share one hash family: ``sketch_hash.py`` beside
 ``csrc/sketch_hash.cuh``.
 """

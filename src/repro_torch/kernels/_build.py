@@ -53,6 +53,9 @@ _SIGNATURES = {
                                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                   *[ctypes.c_longlong] * 12, ctypes.c_float,
                                   ctypes.c_int, _P],
+    "madlib_flash_attention_bwd": [*[_P] * 10, *[ctypes.c_int] * 6,
+                                   *[ctypes.c_longlong] * 24, ctypes.c_float,
+                                   ctypes.c_int, _P],
 }
 
 _LOCK = threading.Lock()

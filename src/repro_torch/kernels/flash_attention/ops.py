@@ -17,6 +17,14 @@ On a CPU tensor the wrapper runs the plain version in ``ref.py``.
 ``flash_attention_tc_launches`` and ``flash_attention_ffma_launches``
 count each kernel's own.
 
+Gradients: where an input requires one, :func:`flash_attention` runs
+through :class:`FlashAttentionFn`, whose backward dispatches
+``flash_attention_bwd``: the kernel ``csrc/flash_attention_bwd.cu`` on
+CUDA tensors (:func:`flash_attention_bwd`, counted in
+``flash_attention_bwd_launches``), ``flash_attention_bwd_ref`` on CPU
+tensors.  Where none does, nothing is saved and the forward is the
+serving call as it was.
+
 The layout is the reference wrapper's: q (B, Hq, S, D), k and v
 (B, Hk, S, D), the result (B, Hq, S, D).  Unlike the reference there is
 no tile choice and no padding: the kernels mask the ragged S edge
@@ -31,11 +39,12 @@ import torch
 
 from ...device import runs_on_card
 from .. import _build
-from .ref import flash_attention_ref
+from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 flash_attention_launches = 0
 flash_attention_tc_launches = 0
 flash_attention_ffma_launches = 0
+flash_attention_bwd_launches = 0
 
 MAX_D = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -97,10 +106,39 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q (B, Hq, S, D), k/v (B, Hk, S, D) -> (B, Hq, S, D) in q's dtype:
     softmax(q k^T / sqrt(D)) v, causal unless ``causal=False``, query head
-    h reading KV head h // (Hq / Hk)."""
+    h reading KV head h // (Hq / Hk).  Differentiable in q, k and v."""
+    _check(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, causal)
+    return _forward(q, k, v, causal)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The forward kernel with the backward kernel as its gradient.  Saves
+    q, k, v and the output; under activation checkpointing those are
+    dropped and the forward runs again before the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out = _forward(q, k, v, causal)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        from ..registry import dispatch
+        q, k, v, out = ctx.saved_tensors
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        dq, dk, dv = dispatch("flash_attention_bwd", q, k, v, out, dout,
+                              causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def _forward(q, k, v, causal: bool) -> torch.Tensor:
     global flash_attention_launches, flash_attention_tc_launches
     global flash_attention_ffma_launches
-    _check(q, k, v)
     if not runs_on_card(q, "flash_attention"):
         return flash_attention_ref(q, k, v, causal=causal)
     if any(t.stride(-1) != 1 for t in (q, k, v)):
@@ -129,3 +167,43 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         flash_attention_ffma_launches += 1
     flash_attention_launches += 1
     return out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, *,
+                        causal: bool = True):
+    """The gradients (dq, dk, dv) of :func:`flash_attention` at q, k, v
+    given its output ``out`` and that output's gradient ``dout`` (both
+    shaped like q), each laid out like its input.  One call launches the
+    three kernels of ``csrc/flash_attention_bwd.cu`` (rows, dk/dv, dq) on
+    the current stream, with an f32 scratch of 2 B Hq S elements for the
+    rows' log-sum-exp and delta."""
+    global flash_attention_bwd_launches
+    _check(q, k, v)
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}, "
+                             f"want q's {tuple(q.shape)} {q.dtype} on "
+                             f"{q.device}")
+    if not runs_on_card(q, "flash_attention_bwd"):
+        return flash_attention_bwd_ref(q, k, v, out, dout, causal=causal)
+    if any(t.stride(-1) != 1 for t in (q, k, v, out, dout)):
+        raise ValueError("flash_attention_bwd: the feature axis of q, k, v, "
+                         "out and dout must have stride 1")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk, dv
+    b, hq, s, d = q.shape
+    scratch = torch.empty((2, b, hq, s), dtype=torch.float32,
+                          device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tensors = (q, k, v, out, dout, dq, dk, dv)
+    err = _build.lib().madlib_flash_attention_bwd(
+        *(t.data_ptr() for t in tensors), scratch[0].data_ptr(),
+        scratch[1].data_ptr(), _DTYPES[q.dtype], b, hq, k.shape[1], s, d,
+        *(st for t in tensors for st in t.stride()[:3]), 1.0 / (d ** 0.5),
+        int(causal), stream)
+    _build.check("flash_attention_bwd", err)
+    flash_attention_bwd_launches += 1
+    return dq, dk, dv

@@ -94,6 +94,9 @@ _REGISTRY: dict[str, KernelEntry] = {
     "flash_attention": KernelEntry(
         "flash_attention", _fa_ref.flash_attention_ref,
         _fa_ops.flash_attention),
+    "flash_attention_bwd": KernelEntry(
+        "flash_attention_bwd", _fa_ref.flash_attention_bwd_ref,
+        _fa_ops.flash_attention_bwd),
 }
 
 

@@ -6,8 +6,10 @@ The functions keep the reference's layouts (``x @ w`` with w of shape
 tests compare like with like.  The parameter containers are
 ``nn.Module``s (:class:`Attention`, :class:`FFN`) in place of the
 reference's ``ParamStore`` subtrees, with the same parameter names and
-shapes.  Their parameters take no gradient: this is the serving path,
-and the flash kernel has no backward yet.
+shapes.  Their parameters are made without a gradient, so that serving
+records no autograd graph; the trainer turns gradients on with
+``model.requires_grad_(True)``, and the flash kernel's backward
+(``flash_attention_bwd``) then takes the attention layers' gradient.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ ZEROS = ("zeros", None)
 
 
 def param(shape, dtype, device) -> nn.Parameter:
-    """An uninitialised parameter that takes no gradient."""
+    """An uninitialised parameter that takes no gradient until the trainer
+    asks for one."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 
@@ -313,3 +316,18 @@ def run_attention_decode(p: Attention, cfg, x, cache_k, cache_v, pos, *,
 
 def run_ffn(p: FFN, x):
     return swiglu(x, p.w_gate, p.w_up, p.w_down)
+
+
+# ---------------------------------------------------------------------------
+# Cross entropy
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits, labels, mask):
+    """logits (B, S, V), labels (B, S) int, mask (B, S) -> the mean NLL
+    over the masked positions: logsumexp in f32 less the gold logit,
+    summed under the mask and divided by max(sum(mask), 1)."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = (lse - gold) * mask
+    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)

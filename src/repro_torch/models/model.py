@@ -6,7 +6,11 @@ each of its layer's kind (``layer_kinds``: attn for dense, moe, vlm and
 audio; the (rglru, rglru, local) period for hybrid; (mlstm, slstm) for
 ssm).  There is no period stacking: the reference's ``tagged_scan`` over
 layers is a Python loop, and ``interop`` maps layer i to its period slot.
-The serving path only: no autograd, no remat.
+:func:`forward` serves and trains: a model made by :func:`init_model`
+takes no gradient and records no graph; once the trainer calls
+``model.requires_grad_(True)``, each full period of blocks runs under
+``torch.utils.checkpoint`` where ``cfg.remat`` (the reference's
+``jax.checkpoint(period_body)``), and :func:`train_loss` is the loss.
 
 The sharding options raise ``NotImplementedError`` naming their ROADMAP
 item (the port has no mesh: the reference's ``constrain`` has no
@@ -17,6 +21,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import layers as L
@@ -185,7 +190,16 @@ def _run_block(cfg: ModelConfig, p: Block, x, positions, *,
     return x, aux_acc
 
 
-@torch.no_grad()
+def _run_period(cfg: ModelConfig, blocks, x, positions, mrope_positions,
+                aux, use_flash: bool):
+    """One full period of the block pattern (remat's unit)."""
+    for blk in blocks:
+        x, aux = _run_block(cfg, blk, x, positions,
+                            mrope_positions=mrope_positions, aux_acc=aux,
+                            use_flash=use_flash)
+    return x, aux
+
+
 def forward(model: Model, tokens=None, *, embeddings=None,
             mrope_positions=None, collect_aux: bool = True,
             use_flash: bool = True):
@@ -200,24 +214,55 @@ def forward(model: Model, tokens=None, *, embeddings=None,
     ``use_flash`` (the default) every attention layer without a window is
     one flash_attention call; windowed layers, and every layer without
     it, take the reference's split between full scores and the chunked
-    path."""
+    path.  Differentiable in the parameters that require a gradient;
+    with ``cfg.remat`` and a graph to record, each full period of the
+    block pattern is checkpointed (its activations recomputed in the
+    backward), the tail's blocks are not.  Where nothing requires a
+    gradient (serving) it runs with grad mode off, as ``decode_step``
+    does: the eager per-step loops (the sLSTM's) would otherwise pay
+    autograd's dispatch on every op."""
     cfg = model.cfg
-    if embeddings is not None:
-        x = embeddings.to(_dtype(cfg))
-        if tokens is not None:
-            x = torch.cat([x, model.embed[tokens]], dim=1)
-    else:
-        x = model.embed[tokens]
-    b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    aux = ({k: torch.zeros((), dtype=torch.float32, device=x.device)
-            for k in ("aux_loss", "drop_frac")} if cfg.is_moe else None)
-    for blk in model.blocks:
-        x, aux = _run_block(cfg, blk, x, positions,
-                            mrope_positions=mrope_positions, aux_acc=aux,
-                            use_flash=use_flash)
-    x = L.rms_norm(x, model.out_norm, cfg.norm_eps)
-    return x @ model.w_out(), (aux or {})
+    graph = torch.is_grad_enabled() and (
+        (embeddings is not None and embeddings.requires_grad)
+        or any(q.requires_grad for q in model.parameters()))
+    with torch.set_grad_enabled(graph):
+        if embeddings is not None:
+            x = embeddings.to(_dtype(cfg))
+            if tokens is not None:
+                x = torch.cat([x, model.embed[tokens]], dim=1)
+        else:
+            x = model.embed[tokens]
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        aux = ({k: torch.zeros((), dtype=torch.float32, device=x.device)
+                for k in ("aux_loss", "drop_frac")} if cfg.is_moe else None)
+        p = len(period_pattern(cfg))
+        n_stacked = cfg.n_layers // p * p
+        for i in range(0, n_stacked, p):
+            args = (cfg, model.blocks[i:i + p], x, positions,
+                    mrope_positions, aux, use_flash)
+            x, aux = (checkpoint(_run_period, *args, use_reentrant=False)
+                      if graph and cfg.remat else _run_period(*args))
+        x, aux = _run_period(cfg, model.blocks[n_stacked:], x, positions,
+                             mrope_positions, aux, use_flash)
+        x = L.rms_norm(x, model.out_norm, cfg.norm_eps)
+        return x @ model.w_out(), (aux or {})
+
+
+def train_loss(model: Model, batch: dict, *, use_flash: bool = True):
+    """Next-token (or frame-classification, for encoder-only) loss of
+    ``batch`` (``tokens``, ``embeddings``, ``mrope_positions`` as
+    :func:`forward` takes them; ``labels`` and ``mask`` cover the whole
+    sequence).  Returns (total, metrics): total is the mean NLL plus, for
+    MoE, the summed ``aux_loss``; metrics hold ``nll`` and, for MoE,
+    ``aux_loss`` and ``drop_frac``."""
+    logits, aux = forward(model, batch.get("tokens"),
+                          embeddings=batch.get("embeddings"),
+                          mrope_positions=batch.get("mrope_positions"),
+                          use_flash=use_flash)
+    loss = L.cross_entropy(logits, batch["labels"], batch["mask"])
+    total = loss + aux["aux_loss"] if aux else loss
+    return total, {"nll": loss, **aux}
 
 
 # ---------------------------------------------------------------------------

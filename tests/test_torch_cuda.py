@@ -1289,3 +1289,126 @@ def test_fit_grouped_linregr_task_on_card_launches_xtx_per_group(
     for k in want.stats:
         assert np.array_equal(np.asarray(got.stats[k]),
                               np.asarray(want.stats[k])), k
+
+
+# -- the flash_attention backward kernel, and training on the card -----------
+# Kernel and plain version compute in f32 from the same inputs and sum in
+# other orders: f32 within 1e-4 of max |plain|; bf16 within one bf16 step
+# (2^-7 of max |plain|), since both round to bf16 once.
+
+BWD_SHAPES = [(1, 2, 1, 64, 64, True), (2, 4, 2, 100, 16, True),
+              (1, 2, 2, 37, 80, False), (1, 4, 4, 128, 128, True),
+              (2, 8, 2, 70, 32, False), (1, 2, 1, 2, 8, True)]
+
+
+def _bwd_inputs(dev, dtype, b, hq, hk, s, d, seed):
+    draw = Draw(seed)
+    # (B, S, H, D) storage seen through transpose(1, 2), as the model has it
+    q, k, v, do = (torch.from_numpy(draw.normal((b, s, h, d))).to(
+        dev).to(dtype).transpose(1, 2) for h in (hq, hk, hk, hq))
+    out = fa_ref.flash_attention_ref(q, k, v)
+    return q, k, v, out, do
+
+
+def _hold_bwd(got, want, rel):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        scale = float(w.float().abs().max())
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= rel * scale + 1e-30, (err, scale)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hk,s,d,causal", BWD_SHAPES)
+def test_flash_attention_bwd_kernel_matches_plain(cuda_device, dtype, b, hq,
+                                                  hk, s, d, causal):
+    dt = getattr(torch, dtype)
+    q, k, v, _, do = _bwd_inputs(cuda_device, dt, b, hq, hk, s, d, s * d)
+    out = fa_ref.flash_attention_ref(q, k, v, causal=causal)
+    before = fa_ops.flash_attention_bwd_launches
+    got = fa_ops.flash_attention_bwd(q, k, v, out, do, causal=causal)
+    again = fa_ops.flash_attention_bwd(q, k, v, out, do, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention_bwd_launches - before == 2
+    want = fa_ref.flash_attention_bwd_ref(q, k, v, out, do, causal=causal)
+    _hold_bwd(got, want, 1e-4 if dtype == "float32" else 2.0 ** -7)
+    for a, c in zip(got, again):
+        assert torch.equal(a, c)        # no atomics: the same bits
+
+
+def test_flash_attention_autograd_runs_the_bwd_kernel(cuda_device):
+    q, k, v, _, do = _bwd_inputs(cuda_device, torch.bfloat16, 2, 8, 2, 256,
+                                 64, 7)
+    qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = (fa_ops.flash_attention_bwd_launches,
+              fa_ops.flash_attention_tc_launches)
+    with trace_execution() as tr:
+        out = registry.dispatch("flash_attention", *qkv, causal=True)
+        grads = torch.autograd.grad(out, qkv, do)
+    torch.cuda.synchronize()
+    assert (fa_ops.flash_attention_bwd_launches - before[0],
+            fa_ops.flash_attention_tc_launches - before[1]) == (1, 1)
+    assert [(e.detail["name"], e.engine) for e in tr.kernels] == [
+        ("flash_attention", "cuda"), ("flash_attention_bwd", "cuda")]
+    want = fa_ops.flash_attention_bwd(q, k, v, out.detach(), do)
+    for g, w in zip(grads, want):
+        assert torch.equal(g, w)
+
+
+def test_flash_attention_bwd_rejects_on_card(cuda_device):
+    q, k, v, out, do = _bwd_inputs(cuda_device, torch.float32, 1, 2, 1, 16,
+                                   16, 1)
+    wide = torch.zeros((1, 2, 16, 32), device=cuda_device)
+    wide[..., ::2] = do
+    with pytest.raises(ValueError, match="stride 1"):
+        fa_ops.flash_attention_bwd(q, k, v, out, wide[..., ::2])
+
+
+def test_train_step_on_card_matches_the_cpu(cuda_device):
+    from repro_torch.train import init_train_state, make_train_step
+    cfg = reduced_config("stablelm-1.6b")
+    states = [init_train_state(cfg, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+        for dev in ("cpu", cuda_device)]
+    with torch.no_grad():
+        for (_, a), (_, b) in zip(states[0].model.named_parameters(),
+                                  states[1].model.named_parameters()):
+            b.copy_(a)
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab, (4, 64)).astype(np.int32)
+    batch = {"tokens": toks, "labels": np.roll(toks, -1, 1),
+             "mask": np.ones((4, 64), np.float32)}
+    kw = dict(base_lr=1e-3, warmup=0, total_steps=10, grad_accum=2)
+    start = {n: p.detach().clone()
+             for n, p in states[1].model.named_parameters()}
+    before = fa_ops.flash_attention_bwd_launches
+    mets = []
+    for st, dev in zip(states, ("cpu", cuda_device)):
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        mets.append(make_train_step(cfg, **kw)(st, tb)[1])
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention_bwd_launches - before == \
+        cfg.n_layers * kw["grad_accum"]
+    for k in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(mets[1][k]), float(mets[0][k]),
+                                   rtol=1e-4, err_msg=k)
+    # AdamW's first step is lr sign(g): a gradient within rounding of zero
+    # may take either sign on the two devices
+    atol = 2 * float(mets[0]["lr"]) + 1e-5
+    for (n, a), (_, b) in zip(states[0].model.named_parameters(),
+                              states[1].model.named_parameters()):
+        np.testing.assert_allclose(b.detach().cpu().numpy(),
+                                   a.detach().numpy(), rtol=0, atol=atol,
+                                   err_msg=n)
+    # the step moved the card's parameters (by about lr each) ...
+    moved = max(float((p.detach() - start[n]).abs().max())
+                for n, p in states[1].model.named_parameters())
+    assert moved >= 0.5 * float(mets[1]["lr"])
+    # ... and its moments are the gradients' averages, held at the
+    # gradients' tolerance (f32, other summation orders on the two devices)
+    for got, want in ((states[1].opt.mu, states[0].opt.mu),
+                      (states[1].opt.nu, states[0].opt.nu)):
+        assert set(got) == set(want)
+        for n, w in want.items():
+            err = float((got[n].cpu() - w).abs().max())
+            assert err <= 1e-4 * float(w.abs().max()) + 1e-30, (n, err)

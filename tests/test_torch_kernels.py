@@ -199,8 +199,9 @@ def test_registry_rejects_unknown_impl_and_kernel():
     with pytest.raises(KeyError):
         registry.get("no_such_kernel")
     assert registry.available() == ("countmin", "flash_attention",
-                                    "kmeans_assign", "segment_countmin",
-                                    "segment_fm", "segment_linregr", "xtx")
+                                    "flash_attention_bwd", "kmeans_assign",
+                                    "segment_countmin", "segment_fm",
+                                    "segment_linregr", "xtx")
     assert registry.IMPLS == ("auto", "ref", "cuda")
     assert [registry.resolve_impl(u) for u in (False, True, "ref", "cuda")] \
         == [None, "auto", "ref", "cuda"]

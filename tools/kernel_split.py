@@ -5,6 +5,7 @@
     python3 tools/kernel_split.py --root DIR      # another checkout
     python3 tools/kernel_split.py --only countmin,segment_countmin \
         --variants full                           # some kernels, variants
+    python3 tools/kernel_split.py --only flash_attention_bwd
 
 For ``kmeans_assign`` (at the main path's (10M, 32, 64) and the grouped
 launch's (156,250, 32, 8)), ``segment_linregr`` (10.2M rows, K = 160,
@@ -21,7 +22,11 @@ The port's sources are not changed.  ``--root`` points at another
 checkout of the port (say the parent commit, from ``git archive``): its
 sources, and its wrappers' sizing, are used; each kernel takes the first
 edit set whose anchors all occur in its source, and is skipped when none
-does.  Needs an NVIDIA GPU with nvcc.
+does.  ``flash_attention_bwd`` needs no variant: one wrapper call launches
+its three kernels, and torch.profiler gives each one's device time (run
+it in a process of its own, before other work: inside chip_smoke.py's
+process the profiler records no device time for the ctypes library's
+launches).  Needs an NVIDIA GPU with nvcc.
 """
 
 from __future__ import annotations
@@ -144,7 +149,60 @@ CM_VARIANTS = {
     "clear_and_flush": (0, 1, 1, 1), "frame": (0, 0, 0, 0),
 }
 CM_FLAGS = ("SPLIT_ROWS", "SPLIT_HASH", "SPLIT_ATOMIC", "SPLIT_FLUSH")
-SPLITS = ("kmeans_assign", "segment_linregr", "countmin", "segment_countmin")
+SPLITS = ("kmeans_assign", "segment_linregr", "countmin", "segment_countmin",
+          "flash_attention_bwd")
+# (B, Hq, Hk, S, D, causal): stablelm-1.6b's training layer and qwen3-8b's
+BWD_SPLIT_SHAPES = ((2, 32, 32, 4096, 64, True), (2, 32, 8, 4096, 128, True))
+
+
+def flash_bwd_split(torch, ev, reps: int = 5) -> None:
+    """The flash_attention backward's three kernels (rows, dK/dV, dQ; one
+    wrapper call launches all three) split by torch.profiler's device
+    time of each, beside CUDA events of the whole call, at
+    BWD_SPLIT_SHAPES in bf16 and f32.  Uses the checkout's own wrapper
+    and sources; no variant is built."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    if not hasattr(fa_ops, "flash_attention_bwd"):
+        print("[split] flash_attention_bwd: skipped (not in this checkout)")
+        return
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20121208)
+    for b, hq, hk, s, d, causal in BWD_SPLIT_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            # (B, S, H, D) storage seen through transpose(1, 2), as the
+            # model's projections give them
+            q, k, v, do = [torch.randn((b, s, h, d), generator=gen,
+                                       device=dev).to(dtype).transpose(1, 2)
+                           for h in (hq, hk, hk, hq)]
+            o = fa_ops.flash_attention(q, k, v, causal=causal)
+
+            def call():
+                fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
+
+            call()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    call()
+                torch.cuda.synchronize()
+            parts = {}
+            for e in prof.key_averages():
+                for part in ("rows", "dkdv", "dq"):
+                    if f"flash_bwd_{part}_kernel" in e.key:
+                        parts[part] = parts.get(part, 0.0) + getattr(
+                            e, "device_time_total", 0.0) / reps / 1e3
+            split = (", ".join(f"{n} {t:.3f}" for n, t in parts.items())
+                     + f" (sum {sum(parts.values()):.3f})" if parts
+                     else "not measured")
+            print(f"[split] flash_attention_bwd {(b, hq, hk, s, d)} "
+                  f"{'bf16' if dtype == torch.bfloat16 else 'f32'} "
+                  f"{'causal' if causal else 'non-causal'}: events "
+                  f"{ev(call, reps):.3f} ms a call; device ms by kernel: "
+                  f"{split}", flush=True)
+            del q, k, v, do, o
 
 
 def edit_set(csrc: Path, sets):
@@ -233,24 +291,6 @@ def main() -> int:
              [SEGCM_EDITS_RUNS, SEGCM_EDITS_PER_BLOCK])):
         edits = edit_set(csrc, sets)
         plans[kernel] = (edits, prefix, target, CM_VARIANTS, CM_FLAGS)
-    jobs = {}
-    for kernel, (edits, prefix, target, variants, flags) in plans.items():
-        if kernel not in only:
-            continue
-        print(f"[split] {kernel}: "
-              f"{'edits found' if edits else 'skipped (no edit set)'}")
-        for name, f in variants.items() if edits else ():
-            if args.variants and name not in args.variants.split(","):
-                continue
-            jobs[f"{kernel} {name}"] = build(csrc, prefix + name, target,
-                                             edits, dict(zip(flags, f)))
-    libs = {}
-    for key, (lib, proc) in jobs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {key}:\n{out}")
-        libs[key] = ctypes.CDLL(str(lib))
-
     def ev(fn, reps):
         fn()
         torch.cuda.synchronize()
@@ -262,6 +302,26 @@ def main() -> int:
         b.record()
         b.synchronize()
         return a.elapsed_time(b) / reps
+
+    jobs = {}
+    for kernel, (edits, prefix, target, variants, flags) in plans.items():
+        if kernel not in only:
+            continue
+        print(f"[split] {kernel}: "
+              f"{'edits found' if edits else 'skipped (no edit set)'}")
+        for name, f in variants.items() if edits else ():
+            if args.variants and name not in args.variants.split(","):
+                continue
+            jobs[f"{kernel} {name}"] = build(csrc, prefix + name, target,
+                                             edits, dict(zip(flags, f)))
+    if "flash_attention_bwd" in only:
+        flash_bwd_split(torch, ev)
+    libs = {}
+    for key, (lib, proc) in jobs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {key}:\n{out}")
+        libs[key] = ctypes.CDLL(str(lib))
 
     def device_ms(fn, reps):
         """Device time per call of the kernels (memsets left out), from
