@@ -151,19 +151,24 @@ l. then, with section g's models freed, the other LM families at full
    bound, its plain version and scaled_dot_product_attention.  dbrx-132b
    (263 GB of bf16) does not fit one card and is not run;
 m. then, with section l's models freed, LM training: the flash_attention
-   backward kernel (``csrc/flash_attention_bwd.cu``) and the forward
-   kernel against their plain versions at stablelm-1.6b's, qwen3-8b's and
-   hubert-xlarge's layer shapes, a ragged S at D = 16 and stablelm's layer
-   at launch.train's 8 x 128, in f32 and bf16, a second backward call
-   bitwise the first, timed beside its bound, the plain version and
-   scaled_dot_product_attention's backward; stablelm-1.6b at full width
-   and depth in bf16 (weights from a seed, f32 AdamW moments): the flash
-   path against ``use_flash=False`` on one micro-batch (loss, per-leaf
-   gradient cosine), then 4 steps of ``make_train_step(grad_accum=4)`` on
-   8 x 4096 tokens a step from ``TokenStream`` through
-   ``make_lm_batches`` (the main path: step seconds, tokens/s, peak
-   memory, loss, grad norm and lr, 96 backward and 192 forward flash
-   launches a step under remat), the same check at the weights the steps
+   backward (bf16: the tensor-core kernels of
+   ``csrc/flash_attention_bwd_tc.cu``; f32: the FFMA kernels of
+   ``csrc/flash_attention_bwd.cu``; the path of each shape printed and
+   checked by the counters) and the forward kernel against their plain
+   versions at stablelm-1.6b's, qwen3-8b's and hubert-xlarge's layer
+   shapes, a ragged S at D = 16 and stablelm's layer at launch.train's
+   8 x 128, in f32 and bf16: the forward's log-sum-exp against the plain
+   ``logsumexp`` and its output bitwise the output without it, a second
+   backward call bitwise the first, timed beside its bound, the plain
+   version and scaled_dot_product_attention's backward; stablelm-1.6b at
+   full width and depth in bf16 (weights from a seed, f32 AdamW
+   moments): the flash path against ``use_flash=False`` on one
+   micro-batch (loss, per-leaf gradient cosine), then 4 steps of
+   ``make_train_step(grad_accum=4)`` on 8 x 4096 tokens a step from
+   ``TokenStream`` through ``make_lm_batches`` (the main path: step
+   seconds, tokens/s, peak memory, loss, grad norm and lr, 96 backward
+   launches a step, all on the tensor cores, and 192 forward flash
+   launches under remat), the same check at the weights the steps
    left, and the same 4 steps from the same weights with
    ``use_flash=False`` (the losses side by side); two f32 layers at full
    width against ``use_flash=False``; ``python -m
@@ -756,8 +761,8 @@ def lm_section(torch, dev, counters, errs) -> dict:
         o = torch.empty_like(q)
         b, hq, s, d = q.shape
         _build.check("flash_attention", _build.lib().madlib_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, b, hq,
-            k.shape[1], s, d, *q.stride()[:3], *k.stride()[:3],
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None, 1,
+            b, hq, k.shape[1], s, d, *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], *o.stride()[:3], 1.0 / d ** 0.5, 1,
             torch.cuda.current_stream().cuda_stream))
         return o
@@ -1350,6 +1355,11 @@ BWD_SHAPES = ((LM_BATCH, 32, 32, LM_SEQ, 64, True),
 # they may differ by one bf16 step: 2^-7 x max |plain|.
 BWD_F32_REL = 1e-4
 BWD_BF16_REL = 2.0 ** -7
+# The forward's log-sum-exp (the backward's input) against torch.logsumexp
+# of the plain version's f32 logits: both sum exponentials of the same f32
+# scores in other orders (the tensor cores' in base 2), within LSE_REL of
+# max(1, |lse|) per row.
+LSE_REL = 2e-5
 # The flash path against use_flash=False in bf16, at full width and depth,
 # on step 1's first micro-batch: attention_chunked rounds the pre-scaled q
 # and p to bf16 where the kernels keep f32, and the two differ by about a
@@ -1459,10 +1469,18 @@ def train_section(torch, dev, counters, errs, smi) -> dict:
             path = "ffma" if dtype == torch.float32 else "tc"
             tc0 = fa_ops.flash_attention_tc_launches
             ffma0 = fa_ops.flash_attention_ffma_launches
-            o = fa_ops.flash_attention(q, k, v, causal=causal)
+            o, lse = fa_ops.flash_attention(q, k, v, causal=causal,
+                                            return_lse=True)
             ran = (fa_ops.flash_attention_tc_launches - tc0,
                    fa_ops.flash_attention_ffma_launches - ffma0)
-            o_plain = flash_attention_ref(q, k, v, causal=causal)
+            # the output without lse: the same bits
+            same_fwd = torch.equal(o, fa_ops.flash_attention(
+                q, k, v, causal=causal))
+            o_plain, lse_plain = flash_attention_ref(q, k, v, causal=causal,
+                                                     return_lse=True)
+            e_lse = float(((lse - lse_plain).abs()
+                           / lse_plain.abs().clamp(min=1.0)).max())
+            del lse_plain
             e_fwd = float((o.float() - o_plain.float()).abs().max())
             s_fwd = float(o_plain.float().abs().max())
             if dtype == torch.float32:
@@ -1480,16 +1498,29 @@ def train_section(torch, dev, counters, errs, smi) -> dict:
                   f"{s_fwd:.3e}"
                   + ("" if row_fwd is None else
                      f"; worst row {row_fwd:.3e} of its max |plain|")
-                  + ")")
+                  + f"); lse within {e_lse:.3e} of max(1, |plain "
+                  f"logsumexp|) (limit {LSE_REL:.0e}); output without lse "
+                  f"bitwise {same_fwd}")
             if ran != ((0, 1) if path == "ffma" else (1, 0)):
                 fails.append(f"flash_attention {shape} {name}: launches "
                              f"(tc, ffma) {ran}, want one on {path}")
+            if not (e_lse <= LSE_REL and same_fwd):
+                fails.append(f"flash_attention {shape} {name}: lse within "
+                             f"{e_lse} of the plain logsumexp (limit "
+                             f"{LSE_REL}); output without lse bitwise "
+                             f"{same_fwd}")
             if not fwd_ok:
                 fails.append(f"flash_attention {shape} {name}: max |kernel "
                              f"- plain| {e_fwd} (max |plain| {s_fwd}, worst "
                              f"row {row_fwd})")
-            got = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
-            again = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
+            bwd0 = (fa_ops.flash_attention_bwd_tc_launches,
+                    fa_ops.flash_attention_bwd_ffma_launches)
+            got = fa_ops.flash_attention_bwd(q, k, v, o, do, lse,
+                                             causal=causal)
+            ran_bwd = (fa_ops.flash_attention_bwd_tc_launches - bwd0[0],
+                       fa_ops.flash_attention_bwd_ffma_launches - bwd0[1])
+            again = fa_ops.flash_attention_bwd(q, k, v, o, do, lse,
+                                               causal=causal)
             torch.cuda.synchronize()
             same = all(torch.equal(x, y) for x, y in zip(got, again))
             del again
@@ -1508,7 +1539,7 @@ def train_section(torch, dev, counters, errs, smi) -> dict:
             del got, want
             torch.cuda.empty_cache()
             ms = cuda_ms(torch, lambda: fa_ops.flash_attention_bwd(
-                q, k, v, o, do, causal=causal), 3)
+                q, k, v, o, do, lse, causal=causal), 3)
             elt = 4 if dtype == torch.float32 else 2
             peak = PEAK_F32_FLOPS if dtype == torch.float32 \
                 else PEAK_BF16_FLOPS
@@ -1522,9 +1553,11 @@ def train_section(torch, dev, counters, errs, smi) -> dict:
                 "bound_ms": bound, "bound_by": by, "ops_ms": t_ops,
                 "bytes_ms": t_bytes, "max_abs_err": max(errs_k),
                 "rel_err": [e / sc for e, sc in zip(errs_k, scales)],
-                "bitwise_repeat": same, "forward_max_abs_err": e_fwd}
+                "bitwise_repeat": same, "forward_max_abs_err": e_fwd,
+                "forward_lse_rel_err": e_lse, "path": path}
             print(f"[train] flash_attention_bwd {tuple(shape[:5])} {name} "
-                  f"{'causal' if causal else 'non-causal'}: kernel "
+                  f"{'causal' if causal else 'non-causal'}: {path} "
+                  f"backward (launches tc, ffma {ran_bwd}): kernel "
                   f"{ms:.3f} ms (CUDA events), bound {bound:.4f} ms ({by}; "
                   f"{bound / ms:.2%} of it), plain {plain_ms:.2f} ms, SDPA "
                   f"backward {lib_ms:.4f} ms; max |err| dq/dk/dv "
@@ -1533,13 +1566,16 @@ def train_section(torch, dev, counters, errs, smi) -> dict:
                   + "/".join(f"{sc:.3e}" for sc in scales)
                   + f" (limit {rel:.1e} of it); second call bitwise "
                   f"{same}; {smi}")
+            if ran_bwd != ((0, 1) if path == "ffma" else (1, 0)):
+                fails.append(f"flash_attention_bwd {shape} {name}: launches "
+                             f"(tc, ffma) {ran_bwd}, want one on {path}")
             if not ok:
                 fails.append(f"flash_attention_bwd {shape} {name}: errors "
                              f"{errs_k} exceed {rel} x {scales}")
             if not same:
                 fails.append(f"flash_attention_bwd {shape} {name}: a second "
                              "call differs from the first")
-            del q, k, v, do, o
+            del q, k, v, do, o, lse
             torch.cuda.empty_cache()
     main_key = f"{tuple(BWD_SHAPES[0])} bf16"
     errs["flash_attention_bwd"] = out["kernel"][main_key]["max_abs_err"]
@@ -1632,23 +1668,30 @@ def train_section(torch, dev, counters, errs, smi) -> dict:
                "grad_norm": float(mets["grad_norm"]), "lr": float(mets["lr"]),
                "flash_fwd": got["flash_attention"],
                "flash_fwd_tc": got["flash_attention_tc"],
-               "flash_bwd": got["flash_attention_bwd"]}
+               "flash_bwd": got["flash_attention_bwd"],
+               "flash_bwd_tc": got["flash_attention_bwd_tc"],
+               "flash_bwd_ffma": got["flash_attention_bwd_ffma"]}
         out["steps"].append(rec)
         print(f"[train] step {i}: {sec:.3f} s ({rec['tokens_s']:.0f} tokens/s,"
               f" host clock, synchronized); loss {rec['loss']:.6f}, "
               f"grad_norm {rec['grad_norm']:.6f}, lr {rec['lr']:.3e}; flash "
               f"forward {rec['flash_fwd']} ({rec['flash_fwd_tc']} on tensor "
-              f"cores), backward {rec['flash_bwd']}")
+              f"cores), backward {rec['flash_bwd']} "
+              f"({rec['flash_bwd_tc']} on tensor cores, "
+              f"{rec['flash_bwd_ffma']} FFMA)")
         if not (math.isfinite(rec["loss"])
                 and math.isfinite(rec["grad_norm"])):
             fails.append(f"train step {i}: loss {rec['loss']}, grad_norm "
                          f"{rec['grad_norm']}")
-        if (rec["flash_bwd"], rec["flash_fwd"], rec["flash_fwd_tc"]) != (
-                want_bwd, want_fwd, want_fwd):
+        if (rec["flash_bwd"], rec["flash_bwd_tc"], rec["flash_bwd_ffma"],
+                rec["flash_fwd"], rec["flash_fwd_tc"]) != (
+                want_bwd, want_bwd, 0, want_fwd, want_fwd):
             fails.append(f"train step {i}: flash launches forward "
                          f"{rec['flash_fwd']} (tc {rec['flash_fwd_tc']}), "
-                         f"backward {rec['flash_bwd']}; want {want_fwd} on "
-                         f"the tensor cores and {want_bwd}")
+                         f"backward {rec['flash_bwd']} (tc "
+                         f"{rec['flash_bwd_tc']}, ffma "
+                         f"{rec['flash_bwd_ffma']}); want {want_fwd} and "
+                         f"{want_bwd}, all on the tensor cores")
     launched = counters.read()
     batches.close()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1660,7 +1703,8 @@ def train_section(torch, dev, counters, errs, smi) -> dict:
                     "tokens_s": tokens / mean_s, "peak_gb": peak_gb,
                     "launches": {k: launched[k] for k in (
                         "flash_attention", "flash_attention_tc",
-                        "flash_attention_bwd")}}
+                        "flash_attention_bwd", "flash_attention_bwd_tc",
+                        "flash_attention_bwd_ffma")}}
     print(f"[train] {TRAIN_ARCH} bf16, {TRAIN_STEPS} steps of "
           f"{TRAIN_BATCH} x {LM_SEQ} tokens ({TRAIN_ACCUM} micro-batches): "
           f"{mean_s:.3f} s a step after the first ({tokens / mean_s:.0f} "
@@ -1745,14 +1789,16 @@ def train_section(torch, dev, counters, errs, smi) -> dict:
     out["driver"] = {"losses": losses, "seconds": s_drv,
                      "launches": {k: drv[k] for k in (
                          "countmin", "flash_attention",
-                         "flash_attention_bwd")}}
+                         "flash_attention_bwd", "flash_attention_bwd_tc")}}
     print(f"[train] launch.train --arch {TRAIN_ARCH} --full --steps 4: "
           f"losses {[round(x, 4) for x in losses]}, {s_drv:.2f} s; launches "
           f"countmin {drv['countmin']}, flash forward "
-          f"{drv['flash_attention']}, backward {drv['flash_attention_bwd']}")
+          f"{drv['flash_attention']}, backward {drv['flash_attention_bwd']} "
+          f"({drv['flash_attention_bwd_tc']} on tensor cores)")
     if not (len(losses) == 4 and all(map(math.isfinite, losses))
             and drv["countmin"] == 2
-            and drv["flash_attention_bwd"] == 4 * cfg.n_layers):
+            and drv["flash_attention_bwd"] == 4 * cfg.n_layers
+            and drv["flash_attention_bwd_tc"] == 4 * cfg.n_layers):
         fails.append(f"launch.train: losses {losses}, launches {drv}")
     gc.collect()
     torch.cuda.empty_cache()
@@ -1791,7 +1837,12 @@ def train_section(torch, dev, counters, errs, smi) -> dict:
     drv_key = "m launch.train --full (8, 32, 32, 128, 64) causal"
     out["row"] = {
         "name": "flash_attention_bwd", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "source": "src/repro_torch/csrc/flash_attention_bwd_tc.cu",
+        "ffma_source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "launches_tc": launched["flash_attention_bwd_tc"]
+        + drv["flash_attention_bwd_tc"],
+        "launches_ffma": launched["flash_attention_bwd_ffma"]
+        + drv["flash_attention_bwd_ffma"],
         "replaces": "src/repro/models/layers.py:170",
         "launches": launched["flash_attention_bwd"]
         + drv["flash_attention_bwd"],
@@ -3560,7 +3611,9 @@ def main() -> int:
                          "flash_attention": fa_ops,
                          "flash_attention_tc": fa_ops,
                          "flash_attention_ffma": fa_ops,
-                         "flash_attention_bwd": fa_ops})
+                         "flash_attention_bwd": fa_ops,
+                         "flash_attention_bwd_tc": fa_ops,
+                         "flash_attention_bwd_ffma": fa_ops})
 
     # 1. device -------------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -3584,7 +3637,8 @@ def main() -> int:
     for line in _build.last_build["ptxas"]:
         print(f"[build] {line}")
     for key in ("flash_attention_tc", "flash_attention_kernel", "xtx_",
-                "kmeans_assign", "segment_partial", "segment_reduce"):
+                "kmeans_assign", "segment_partial", "segment_reduce",
+                "flash_bwd_dkdv_tc", "flash_bwd_dq_tc"):
         lines = ptxas_for(_build.last_build["ptxas"], key)
         require(bool(lines), f"build: no ptxas lines for {key}")
         for line in lines:
@@ -4650,9 +4704,10 @@ def main() -> int:
 
     # 6. summary ------------------------------------------------------------
     print(json.dumps({"kernels": [
-        {k: r[k] for k in ("name", "route", "source", "replaces",
-                           "launches", "max_abs_err", "ms", "plain_ms",
-                           "bound_ms", "bound_by", "library_ms")}
+        {**{k: r[k] for k in ("name", "route", "source", "replaces",
+                              "launches", "max_abs_err", "ms", "plain_ms",
+                              "bound_ms", "bound_by", "library_ms")},
+         **{k: r[k] for k in ("ffma_source",) if k in r}}
         for r in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -14,6 +14,8 @@
 //   m   = max(m, rowmax s);  alpha = exp(m_old - m);  p = exp(s - m)   (f32)
 //   l   = alpha * l + rowsum p;  acc = alpha * acc + p . v   (p stays f32)
 //   out = acc / max(l, 1e-30), in q's type
+//   lse = m + log(max(l, 1e-30))  (f32, only when the caller asks: the
+//         backward takes it in place of recomputing q k^T)
 //
 // with query head h of batch b reading KV head h / (Hq / Hk) of batch b, so
 // no K/V replication is materialised.
@@ -89,9 +91,10 @@ constexpr int smem_bytes() {
 template <typename T, int DP>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int group,
-                       int S, int D, Strides qs, Strides ks, Strides vs,
-                       Strides os, float scale, int causal) {
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int group, int S, int D,
+                       Strides qs, Strides ks, Strides vs, Strides os,
+                       float scale, int causal) {
   static_assert(DP % 32 == 0 && DP <= 128, "DP");
   constexpr int NG = DP / 32;     // float4 column groups per thread
   extern __shared__ float4 smem4[];
@@ -235,6 +238,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + ty * 4 + i;
     if (row >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<long long>(b) * gridDim.y + h) * S + row] =
+          m[i] + logf(denom);
 #pragma unroll
     for (int g = 0; g < NG; ++g)
 #pragma unroll
@@ -247,7 +253,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Hq, int Hk, int S, int D, Strides qs,
+                   float* lse, int B, int Hq, int Hk, int S, int D, Strides qs,
                    Strides ks, Strides vs, Strides os, float scale,
                    int causal, cudaStream_t stream) {
   auto kernel = flash_attention_kernel<T, DP>;
@@ -258,48 +264,53 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid((S + TQ - 1) / TQ, Hq, B);
   kernel<<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq / Hk, S, D, qs, ks,
-      vs, os, scale, causal);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Hq / Hk, S, D, qs,
+      ks, vs, os, scale, causal);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_dp(const void* q, const void* k, const void* v, void* o,
-                        int B, int Hq, int Hk, int S, int D, Strides qs,
-                        Strides ks, Strides vs, Strides os, float scale,
-                        int causal, cudaStream_t stream) {
+                        float* lse, int B, int Hq, int Hk, int S, int D,
+                        Strides qs, Strides ks, Strides vs, Strides os,
+                        float scale, int causal, cudaStream_t stream) {
   if (D <= 32)
-    return launch<T, 32>(q, k, v, o, B, Hq, Hk, S, D, qs, ks, vs, os, scale,
-                         causal, stream);
+    return launch<T, 32>(q, k, v, o, lse, B, Hq, Hk, S, D, qs, ks, vs, os,
+                         scale, causal, stream);
   if (D <= 64)
-    return launch<T, 64>(q, k, v, o, B, Hq, Hk, S, D, qs, ks, vs, os, scale,
-                         causal, stream);
-  return launch<T, 128>(q, k, v, o, B, Hq, Hk, S, D, qs, ks, vs, os, scale,
-                        causal, stream);
+    return launch<T, 64>(q, k, v, o, lse, B, Hq, Hk, S, D, qs, ks, vs, os,
+                         scale, causal, stream);
+  return launch<T, 128>(q, k, v, o, lse, B, Hq, Hk, S, D, qs, ks, vs, os,
+                        scale, causal, stream);
 }
 
 }  // namespace
 
 // q (B, Hq, S, D), k and v (B, Hk, S, D), o (B, Hq, S, D), each given by its
 // batch, head and position strides in elements (feature stride 1).
+// lse, when not null, receives each row's log-sum-exp of the scaled, masked
+// scores (natural log, f32 (B, Hq, S) contiguous); null writes nothing and
+// leaves o's bits as they are without it.
 // dtype 0 is float32, 1 is bfloat16.  The wrapper checks Hq % Hk == 0,
 // 1 <= D <= 128 and S >= 1.  Returns cudaGetLastError() after the launch.
 extern "C" int madlib_flash_attention(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int Hq, int Hk, int S, int D, long long q_sb, long long q_sh,
-    long long q_ss, long long k_sb, long long k_sh, long long k_ss,
-    long long v_sb, long long v_sh, long long v_ss, long long o_sb,
-    long long o_sh, long long o_ss, float scale, int causal, void* stream) {
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    int dtype, int B, int Hq, int Hk, int S, int D, long long q_sb,
+    long long q_sh, long long q_ss, long long k_sb, long long k_sh,
+    long long k_ss, long long v_sb, long long v_sh, long long v_ss,
+    long long o_sb, long long o_sh, long long o_ss, float scale, int causal,
+    void* stream) {
   if (Hk <= 0 || Hq % Hk != 0 || D < 1 || D > 128 || S < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
       vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
   auto st = static_cast<cudaStream_t>(stream);
+  auto lse_f = static_cast<float*>(lse);
   cudaError_t err =
       dtype == 1
-          ? dispatch_dp<__nv_bfloat16>(q, k, v, o, B, Hq, Hk, S, D, qs, ks,
-                                       vs, os, scale, causal, st)
-          : dispatch_dp<float>(q, k, v, o, B, Hq, Hk, S, D, qs, ks, vs, os,
-                               scale, causal, st);
+          ? dispatch_dp<__nv_bfloat16>(q, k, v, o, lse_f, B, Hq, Hk, S, D,
+                                       qs, ks, vs, os, scale, causal, st)
+          : dispatch_dp<float>(q, k, v, o, lse_f, B, Hq, Hk, S, D, qs, ks,
+                               vs, os, scale, causal, st);
   return static_cast<int>(err);
 }

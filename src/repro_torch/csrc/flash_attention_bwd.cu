@@ -1,16 +1,20 @@
-// Causal GQA flash attention, backward, for the H100 (sm_90a): the gradient
-// of the forward kernels in flash_attention_tc.cu and flash_attention.cu
-// with respect to q, k and v, for f32 and bf16 inputs, in f32 FFMA.
+// Causal GQA flash attention, backward, for the H100 (sm_90a): the FFMA
+// kernels, the gradient with respect to q, k and v for f32 inputs and for
+// bf16 that TMA cannot read (head dimension D not a multiple of 8, or a
+// pointer or stride off 16 bytes).  Other bf16 (every config of the repo)
+// takes the tensor-core backward in flash_attention_bwd_tc.cu; the wrapper
+// (kernels/flash_attention/ops.py, kernel_for) chooses by dtype, D and
+// layout, as for the forward.
 //
 // Replaces no TPU kernel: the reference package has no backward Pallas
 // kernel.  It differentiates its chunked attention
 // (src/repro/models/layers.py:170-234, attention_chunked under
 // jax.checkpoint) where the port's training path runs the forward kernel
 // of src/repro/kernels/flash_attention/kernel.py:29.  It computes, with
-// s = (q . k^T in f32) * scale and the forward's mask (-1e30 where the key
-// lies after the query, causal, or past S):
+// s = (q . k^T in f32) * scale, the forward's mask (-1e30 where the key
+// lies after the query, causal, or past S) and the forward's log-sum-exp
+// lse of each row (natural log, from the forward kernel's epilogue):
 //
-//   lse   = log sum_k exp(s)                 (per query row, f32)
 //   P     = exp(s - lse)                     (0 where masked)
 //   delta = rowsum(dO o O)                   (O the forward's output)
 //   dV    = P^T dO;   dP = dO V^T;   dS = P o (dP - delta)
@@ -20,9 +24,8 @@
 // dq, dk, dv rounded to the input type once.
 //
 // Design: three kernels on the caller's stream, 128 threads each.
-//   1. rows:  one CTA per (64 query rows, query head, batch) recomputes each
-//      row's log-sum-exp with the forward's online max and sum over the key
-//      tiles, and delta, into an f32 scratch (B, Hq, S) each.
+//   1. rows:  delta per query row into an f32 scratch (B, Hq, S)
+//      (flash_bwd_rows.cuh, shared with the tensor-core backward).
 //   2. dk/dv: one CTA per (64 keys, KV head, batch) keeps its keys' dK and
 //      dV in registers (thread (ty, tx) owns keys 4 ty .. 4 ty + 3 and the
 //      feature columns 4 tx + 32 g .. + 3) and walks the group's query
@@ -41,28 +44,26 @@
 // in the kernels, so any S >= 1 is taken.
 //
 // Bound at the training path's shape (B, Hq, Hk, S, D) =
-// (2, 32, 32, 4096, 64), bf16, causal, on one H100 SXM: the backward's five
+// (2, 32, 32, 4096, 64), f32, causal, on one H100 SXM: the backward's five
 // products are 2.5 x the forward's 4 B Hq D S^2 / 2 = 3.44e11 FLOP, over
-// 989 TFLOP/s (bf16 dense tensor cores) 0.347 ms; bytes (q, k, v, o, dO
-// read, dq, dk, dv written) 2 x 8 x B H S D = 1.07e8 over 3.35 TB/s 0.032
-// ms.  It is bound by operations.  This design does them on the CUDA cores
-// in f32 (67 TFLOP/s at best) and recomputes q k^T three times and dO v^T
-// twice (8 products where 5 are needed), so it stands more than 23x from
-// that bound; wgmma for the products and the log-sum-exp from the forward's
-// epilogue are the redesign.
+// 67 TFLOP/s (f32 outside the tensor cores; the port does not use TF32)
+// 5.13 ms; bytes (q, k, v, o, dO read, dq, dk, dv written) 4 x 8 x B H S D
+// = 2.1e8 over 3.35 TB/s 0.064 ms.  It is bound by operations, and does
+// 7 products where 5 are needed (q k^T and dO v^T again for dQ).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "flash_bwd_rows.cuh"
 
 namespace {
 
 constexpr int THREADS = 128;
 constexpr int TQ = 64;            // query rows per CTA (rows, dq)
-constexpr int TK = 64;            // keys per tile (rows, dq) and per CTA (dk/dv)
+constexpr int TK = 64;            // keys per tile (dq) and per CTA (dk/dv)
 constexpr int TQ2 = 32;           // query rows per tile in the dk/dv kernel
 constexpr int LD = 68;            // row stride of 64-wide transposed tiles
 constexpr int LD2 = TQ2 + 4;      // row stride of 32-wide transposed tiles
-constexpr float NEG = -1e30f;     // the forward's mask value
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -84,7 +85,8 @@ struct Strides {
 struct Args {
   const void *q, *k, *v, *o, *dout;
   void *dq, *dk, *dv;
-  float *lse, *delta;             // (B, Hq, S) f32, contiguous
+  const float* lse;               // the forward's, (B, Hq, S) f32
+  float* delta;                   // (B, Hq, S) f32 scratch
   int group, S, D;
   Strides qs, ks, vs, os, dos, dqs, dks, dvs;
   float scale;
@@ -109,110 +111,6 @@ __device__ __forceinline__ void stage(const T* base, long long stride, int r0,
         (row < S && d < D) ? to_f32(base[row * stride + d]) : 0.f;
     if (t != nullptr) t[d * ldt + r] = x;
     if (m != nullptr) m[r * DP + d] = x;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// 1. rows: lse and delta
-// ---------------------------------------------------------------------------
-
-template <typename T, int DP>
-__global__ void __launch_bounds__(THREADS, 2)
-flash_bwd_rows_kernel(Args a) {
-  extern __shared__ float4 smem4[];
-  float* sQT = reinterpret_cast<float*>(smem4);   // [DP][LD]
-  float* sKT = sQT + DP * LD;                     // [DP][LD]
-
-  const int S = a.S, D = a.D;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / a.group;
-  const T* qb = static_cast<const T*>(a.q) + b * a.qs.b + h * a.qs.h;
-  const T* kb = static_cast<const T*>(a.k) + b * a.ks.b + hk * a.ks.h;
-  const T* ob = static_cast<const T*>(a.o) + b * a.os.b + h * a.os.h;
-  const T* gb = static_cast<const T*>(a.dout) + b * a.dos.b + h * a.dos.h;
-  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
-  const int q0 = qt * TQ;
-
-  stage<T, DP, TQ>(qb, a.qs.s, q0, S, D, sQT, LD, nullptr);
-
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG;
-    l[i] = 0.f;
-  }
-  const int n_kt_all = (S + TK - 1) / TK;
-  const int n_kt = a.causal ? min(qt + 1, n_kt_all) : n_kt_all;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * TK;
-    __syncthreads();
-    stage<T, DP, TK>(kb, a.ks.s, k0, S, D, sKT, LD, nullptr);
-    __syncthreads();
-    float s[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DP; ++d) {
-      const float4 qv = ld4(&sQT[d * LD + ty * 4]);
-      const float4 ka = ld4(&sKT[d * LD + tx * 8]);
-      const float4 kc = ld4(&sKT[d * LD + tx * 8 + 4]);
-      const float qr[4] = {qv.x, qv.y, qv.z, qv.w};
-      const float kr[8] = {ka.x, ka.y, ka.z, ka.w, kc.x, kc.y, kc.z, kc.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qr[i], kr[j], s[i][j]);
-    }
-    const bool edge = (a.causal && kt == qt) || (k0 + TK > S);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      float mc = NEG;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float x = s[i][j] * a.scale;
-        if (edge) {
-          const int col = k0 + tx * 8 + j;
-          if (col >= S || (a.causal && col > row)) x = NEG;
-        }
-        s[i][j] = x;
-        mc = fmaxf(mc, x);
-      }
-      mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 1));
-      mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 2));
-      mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, 4));
-      const float m_new = fmaxf(m[i], mc);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) ps += expf(s[i][j] - m_new);
-      ps += __shfl_xor_sync(0xffffffffu, ps, 1);
-      ps += __shfl_xor_sync(0xffffffffu, ps, 2);
-      ps += __shfl_xor_sync(0xffffffffu, ps, 4);
-      l[i] = expf(m[i] - m_new) * l[i] + ps;
-      m[i] = m_new;
-    }
-  }
-
-  const long long head = (static_cast<long long>(b) * gridDim.y + h) * S;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    // delta: lanes tx take the features tx, tx + 8, ...; a fixed-order
-    // shuffle reduction over the 8 lanes of the row group
-    float dl = 0.f;
-    if (row < S)
-      for (int d = tx; d < D; d += 8)
-        dl = fmaf(to_f32(gb[row * a.dos.s + d]), to_f32(ob[row * a.os.s + d]),
-                  dl);
-    dl += __shfl_xor_sync(0xffffffffu, dl, 1);
-    dl += __shfl_xor_sync(0xffffffffu, dl, 2);
-    dl += __shfl_xor_sync(0xffffffffu, dl, 4);
-    if (row < S && tx == 0) {
-      a.lse[head + row] = m[i] + logf(l[i]);
-      a.delta[head + row] = dl;
-    }
   }
 }
 
@@ -527,18 +425,19 @@ template <typename T, int DP>
 cudaError_t launch(const Args& a, int B, int Hq, int Hk,
                    cudaStream_t stream) {
   const int S = a.S;
-  constexpr int rows_bytes = 2 * DP * LD * 4;
   constexpr int dkdv_bytes = dkdv_smem_floats<DP>() * 4;
   constexpr int dq_bytes = dq_smem_floats<DP>() * 4;
-  auto rows = flash_bwd_rows_kernel<T, DP>;
   auto dkdv = flash_bwd_dkdv_kernel<T, DP>;
   auto dq = flash_bwd_dq_kernel<T, DP>;
-  cudaError_t err = set_smem(rows, rows_bytes);
-  if (err == cudaSuccess) err = set_smem(dkdv, dkdv_bytes);
+  cudaError_t err = set_smem(dkdv, dkdv_bytes);
   if (err == cudaSuccess) err = set_smem(dq, dq_bytes);
   if (err != cudaSuccess) return err;
   const int n_q = (S + TQ - 1) / TQ, n_k = (S + TK - 1) / TK;
-  rows<<<dim3(n_q, Hq, B), THREADS, rows_bytes, stream>>>(a);
+  madlib::flash_bwd::flash_bwd_rows_kernel<T>
+      <<<dim3(n_q, Hq, B), madlib::flash_bwd::ROWS_THREADS, 0, stream>>>(
+          static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.os.b,
+          a.os.h, a.os.s, a.dos.b, a.dos.h, a.dos.s, a.lse, 1.f, nullptr,
+          a.delta, S, S, a.D);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dkdv<<<dim3(n_k, Hk, B), THREADS, dkdv_bytes, stream>>>(a);
@@ -560,20 +459,21 @@ cudaError_t dispatch_dp(const Args& a, int B, int Hq, int Hk,
 
 // q, o, dout and dq (B, Hq, S, D); k, v, dk and dv (B, Hk, S, D); each given
 // by its batch, head and position strides in elements (feature stride 1).
-// lse and delta: f32 scratch of B * Hq * S elements each.  dtype 0 is
-// float32, 1 is bfloat16.  Launches the rows, dk/dv and dq kernels in that
-// order on the stream.  Returns cudaGetLastError() after the launches.
+// lse: the forward's log-sum-exp (B, Hq, S), f32 contiguous, natural log;
+// delta: f32 scratch of B * Hq * S elements.  dtype 0 is float32, 1 is
+// bfloat16.  Launches the rows, dk/dv and dq kernels in that order on the
+// stream.  Returns cudaGetLastError() after the launches.
 extern "C" int madlib_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, void* dq, void* dk, void* dv, void* lse, void* delta,
-    int dtype, int B, int Hq, int Hk, int S, int D, long long q_sb,
-    long long q_sh, long long q_ss, long long k_sb, long long k_sh,
-    long long k_ss, long long v_sb, long long v_sh, long long v_ss,
-    long long o_sb, long long o_sh, long long o_ss, long long do_sb,
-    long long do_sh, long long do_ss, long long dq_sb, long long dq_sh,
-    long long dq_ss, long long dk_sb, long long dk_sh, long long dk_ss,
-    long long dv_sb, long long dv_sh, long long dv_ss, float scale,
-    int causal, void* stream) {
+    const void* dout, void* dq, void* dk, void* dv, const void* lse,
+    void* delta, int dtype, int B, int Hq, int Hk, int S, int D,
+    long long q_sb, long long q_sh, long long q_ss, long long k_sb,
+    long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+    long long v_ss, long long o_sb, long long o_sh, long long o_ss,
+    long long do_sb, long long do_sh, long long do_ss, long long dq_sb,
+    long long dq_sh, long long dq_ss, long long dk_sb, long long dk_sh,
+    long long dk_ss, long long dv_sb, long long dv_sh, long long dv_ss,
+    float scale, int causal, void* stream) {
   if (Hk <= 0 || Hq % Hk != 0 || D < 1 || D > 128 || S < 1 || B < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
@@ -585,7 +485,7 @@ extern "C" int madlib_flash_attention_bwd(
   a.dq = dq;
   a.dk = dk;
   a.dv = dv;
-  a.lse = static_cast<float*>(lse);
+  a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<float*>(delta);
   a.group = Hq / Hk;
   a.S = S;

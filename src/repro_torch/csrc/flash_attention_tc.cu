@@ -11,6 +11,7 @@
 //   m   = max(m, rowmax s);  alpha = exp(m_old - m);  p = exp(s - m)   (f32)
 //   l   = alpha * l + rowsum p;  acc = alpha * acc + bf16(p) . v
 //   out = acc / max(l, 1e-30), in bf16
+//   lse = (m + log2 l) ln 2  (natural log; only when the caller asks)
 //
 // p is rounded to bf16 before the PV product, as the reference's chunked
 // path does (`p.astype(vc.dtype)`); l sums the f32 p.  f32 inputs, and
@@ -55,22 +56,28 @@
 //     and the grid's slow axis launches the longest causal rows first.
 //     Every output row is written by one CTA, with no atomics: results
 //     repeat bit for bit.  The C entry returns cudaGetLastError().
+//   * When asked, the epilogue also writes each row's log-sum-exp, which
+//     the backward (flash_attention_bwd_tc.cu, flash_attention_bwd.cu)
+//     takes in place of recomputing q k^T: stored in natural log, as the
+//     FFMA forward stores it, from the base-2 m and l here.  The mbarrier,
+//     TMA and wgmma helpers are shared with the backward in hopper.cuh.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace madlib::hopper;
 
 constexpr int BM = 128;           // query rows per CTA (two warpgroups)
 constexpr int TK = 128;           // keys per K/V tile
 constexpr int STAGES = 2;         // K/V ring depth
 constexpr int CONSUMERS = 256;    // two warpgroups
 constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
-constexpr int ROW_BYTES = 128;    // one swizzled row: 64 bf16
-constexpr float NEG = -1e30f;     // the mask value (never -inf: no NaN)
-constexpr float LOG2E = 1.4426950408889634f;
 static_assert(BM == TK, "one tensor-map box shape serves Q, K and V");
 
 // shared memory: [Q | K0 V0 | K1 V1 | barriers], each tile 64-column chunks
@@ -88,195 +95,13 @@ struct Smem {
   static constexpr int BYTES = BAR_OFF + 8 * BARS + 1024;  // + alignment
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Waits for the phase of the given parity to complete.  A wait that
-// outlasts about 10 s of SM clock (a copy that never lands) traps, so a
-// fault ends the launch with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long t0 = clock64();
-  while (!done) {
-    if (clock64() - t0 > (1ll << 34)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// one box of the 4-d tensor map (D, S, H, B) into shared memory
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving accumulator reads or writes across an
-// asynchronous wgmma
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// 2^x on the SFU, subnormal results flushed to zero (a p below 2^-126 of
-// the row's largest weighs nothing against it in bf16)
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D(64 x 128, f32) += A(64 x 16, shared) B(16 x 128, shared), both K-major
-__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
-      "%60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// D(64 x 64, f32) += A(64 x 16, registers) B(16 x 64, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31},"
-      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D(64 x 128, f32) += A(64 x 16, registers) B(16 x 128, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
-      "%60, %61, %62, %63},"
-      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int DP>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
-                                         uint64_t db) {
-  if constexpr (DP == 64)
-    wgmma_rs_n64(d, a, db);
-  else
-    wgmma_rs_n128(d, a, db);
-}
-
-template <int DP>
+template <int DP, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
-                          __nv_bfloat16* __restrict__ o, int Hq, int group,
+                          __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, int Hq, int group,
                           int S, int D, long long o_sb, long long o_sh,
                           long long o_ss, float scale_log2, int causal) {
   using L = Smem<DP>;
@@ -444,6 +269,12 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  if (LSE && (lane & 3) == 0) {
+    // the natural log: m and l are in base 2 here
+    float* lb = lse + (static_cast<long long>(b) * Hq + h) * S;
+    if (r0 < S) lb[r0] = (m0 + log2f(d0)) * LN2;
+    if (r1 < S) lb[r1] = (m1 + log2f(d1)) * LN2;
+  }
   __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
 #pragma unroll
   for (int j = 0; j < DP / 8; ++j) {
@@ -458,99 +289,66 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// (D, S, H, B) bf16 with the given strides in elements; boxes of 64
-// features x 128 positions, 128-byte swizzle, zeros outside the tensor
-bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int D,
-              int S, int H, int B, long long sb, long long sh, long long ss) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, BM, 1, 1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int DP>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
-                   const CUtensorMap& tv, void* o, int B, int Hq, int Hk,
-                   int S, int D, long long o_sb, long long o_sh,
+                   const CUtensorMap& tv, void* o, float* lse, int B, int Hq,
+                   int Hk, int S, int D, long long o_sb, long long o_sh,
                    long long o_ss, float scale, int causal,
                    cudaStream_t stream) {
-  auto kernel = flash_attention_tc_kernel<DP>;
+  // without lse an instantiation of its own, whose code has no epilogue
+  // branch: serving does not pay for the backward's output
+  auto kernel = lse == nullptr ? flash_attention_tc_kernel<DP, false>
+                               : flash_attention_tc_kernel<DP, true>;
   constexpr int bytes = Smem<DP>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   dim3 grid(B * Hq, (S + BM - 1) / BM);
   kernel<<<grid, THREADS, bytes, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Hq, Hq / Hk, S, D, o_sb,
-      o_sh, o_ss, scale * LOG2E, causal);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, Hq, Hq / Hk, S, D,
+      o_sb, o_sh, o_ss, scale * LOG2E, causal);
   return cudaGetLastError();
-}
-
-bool aligned(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
 
 // bf16 q (B, Hq, S, D), k and v (B, Hk, S, D), o (B, Hq, S, D), each given
 // by its batch, head and position strides in elements (feature stride 1).
-// Takes D % 8 == 0, 8 <= D <= 128, every pointer 16-byte aligned and every
-// stride a multiple of 8 elements (TMA's 16-byte rule); the wrapper sends
-// only such inputs here and passes a contiguous tensor's stride for an
-// axis of size 1.
+// lse, when not null, receives each row's log-sum-exp of the scaled, masked
+// scores in natural log, f32 (B, Hq, S) contiguous; null writes nothing and
+// leaves o's bits as they are without it.  Takes D % 8 == 0, 8 <= D <= 128,
+// every pointer 16-byte aligned and every stride a multiple of 8 elements
+// (TMA's 16-byte rule); the wrapper sends only such inputs here and passes
+// a contiguous tensor's stride for an axis of size 1.
 // Returns cudaGetLastError() after the launch.
 extern "C" int madlib_flash_attention_tc(
-    const void* q, const void* k, const void* v, void* o, int B, int Hq,
-    int Hk, int S, int D, long long q_sb, long long q_sh, long long q_ss,
-    long long k_sb, long long k_sh, long long k_ss, long long v_sb,
-    long long v_sh, long long v_ss, long long o_sb, long long o_sh,
-    long long o_ss, float scale, int causal, void* stream) {
+    const void* q, const void* k, const void* v, void* o, void* lse, int B,
+    int Hq, int Hk, int S, int D, long long q_sb, long long q_sh,
+    long long q_ss, long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss, long long o_sb,
+    long long o_sh, long long o_ss, float scale, int causal, void* stream) {
   const long long strides[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
                                  v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
   if (Hk <= 0 || Hq % Hk != 0 || D % 8 != 0 || D < 8 || D > 128 || S < 1 ||
-      B < 1 || !aligned(q) || !aligned(k) || !aligned(v) || !aligned(o))
+      B < 1 || !aligned16(q) || !aligned16(k) || !aligned16(v) ||
+      !aligned16(o))
     return static_cast<int>(cudaErrorInvalidValue);
   for (long long s : strides)
     if (s % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t bound = bind_context(q);
+  if (bound != cudaSuccess) return static_cast<int>(bound);
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, encode, q, D, S, Hq, B, q_sb, q_sh, q_ss) ||
-      !make_map(&tk, encode, k, D, S, Hk, B, k_sb, k_sh, k_ss) ||
-      !make_map(&tv, encode, v, D, S, Hk, B, v_sb, v_sh, v_ss))
+  if (!make_map(&tq, encode, q, D, S, Hq, B, q_sb, q_sh, q_ss, BM) ||
+      !make_map(&tk, encode, k, D, S, Hk, B, k_sb, k_sh, k_ss, TK) ||
+      !make_map(&tv, encode, v, D, S, Hk, B, v_sb, v_sh, v_ss, TK))
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      D <= 64 ? launch<64>(tq, tk, tv, o, B, Hq, Hk, S, D, o_sb, o_sh, o_ss,
-                           scale, causal, st)
-              : launch<128>(tq, tk, tv, o, B, Hq, Hk, S, D, o_sb, o_sh, o_ss,
-                            scale, causal, st);
+      D <= 64 ? launch<64>(tq, tk, tv, o, static_cast<float*>(lse), B, Hq,
+                           Hk, S, D, o_sb, o_sh, o_ss, scale, causal, st)
+              : launch<128>(tq, tk, tv, o, static_cast<float*>(lse), B, Hq,
+                            Hk, S, D, o_sb, o_sh, o_ss, scale, causal, st);
   return static_cast<int>(err);
 }

@@ -45,17 +45,21 @@ _SIGNATURES = {
     "madlib_kmeans_assign": [_P, _P, _P, _P, _P, _P, _P, _P,
                              ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                              ctypes.c_int, _P],
-    "madlib_flash_attention": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+    "madlib_flash_attention": [_P, _P, _P, _P, _P, ctypes.c_int,
                                ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_int, *[ctypes.c_longlong] * 12,
-                               ctypes.c_float, ctypes.c_int, _P],
-    "madlib_flash_attention_tc": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_int, ctypes.c_int,
+                               *[ctypes.c_longlong] * 12, ctypes.c_float,
+                               ctypes.c_int, _P],
+    "madlib_flash_attention_tc": [_P, _P, _P, _P, _P, ctypes.c_int,
                                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                  *[ctypes.c_longlong] * 12, ctypes.c_float,
-                                  ctypes.c_int, _P],
+                                  ctypes.c_int, *[ctypes.c_longlong] * 12,
+                                  ctypes.c_float, ctypes.c_int, _P],
     "madlib_flash_attention_bwd": [*[_P] * 10, *[ctypes.c_int] * 6,
                                    *[ctypes.c_longlong] * 24, ctypes.c_float,
                                    ctypes.c_int, _P],
+    "madlib_flash_attention_bwd_tc": [*[_P] * 10, *[ctypes.c_int] * 5,
+                                      *[ctypes.c_longlong] * 24,
+                                      ctypes.c_float, ctypes.c_int, _P],
 }
 
 _LOCK = threading.Lock()

@@ -18,12 +18,17 @@ On a CPU tensor the wrapper runs the plain version in ``ref.py``.
 count each kernel's own.
 
 Gradients: where an input requires one, :func:`flash_attention` runs
-through :class:`FlashAttentionFn`, whose backward dispatches
-``flash_attention_bwd``: the kernel ``csrc/flash_attention_bwd.cu`` on
-CUDA tensors (:func:`flash_attention_bwd`, counted in
-``flash_attention_bwd_launches``), ``flash_attention_bwd_ref`` on CPU
-tensors.  Where none does, nothing is saved and the forward is the
-serving call as it was.
+through :class:`FlashAttentionFn`, which asks the forward kernel for each
+row's log-sum-exp and saves it; its backward dispatches
+``flash_attention_bwd``: on CUDA tensors :func:`flash_attention_bwd`,
+which picks between two hand-written backwards by the forward's rule
+(:func:`kernel_for`): ``csrc/flash_attention_bwd_tc.cu`` (wgmma, TMA) or
+the FFMA kernels of ``csrc/flash_attention_bwd.cu``, counted in
+``flash_attention_bwd_tc_launches`` and
+``flash_attention_bwd_ffma_launches`` and their sum
+``flash_attention_bwd_launches``; ``flash_attention_bwd_ref`` on CPU
+tensors.  Where none requires one, nothing is saved, no log-sum-exp is
+written, and the forward is the serving call as it was.
 
 The layout is the reference wrapper's: q (B, Hq, S, D), k and v
 (B, Hk, S, D), the result (B, Hq, S, D).  Unlike the reference there is
@@ -45,10 +50,13 @@ flash_attention_launches = 0
 flash_attention_tc_launches = 0
 flash_attention_ffma_launches = 0
 flash_attention_bwd_launches = 0
+flash_attention_bwd_tc_launches = 0
+flash_attention_bwd_ffma_launches = 0
 
 MAX_D = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _TMA_ALIGN = 16   # bytes: TMA's rule for pointers and strides
+ROW_PAD = 64      # the tensor-core backward's row scratch pads S to this
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -91,7 +99,8 @@ def tma_strides(t: torch.Tensor) -> list[int] | None:
 
 
 def kernel_for(*tensors: torch.Tensor) -> str:
-    """Which CUDA kernel takes q, k, v and the output (``tensors``):
+    """Which CUDA kernel takes ``tensors`` (q, k, v and the output; for the
+    backward also the output's gradient):
     ``"tc"`` (tensor cores) for bfloat16 with D % 8 == 0 that TMA can read
     (:func:`tma_strides`), else ``"ffma"``."""
     t0 = tensors[0]
@@ -103,82 +112,131 @@ def kernel_for(*tensors: torch.Tensor) -> str:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, return_lse: bool = False):
     """q (B, Hq, S, D), k/v (B, Hk, S, D) -> (B, Hq, S, D) in q's dtype:
     softmax(q k^T / sqrt(D)) v, causal unless ``causal=False``, query head
-    h reading KV head h // (Hq / Hk).  Differentiable in q, k and v."""
+    h reading KV head h // (Hq / Hk).  Differentiable in q, k and v.
+
+    ``return_lse=True`` gives ``(out, lse)`` with each row's log-sum-exp
+    of the scaled, masked scores, f32 (B, Hq, S), natural log; ``out`` is
+    the same bits as without it.  That call records no graph, so it
+    raises where an input requires a gradient under grad mode."""
     _check(q, k, v)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    wants_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    if return_lse:
+        if wants_grad:
+            raise ValueError("flash_attention: return_lse=True records no "
+                             "gradient; call it under torch.no_grad() or "
+                             "on inputs that require none")
+        return _forward(q, k, v, causal, with_lse=True)
+    if wants_grad:
         return FlashAttentionFn.apply(q, k, v, causal)
     return _forward(q, k, v, causal)
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """The forward kernel with the backward kernel as its gradient.  Saves
-    q, k, v and the output; under activation checkpointing those are
-    dropped and the forward runs again before the backward."""
+    q, k, v, the output and the forward's log-sum-exp (f32, B Hq S); under
+    activation checkpointing those are dropped and the forward runs again,
+    log-sum-exp and all, before the backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        out = _forward(q, k, v, causal)
+        out, lse = _forward(q, k, v, causal, with_lse=True)
         ctx.causal = causal
-        ctx.save_for_backward(q, k, v, out)
+        ctx.save_for_backward(q, k, v, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         from ..registry import dispatch
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         if dout.stride(-1) != 1:
             dout = dout.contiguous()
-        dq, dk, dv = dispatch("flash_attention_bwd", q, k, v, out, dout,
+        dq, dk, dv = dispatch("flash_attention_bwd", q, k, v, out, dout, lse,
                               causal=ctx.causal)
         return dq, dk, dv, None
 
 
-def _forward(q, k, v, causal: bool) -> torch.Tensor:
+def _forward(q, k, v, causal: bool, with_lse: bool = False):
+    """The forward on q's device: the kernel chosen by :func:`kernel_for`
+    on the card, the plain version on the CPU.  ``with_lse`` also returns
+    the log-sum-exp that the kernel's epilogue writes (none is written
+    without it)."""
     global flash_attention_launches, flash_attention_tc_launches
     global flash_attention_ffma_launches
     if not runs_on_card(q, "flash_attention"):
-        return flash_attention_ref(q, k, v, causal=causal)
+        return flash_attention_ref(q, k, v, causal=causal,
+                                   return_lse=with_lse)
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: the feature axis of q, k and v "
                          "must have stride 1")
     b, hq, s, d = q.shape
     out = torch.empty_like(q)      # q's strides where q is dense
+    lse = (torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if with_lse else out
+    lse_ptr = None if lse is None else lse.data_ptr()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scale = 1.0 / (d ** 0.5)
     if kernel_for(q, k, v, out) == "tc":
         strides = [st for t in (q, k, v, out) for st in tma_strides(t)]
         err = _build.lib().madlib_flash_attention_tc(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
-            k.shape[1], s, d, *strides, scale, int(causal), stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse_ptr, b, hq, k.shape[1], s, d, *strides, scale, int(causal),
+            stream)
         _build.check("flash_attention_tc", err)
         flash_attention_tc_launches += 1
     else:
         err = _build.lib().madlib_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], b, hq, k.shape[1], s, d,
+            lse_ptr, _DTYPES[q.dtype], b, hq, k.shape[1], s, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], scale, int(causal), stream)
         _build.check("flash_attention", err)
         flash_attention_ffma_launches += 1
     flash_attention_launches += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def _check_lse(q: torch.Tensor, lse: torch.Tensor) -> None:
+    b, hq, s, _ = q.shape
+    if (not isinstance(lse, torch.Tensor) or lse.shape != (b, hq, s)
+            or lse.dtype != torch.float32 or lse.device != q.device
+            or not lse.is_contiguous()):
+        got = (f"{tuple(lse.shape)} {lse.dtype} on {lse.device}"
+               if isinstance(lse, torch.Tensor) else type(lse).__name__)
+        raise ValueError(f"flash_attention_bwd: lse {got}, want the "
+                         f"forward's contiguous float32 {(b, hq, s)} on "
+                         f"{q.device}")
+
+
+def bwd_kernel_for(q, k, v, out, dout, lse) -> str:
+    """Which backward takes these inputs on the card: ``"tc"`` where the
+    forward's rule (:func:`kernel_for`) sends q, k, v, out and dout to
+    the tensor cores and lse starts 16-byte aligned, else ``"ffma"``.  The
+    gradients are laid out like q, k and v, so they pass where those do."""
+    if lse.data_ptr() % _TMA_ALIGN or kernel_for(q, k, v, out, dout) != "tc":
+        return "ffma"
+    return "tc"
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        out: torch.Tensor, dout: torch.Tensor, *,
-                        causal: bool = True):
+                        out: torch.Tensor, dout: torch.Tensor,
+                        lse: torch.Tensor, *, causal: bool = True):
     """The gradients (dq, dk, dv) of :func:`flash_attention` at q, k, v
-    given its output ``out`` and that output's gradient ``dout`` (both
-    shaped like q), each laid out like its input.  One call launches the
-    three kernels of ``csrc/flash_attention_bwd.cu`` (rows, dk/dv, dq) on
-    the current stream, with an f32 scratch of 2 B Hq S elements for the
-    rows' log-sum-exp and delta."""
-    global flash_attention_bwd_launches
+    given its output ``out``, that output's gradient ``dout`` (both shaped
+    like q) and the forward's log-sum-exp ``lse`` (f32, (B, Hq, S), from
+    ``flash_attention(..., return_lse=True)``), each gradient laid out
+    like its input.  On the card one call launches the three kernels of
+    the backward that :func:`bwd_kernel_for` picks (rows, dK/dV, dQ) on
+    the current stream, with an f32 scratch for the rows' delta (and, for
+    the tensor cores, lse in base 2 beside it).  On the CPU it runs the
+    plain version, which recomputes the softmax and reads no lse."""
+    global flash_attention_bwd_launches, flash_attention_bwd_tc_launches
+    global flash_attention_bwd_ffma_launches
     _check(q, k, v)
     for name, t in (("out", out), ("dout", dout)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -186,6 +244,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{tuple(t.shape)} {t.dtype} on {t.device}, "
                              f"want q's {tuple(q.shape)} {q.dtype} on "
                              f"{q.device}")
+    _check_lse(q, lse)
     if not runs_on_card(q, "flash_attention_bwd"):
         return flash_attention_bwd_ref(q, k, v, out, dout, causal=causal)
     if any(t.stride(-1) != 1 for t in (q, k, v, out, dout)):
@@ -195,15 +254,26 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.numel() == 0:
         return dq, dk, dv
     b, hq, s, d = q.shape
-    scratch = torch.empty((2, b, hq, s), dtype=torch.float32,
-                          device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     tensors = (q, k, v, out, dout, dq, dk, dv)
-    err = _build.lib().madlib_flash_attention_bwd(
-        *(t.data_ptr() for t in tensors), scratch[0].data_ptr(),
-        scratch[1].data_ptr(), _DTYPES[q.dtype], b, hq, k.shape[1], s, d,
-        *(st for t in tensors for st in t.stride()[:3]), 1.0 / (d ** 0.5),
-        int(causal), stream)
-    _build.check("flash_attention_bwd", err)
+    ptrs = [t.data_ptr() for t in tensors]
+    if bwd_kernel_for(q, k, v, out, dout, lse) == "tc":
+        s_pad = -(-s // ROW_PAD) * ROW_PAD
+        rows = torch.empty((2, b, hq, s_pad), dtype=torch.float32,
+                           device=q.device)
+        err = _build.lib().madlib_flash_attention_bwd_tc(
+            *ptrs, lse.data_ptr(), rows.data_ptr(), b, hq, k.shape[1], s, d,
+            *(st for t in tensors for st in tma_strides(t)),
+            1.0 / (d ** 0.5), int(causal), stream)
+        _build.check("flash_attention_bwd_tc", err)
+        flash_attention_bwd_tc_launches += 1
+    else:
+        delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+        err = _build.lib().madlib_flash_attention_bwd(
+            *ptrs, lse.data_ptr(), delta.data_ptr(), _DTYPES[q.dtype], b, hq,
+            k.shape[1], s, d, *(st for t in tensors for st in t.stride()[:3]),
+            1.0 / (d ** 0.5), int(causal), stream)
+        _build.check("flash_attention_bwd", err)
+        flash_attention_bwd_ffma_launches += 1
     flash_attention_bwd_launches += 1
     return dq, dk, dv

@@ -6,11 +6,14 @@ import torch
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  scale: float, causal: bool = True) -> torch.Tensor:
+                  scale: float, causal: bool = True,
+                  return_lse: bool = False):
     """q (B, Hq, S, D), k/v (B, Hk, S, D) -> (B, Hq, S, D) in q's dtype.
 
     f32 compute, ``-1e30`` mask, K/V heads repeated to the query heads
-    (query head h reads KV head h // (Hq / Hk))."""
+    (query head h reads KV head h // (Hq / Hk)).  ``return_lse=True``
+    also gives each row's ``torch.logsumexp`` of the same f32 logits,
+    (B, Hq, S) f32: ``(out, lse)``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     s = q.shape[2]
     group = q.shape[1] // k.shape[1]
@@ -22,25 +25,30 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                      device=q.device))
         logits = torch.where(mask, logits, torch.tensor(
             -1e30, dtype=torch.float32, device=q.device))
+    lse = torch.logsumexp(logits, -1) if return_lse else None
     w = torch.exp(logits - torch.amax(logits, -1, keepdim=True))
     w = w / torch.sum(w, -1, keepdim=True)
-    return torch.einsum("bhqk,bhkd->bhqd", w, vx).to(q.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", w, vx).to(q.dtype)
+    return (out, lse) if return_lse else out
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True) -> torch.Tensor:
+                        *, causal: bool = True, return_lse: bool = False):
     """:func:`attention_ref` at the wrapper's scale ``1 / sqrt(D)``: the
     plain version with the wrapper's signature."""
     return attention_ref(q, k, v, scale=1.0 / (q.shape[-1] ** 0.5),
-                         causal=causal)
+                         causal=causal, return_lse=return_lse)
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, out: torch.Tensor,
-                            dout: torch.Tensor, *, causal: bool = True):
+                            dout: torch.Tensor, lse=None, *,
+                            causal: bool = True):
     """The plain version of the backward kernel: the gradients (dq, dk, dv)
     of :func:`flash_attention_ref` given its output ``out`` and the
-    output's gradient ``dout``, in explicit formulas, in f32:
+    output's gradient ``dout``, in explicit formulas, in f32.  It takes the
+    wrapper's ``lse`` argument and does not read it: it recomputes the
+    softmax itself, an oracle independent of the forward's log-sum-exp:
 
         P = softmax(q k^T * scale)  (recomputed; masked entries 0)
         dV = P^T dO;  dP = dO V^T;  dS = P o (dP - rowsum(dO o O))

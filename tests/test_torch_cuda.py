@@ -1291,14 +1291,20 @@ def test_fit_grouped_linregr_task_on_card_launches_xtx_per_group(
                               np.asarray(want.stats[k])), k
 
 
-# -- the flash_attention backward kernel, and training on the card -----------
+# -- the flash_attention backward kernels, and training on the card ---------
 # Kernel and plain version compute in f32 from the same inputs and sum in
 # other orders: f32 within 1e-4 of max |plain|; bf16 within one bf16 step
-# (2^-7 of max |plain|), since both round to bf16 once.
+# (2^-7 of max |plain|), since both round to bf16 once (the tensor-core
+# backward also rounds P and dS to bf16 as product operands, as the
+# reference's bf16 gradient does).  bf16 runs the tensor-core backward
+# (flash_attention_bwd_tc.cu), f32 the FFMA one (flash_attention_bwd.cu).
+# The forward's log-sum-exp against torch.logsumexp of the plain version's
+# f32 logits: within 2e-5 of max(1, |lse|) per row.
 
 BWD_SHAPES = [(1, 2, 1, 64, 64, True), (2, 4, 2, 100, 16, True),
               (1, 2, 2, 37, 80, False), (1, 4, 4, 128, 128, True),
               (2, 8, 2, 70, 32, False), (1, 2, 1, 2, 8, True)]
+LSE_REL = 2e-5
 
 
 def _bwd_inputs(dev, dtype, b, hq, hk, s, d, seed):
@@ -1318,6 +1324,12 @@ def _hold_bwd(got, want, rel):
         assert err <= rel * scale + 1e-30, (err, scale)
 
 
+def _bwd_counts():
+    return (fa_ops.flash_attention_bwd_launches,
+            fa_ops.flash_attention_bwd_tc_launches,
+            fa_ops.flash_attention_bwd_ffma_launches)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,hq,hk,s,d,causal", BWD_SHAPES)
 def test_flash_attention_bwd_kernel_matches_plain(cuda_device, dtype, b, hq,
@@ -1325,32 +1337,80 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda_device, dtype, b, hq,
     dt = getattr(torch, dtype)
     q, k, v, _, do = _bwd_inputs(cuda_device, dt, b, hq, hk, s, d, s * d)
     out = fa_ref.flash_attention_ref(q, k, v, causal=causal)
-    before = fa_ops.flash_attention_bwd_launches
-    got = fa_ops.flash_attention_bwd(q, k, v, out, do, causal=causal)
-    again = fa_ops.flash_attention_bwd(q, k, v, out, do, causal=causal)
+    _, lse = fa_ops.flash_attention(q, k, v, causal=causal, return_lse=True)
+    before = _bwd_counts()
+    got = fa_ops.flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
+    again = fa_ops.flash_attention_bwd(q, k, v, out, do, lse, causal=causal)
     torch.cuda.synchronize()
-    assert fa_ops.flash_attention_bwd_launches - before == 2
+    ran = tuple(a - c for a, c in zip(_bwd_counts(), before))
+    assert ran == ((2, 2, 0) if dtype == "bfloat16" else (2, 0, 2))
     want = fa_ref.flash_attention_bwd_ref(q, k, v, out, do, causal=causal)
     _hold_bwd(got, want, 1e-4 if dtype == "float32" else 2.0 ** -7)
     for a, c in zip(got, again):
         assert torch.equal(a, c)        # no atomics: the same bits
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hk,s,d,causal", BWD_SHAPES + [
+    (2, 4, 2, 300, 128, True), (1, 8, 8, 1000, 64, True)])
+def test_flash_attention_forward_lse_matches_plain(cuda_device, dtype, b, hq,
+                                                   hk, s, d, causal):
+    """Both forward kernels (tensor cores in bf16, FFMA in f32) write each
+    row's log-sum-exp when asked, within LSE_REL of max(1, |plain|); the
+    output is bitwise the output without it."""
+    dt = getattr(torch, dtype)
+    q, k, v, _, _ = _bwd_inputs(cuda_device, dt, b, hq, hk, s, d, s + d)
+    before = (fa_ops.flash_attention_tc_launches,
+              fa_ops.flash_attention_ffma_launches)
+    out, lse = fa_ops.flash_attention(q, k, v, causal=causal,
+                                      return_lse=True)
+    plain = fa_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ran = (fa_ops.flash_attention_tc_launches - before[0],
+           fa_ops.flash_attention_ffma_launches - before[1])
+    assert ran == ((2, 0) if dtype == "bfloat16" else (0, 2))
+    assert torch.equal(out, plain)
+    want = fa_ref.flash_attention_ref(q, k, v, causal=causal,
+                                      return_lse=True)[1]
+    assert lse.shape == (b, hq, s) and lse.dtype == torch.float32
+    err = (lse - want).abs() / want.abs().clamp(min=1.0)
+    assert float(err.max()) <= LSE_REL
+
+
+def test_flash_attention_bwd_bf16_unaligned_takes_the_ffma_kernel(
+        cuda_device):
+    """bf16 whose dout TMA cannot read (a pointer 2 bytes past 16) goes
+    through the FFMA backward, by the forward's rule."""
+    q, k, v, out, do = _bwd_inputs(cuda_device, torch.bfloat16, 1, 4, 2, 64,
+                                   32, 5)
+    _, lse = fa_ops.flash_attention(q, k, v, return_lse=True)
+    odd = torch.zeros(1 + do.numel(), dtype=torch.bfloat16,
+                      device=cuda_device)[1:].view(do.shape)
+    odd.copy_(do)
+    before = _bwd_counts()
+    got = fa_ops.flash_attention_bwd(q, k, v, out, odd, lse)
+    torch.cuda.synchronize()
+    assert tuple(a - c for a, c in zip(_bwd_counts(), before)) == (1, 0, 1)
+    _hold_bwd(got, fa_ref.flash_attention_bwd_ref(q, k, v, out, do),
+              2.0 ** -7)
+
+
 def test_flash_attention_autograd_runs_the_bwd_kernel(cuda_device):
     q, k, v, _, do = _bwd_inputs(cuda_device, torch.bfloat16, 2, 8, 2, 256,
                                  64, 7)
     qkv = [t.detach().requires_grad_() for t in (q, k, v)]
-    before = (fa_ops.flash_attention_bwd_launches,
-              fa_ops.flash_attention_tc_launches)
+    before = (_bwd_counts(), fa_ops.flash_attention_tc_launches)
     with trace_execution() as tr:
         out = registry.dispatch("flash_attention", *qkv, causal=True)
         grads = torch.autograd.grad(out, qkv, do)
     torch.cuda.synchronize()
-    assert (fa_ops.flash_attention_bwd_launches - before[0],
-            fa_ops.flash_attention_tc_launches - before[1]) == (1, 1)
+    assert (tuple(a - c for a, c in zip(_bwd_counts(), before[0])),
+            fa_ops.flash_attention_tc_launches - before[1]) == ((1, 1, 0), 1)
     assert [(e.detail["name"], e.engine) for e in tr.kernels] == [
         ("flash_attention", "cuda"), ("flash_attention_bwd", "cuda")]
-    want = fa_ops.flash_attention_bwd(q, k, v, out.detach(), do)
+    # the saved lse is the forward kernel's: the same bits as asking for it
+    _, lse = fa_ops.flash_attention(q, k, v, return_lse=True)
+    want = fa_ops.flash_attention_bwd(q, k, v, out.detach(), do, lse)
     for g, w in zip(grads, want):
         assert torch.equal(g, w)
 
@@ -1358,10 +1418,13 @@ def test_flash_attention_autograd_runs_the_bwd_kernel(cuda_device):
 def test_flash_attention_bwd_rejects_on_card(cuda_device):
     q, k, v, out, do = _bwd_inputs(cuda_device, torch.float32, 1, 2, 1, 16,
                                    16, 1)
+    _, lse = fa_ops.flash_attention(q, k, v, return_lse=True)
     wide = torch.zeros((1, 2, 16, 32), device=cuda_device)
     wide[..., ::2] = do
     with pytest.raises(ValueError, match="stride 1"):
-        fa_ops.flash_attention_bwd(q, k, v, out, wide[..., ::2])
+        fa_ops.flash_attention_bwd(q, k, v, out, wide[..., ::2], lse)
+    with pytest.raises(ValueError, match="lse"):
+        fa_ops.flash_attention_bwd(q, k, v, out, do, lse.cpu())
 
 
 def test_train_step_on_card_matches_the_cpu(cuda_device):

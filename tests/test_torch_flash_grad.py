@@ -16,7 +16,11 @@ to both packages.  Tolerances:
   forward ``attention_ref``, f32: the same 1e-5;
 * bf16 inputs: the plain backward against its f32 self on the same
   bf16 values, within one bf16 step (2^-7 of the max), since both compute
-  in f32 and round once.
+  in f32 and round once;
+* the forward's log-sum-exp (``return_lse=True``) against
+  ``jax.nn.logsumexp`` of the reference's scaled, masked f32 logits: within
+  1e-5 of max(1, |lse|) per row (the same f32 products summed in other
+  orders).
 """
 
 import jax
@@ -154,7 +158,155 @@ def test_no_grad_inputs_save_nothing():
 def test_bwd_wrapper_checks_inputs():
     q, k, v, dout = (torch.from_numpy(a).transpose(1, 2)
                      for a in _draw(9, 1, 2, 1, 16, 16))
+    _, lse = fa_ops.flash_attention(q, k, v, return_lse=True)
     with pytest.raises(ValueError):
-        fa_ops.flash_attention_bwd(q, k, v, q[:, :, :8], dout)
+        fa_ops.flash_attention_bwd(q, k, v, q[:, :, :8], dout, lse)
     with pytest.raises(ValueError):
-        fa_ops.flash_attention_bwd(q, k, v, q, dout.to(torch.bfloat16))
+        fa_ops.flash_attention_bwd(q, k, v, q, dout.to(torch.bfloat16), lse)
+
+
+def _lse_cases(q, lse):
+    """lse arguments the backward must refuse: wrong shape, dtype,
+    layout, or not a tensor."""
+    return [lse[:, :, :-1], lse.to(torch.bfloat16), lse.double(),
+            lse.transpose(0, 1), lse.mT.contiguous().mT, lse.unsqueeze(-1),
+            lse.numpy()]
+
+
+def test_bwd_wrapper_checks_lse():
+    """The backward takes the forward's lse, f32 (B, Hq, S), contiguous,
+    on q's device; anything else raises before any work, and so does a
+    call without it."""
+    q, k, v, dout = (torch.from_numpy(a).transpose(1, 2)
+                     for a in _draw(10, 2, 2, 1, 16, 16))
+    out, lse = fa_ops.flash_attention(q, k, v, return_lse=True)
+    for bad in _lse_cases(q, lse):
+        with pytest.raises(ValueError, match="lse"):
+            fa_ops.flash_attention_bwd(q, k, v, out, dout, bad)
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention_bwd(q, k, v, out, dout)
+    got = fa_ops.flash_attention_bwd(q, k, v, out, dout, lse)
+    want = fa_ref.flash_attention_bwd_ref(q, k, v, out, dout)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _jax_lse(q, k, causal):
+    """jax.nn.logsumexp of the reference's scaled, masked f32 logits
+    (``attention_scores``' own), (B, S, H, D) numpy in, (B, Hq, S) out."""
+    b, s, h, dh = q.shape
+    hk = k.shape[2]
+    qg = jnp.asarray(q).reshape(b, s, hk, h // hk, dh)
+    logits = jnp.einsum("bqhgd,bkhd->bhgqk", qg, jnp.asarray(k),
+                        preferred_element_type=jnp.float32) / (dh ** 0.5)
+    if causal:
+        idx = jnp.arange(s)
+        logits = jnp.where((idx[:, None] >= idx[None, :])[None, None, None],
+                           logits, -1e30)
+    return np.asarray(jax.nn.logsumexp(logits, axis=-1)).reshape(b, h, s)
+
+
+@pytest.mark.parametrize("b,hq,hk,s,d,causal", SHAPES)
+def test_ref_lse_matches_jax_logsumexp(b, hq, hk, s, d, causal):
+    q, k, v, _ = _draw(s * d + hq + 2, b, hq, hk, s, d)
+    out, lse = fa_ref.flash_attention_ref(
+        *(torch.from_numpy(a).transpose(1, 2) for a in (q, k, v)),
+        causal=causal, return_lse=True)
+    assert lse.shape == (b, hq, s) and lse.dtype == torch.float32
+    want = _jax_lse(q, k, causal)
+    err = np.abs(lse.numpy().astype(np.float64) - want)
+    assert float((err / np.maximum(1.0, np.abs(want))).max()) <= REL
+    # the output is the plain version's without lse, bit for bit
+    assert torch.equal(out, fa_ref.flash_attention_ref(
+        *(torch.from_numpy(a).transpose(1, 2) for a in (q, k, v)),
+        causal=causal))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_forward_return_lse(causal):
+    """``flash_attention(..., return_lse=True)`` gives the plain version's
+    output bits and its log-sum-exp; it refuses inputs that want a
+    gradient, since that call records no graph."""
+    q, k, v, _ = (torch.from_numpy(a).transpose(1, 2)
+                  for a in _draw(11, 2, 4, 2, 24, 16))
+    out, lse = fa_ops.flash_attention(q, k, v, causal=causal,
+                                      return_lse=True)
+    want_out, want_lse = fa_ref.flash_attention_ref(q, k, v, causal=causal,
+                                                    return_lse=True)
+    assert torch.equal(out, fa_ops.flash_attention(q, k, v, causal=causal))
+    assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
+    qg = q.clone().requires_grad_()
+    with pytest.raises(ValueError, match="return_lse"):
+        fa_ops.flash_attention(qg, k, v, causal=causal, return_lse=True)
+    with torch.no_grad():
+        out_ng, _ = fa_ops.flash_attention(qg, k, v, causal=causal,
+                                           return_lse=True)
+    assert torch.equal(out_ng, out)
+
+
+@pytest.mark.parametrize("b,hq,hk,s,d,causal", SHAPES)
+def test_function_saves_and_passes_lse(monkeypatch, b, hq, hk, s, d, causal):
+    """FlashAttentionFn saves the forward's lse and hands it to the
+    backward's dispatch as its sixth argument; the gradients are the plain
+    backward's."""
+    q, k, v, dout = (torch.from_numpy(a).transpose(1, 2)
+                     for a in _draw(s + hq + 3, b, hq, hk, s, d))
+    seen = []
+    entry = registry.get("flash_attention_bwd")
+
+    def ref(*args, **kwargs):
+        seen.append(args)
+        return entry.ref(*args, **kwargs)
+
+    monkeypatch.setitem(registry._REGISTRY, "flash_attention_bwd",
+                        registry.KernelEntry("flash_attention_bwd", ref,
+                                             entry.cuda))
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa_ops.flash_attention(*qkv, causal=causal)
+    saved = out.grad_fn.saved_tensors
+    grads = torch.autograd.grad(out, qkv, dout)
+    want_lse = fa_ref.flash_attention_ref(q, k, v, causal=causal,
+                                          return_lse=True)[1]
+    assert len(saved) == 5 and torch.equal(saved[4], want_lse)
+    assert len(seen) == 1 and len(seen[0]) == 6
+    assert torch.equal(seen[0][5], want_lse)
+    want = fa_ref.flash_attention_bwd_ref(q, k, v, out.detach(), dout,
+                                          causal=causal)
+    for g, w in zip(grads, want):
+        assert torch.equal(g, w)
+
+
+def _bf16(shape, offset=0):
+    """A bf16 tensor of ``shape`` whose data starts ``offset`` elements
+    into a fresh buffer (offset 1 breaks TMA's 16-byte rule)."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=torch.bfloat16)[offset:].view(shape)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("bf16", "tc"), ("f32", "ffma"), ("bf16 D=12", "ffma"),
+    ("bf16 dout off 16 bytes", "ffma"), ("bf16 lse off 16 bytes", "ffma"),
+    ("bf16 (B, S, H, D) storage", "tc"),
+    ("bf16 out head stride 4", "ffma")])
+def test_bwd_kernel_choice_on_metadata(case, want):
+    """The backward's tc/ffma choice reads only dtype, D, pointers and
+    strides (the forward's rule, with dout and lse), so it is checked on
+    CPU tensors."""
+    b, hq, hk, s = 2, 4, 2, 40
+    d = 12 if "D=12" in case else 16
+    dt = torch.float32 if case == "f32" else torch.bfloat16
+    q, out, dout = (torch.zeros((b, hq, s, d), dtype=dt) for _ in range(3))
+    k, v = (torch.zeros((b, hk, s, d), dtype=dt) for _ in range(2))
+    lse = torch.zeros((b, hq, s))
+    if "dout off" in case:
+        dout = _bf16((b, hq, s, d), 1)
+    if "lse off" in case:
+        lse = torch.zeros(b * hq * s + 1)[1:].view(b, hq, s)
+    if "storage" in case:
+        q, out, dout = (_bf16((b, s, hq, d)).transpose(1, 2)
+                        for _ in range(3))
+        k, v = (_bf16((b, s, hk, d)).transpose(1, 2) for _ in range(2))
+    if "head stride" in case:
+        out = torch.zeros(2 * b * hq * s * d, dtype=dt).as_strided(
+            (b, hq, s, d), (hq * s * d, 4, d, 1))
+    assert fa_ops.bwd_kernel_for(q, k, v, out, dout, lse) == want

@@ -23,7 +23,8 @@ checkout of the port (say the parent commit, from ``git archive``): its
 sources, and its wrappers' sizing, are used; each kernel takes the first
 edit set whose anchors all occur in its source, and is skipped when none
 does.  ``flash_attention_bwd`` needs no variant: one wrapper call launches
-its three kernels, and torch.profiler gives each one's device time (run
+its three kernels (tensor cores in bf16, FFMA in f32), and
+torch.profiler gives each one's device time (run
 it in a process of its own, before other work: inside chip_smoke.py's
 process the profiler records no device time for the ctypes library's
 launches).  Needs an NVIDIA GPU with nvcc.
@@ -157,16 +158,21 @@ BWD_SPLIT_SHAPES = ((2, 32, 32, 4096, 64, True), (2, 32, 8, 4096, 128, True))
 
 def flash_bwd_split(torch, ev, reps: int = 5) -> None:
     """The flash_attention backward's three kernels (rows, dK/dV, dQ; one
-    wrapper call launches all three) split by torch.profiler's device
-    time of each, beside CUDA events of the whole call, at
-    BWD_SPLIT_SHAPES in bf16 and f32.  Uses the checkout's own wrapper
-    and sources; no variant is built."""
+    wrapper call launches all three: the tensor-core ones in bf16, the
+    FFMA ones in f32) split by torch.profiler's device time of each,
+    beside CUDA events of the whole call, at BWD_SPLIT_SHAPES in bf16 and
+    f32.  Uses the checkout's own wrapper and sources (a checkout whose
+    backward takes no lse is called without it); no variant is built."""
+    import inspect
+
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
     if not hasattr(fa_ops, "flash_attention_bwd"):
         print("[split] flash_attention_bwd: skipped (not in this checkout)")
         return
+    takes_lse = "lse" in inspect.signature(
+        fa_ops.flash_attention_bwd).parameters
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(20121208)
@@ -177,10 +183,17 @@ def flash_bwd_split(torch, ev, reps: int = 5) -> None:
             q, k, v, do = [torch.randn((b, s, h, d), generator=gen,
                                        device=dev).to(dtype).transpose(1, 2)
                            for h in (hq, hk, hk, hq)]
-            o = fa_ops.flash_attention(q, k, v, causal=causal)
+            if takes_lse:
+                o, lse = fa_ops.flash_attention(q, k, v, causal=causal,
+                                                return_lse=True)
+                extra = (lse,)
+            else:
+                o, extra = fa_ops.flash_attention(q, k, v,
+                                                  causal=causal), ()
 
             def call():
-                fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
+                fa_ops.flash_attention_bwd(q, k, v, o, do, *extra,
+                                           causal=causal)
 
             call()
             torch.cuda.synchronize()
@@ -191,7 +204,7 @@ def flash_bwd_split(torch, ev, reps: int = 5) -> None:
             parts = {}
             for e in prof.key_averages():
                 for part in ("rows", "dkdv", "dq"):
-                    if f"flash_bwd_{part}_kernel" in e.key:
+                    if f"flash_bwd_{part}" in e.key:
                         parts[part] = parts.get(part, 0.0) + getattr(
                             e, "device_time_total", 0.0) / reps / 1e3
             split = (", ".join(f"{n} {t:.3f}" for n, t in parts.items())
@@ -202,7 +215,7 @@ def flash_bwd_split(torch, ev, reps: int = 5) -> None:
                   f"{'causal' if causal else 'non-causal'}: events "
                   f"{ev(call, reps):.3f} ms a call; device ms by kernel: "
                   f"{split}", flush=True)
-            del q, k, v, do, o
+            del q, k, v, do, o, extra
 
 
 def edit_set(csrc: Path, sets):
