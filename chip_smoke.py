@@ -175,7 +175,23 @@ m. then, with section l's models freed, LM training: the flash_attention
    repro_torch.launch.train --arch
    stablelm-1.6b --full --steps 4`` in-process (its corpus profile through
    ``countmin``); a checkpoint round trip and a resume at the reduced
-   config under ``build/``.
+   config under ``build/``;
+n. then, with section m's model freed, the sharded engine on one card:
+   section h's dyadic 10M x 160 table (``x``, ``y``, a Zipf ``item``,
+   64 groups ``g``) and section e's blobs, made on the card from the
+   seed and distributed over meshes of 1, 8 and 24 segments of
+   ``cuda:0`` (24 after ``pad_to(10_000_008)``, with its mask):
+   ``linregr`` and ``linregr_grouped`` (fold states), one ``Session``
+   batch of profile, linregr, Count-Min and FM (one planned scan,
+   sharded where the cost model picks it: at 8 and 24 segments), the
+   grouped Count-Min and FM, and ``kmeans_fit`` (k = 64, from k-means++
+   seeds) through the sharded engines; each fold state bitwise the
+   local engine's on the same table, k-means with equal rounds and
+   within section e's tolerance or the fit's own (at most 0.1% of the
+   rows assigned apart, SSE within 1e-5), each kernel launched once per
+   segment per pass; xtx, countmin and kmeans_assign against their plain
+   versions on segment 1's views (4 mod 16 bytes in); seconds of each
+   statement on both engines beside the card's name and power limit.
 
 The last line is ``{"ok": true, "device": {...}}``.  Imports neither JAX
 nor the JAX package.
@@ -207,6 +223,11 @@ KM_REASSIGN_TOL = 1e-3
 # the exact (float64) nearest centroid must be a near tie, its distance
 # within NEAR_TIE_RTOL of |x|^2 + max |c|^2 of the best one's
 NEAR_TIE_RTOL = 1e-5
+# section n: the segments' 10-round k-means fit sums its f32 centroid sums
+# in another order than the local fit, and near-tie rows drift apart over
+# the rounds (778 and 784 of 10,000,000 rows assigned apart under the two
+# fits' centroids at 8 and 24 segments on the H100): at most this many
+KM_SHARD_ROWS_APART = 2_000
 # IRLS in f32 against the same IRLS in float64, coefficients
 IRLS_RTOL, IRLS_ATOL = 1e-3, 1e-4
 PEAK_F32_FLOPS = 67e12     # H100 SXM, f32 outside the tensor cores
@@ -508,6 +529,60 @@ def km_gauss_check(torch, what: str, x, c, m, got, plain) -> float:
           f"{err['kernel']:.3e}, plain {err['plain']:.3e} (scale "
           f"{scale:.3e}); kernel vs plain {diff:.3e}")
     return diff
+
+
+def km_round_check(torch, what: str, x, c, assign, got: dict,
+                   want: dict) -> dict:
+    """Hold one Lloyd round's fold state from the segments (``got``)
+    against the local engine's (``want``), both assigning every row of
+    ``x`` to the centroids ``c``; ``assign`` is kmeans_assign's own
+    assignment of the whole column.  The counts of each may differ from
+    that assignment's by no more than the near-tie rows (the float64
+    second-nearest centroid within NEAR_TIE_RTOL of |x|^2 + max |c|^2 of
+    the nearest).  The sums and the SSE are each held to float64 sums
+    over that assignment, so that only f32 summation rounding remains, by
+    km_gauss_check's rule: the segments' error may exceed neither twice
+    the local engine's nor GAUSS_RTOL of the largest float64 term (the
+    sums also by 2 max|x| for each row assigned apart)."""
+    c64 = c.double()
+    cc = (c64 * c64).sum(1)
+    a = assign.long()
+    sums64 = torch.zeros(c.shape, dtype=torch.float64, device=x.device)
+    sums64.index_add_(0, a, x.double())
+    cnt64 = torch.bincount(a, minlength=c.shape[0]).double()
+    sse64, near = 0.0, 0
+    for r0 in range(0, x.shape[0], 1_000_000):
+        x64 = x[r0:r0 + 1_000_000].double()
+        xx = (x64 * x64).sum(1)
+        d2 = xx[:, None] - 2.0 * (x64 @ c64.T) + cc[None, :]
+        two = d2.topk(2, dim=1, largest=False).values
+        near += int((two[:, 1] - two[:, 0]
+                     <= NEAR_TIE_RTOL * (xx + cc.max())).sum())
+        sse64 += float(d2.gather(1, a[r0:r0 + 1_000_000, None])
+                       .clamp(min=0.0).sum())
+        del x64, d2, two
+    apart = {name: int((st["counts"].double() - cnt64).abs().sum()) // 2
+             for name, st in (("segments", got), ("local", want))}
+    require(max(apart.values()) <= near, f"{what}: rows assigned apart "
+            f"from kmeans_assign's own assignment {apart}, {near} near ties")
+    err = {name: (float((st["sums"].double() - sums64).abs().max()),
+                  abs(float(st["sse"]) - sse64))
+           for name, st in (("segments", got), ("local", want))}
+    limit = (max(2.0 * err["local"][0], GAUSS_RTOL
+                 * float(sums64.abs().max()))
+             + 2.0 * apart["segments"] * float(x.abs().max()),
+             max(2.0 * err["local"][1], GAUSS_RTOL * sse64))
+    require(err["segments"][0] <= limit[0], f"{what}: sums err "
+            f"{err['segments'][0]} vs float64, limit {limit[0]} (local "
+            f"{err['local'][0]})")
+    require(err["segments"][1] <= limit[1], f"{what}: SSE err "
+            f"{err['segments'][1]} vs float64, limit {limit[1]} (local "
+            f"{err['local'][1]})")
+    return {"rows_apart": apart["segments"],
+            "rows_apart_local": apart["local"], "near_ties": near,
+            "sums_err": err["segments"][0], "sums_err_local": err["local"][0],
+            "sums_limit": limit[0], "sse_err": err["segments"][1],
+            "sse_err_local": err["local"][1]}
 
 
 def bitwise(torch, what: str, got, want) -> float:
@@ -3555,6 +3630,291 @@ def convex_section(torch, dev, counters, errs, smi) -> dict:
     return steps
 
 
+# ---------------------------------------------------------------------------
+# n. the sharded engine: a single-controller mesh of segments on one card
+# ---------------------------------------------------------------------------
+
+SHARD_SEGS = (1, 8, 24)      # 24: the paper's top segment count (§4.4)
+SHARD_REPS = 3               # repeated runs timed: the best counts
+
+
+def sharded_section(torch, dev, counters, errs, smi) -> dict:
+    """Section h's dyadic N_MAIN x K_MAIN table (``x``, ``y``, a Zipf
+    ``item``, G_MAIN groups ``g``) and section e's blobs, made on the card
+    from the seed, distributed over meshes of SHARD_SEGS segments on one
+    card (24 after ``pad_to`` a multiple of 24, with its mask).  At each
+    count the main path's statements run on the sharded engines, each
+    between a zero and a read of the launch counters: ``linregr`` and
+    ``linregr_grouped`` (fold states), a ``Session`` batch of profile,
+    linregr, Count-Min and FM (one planned scan), the grouped Count-Min
+    and FM, and ``kmeans_fit`` (k = K_KM).  Each is held against the
+    local engine on the same table: bitwise, and k-means in two steps.
+    One Lloyd round from the seeds, where rounding cannot compound, is
+    held by km_round_check; the fit to convergence keeps equal rounds,
+    at most KM_SHARD_ROWS_APART rows assigned apart and the SSE within
+    1e-5.  Launches are held against the segment count; seconds of both
+    engines are printed beside the card.  Then xtx, countmin and
+    kmeans_assign against their plain versions on a segment view that
+    starts off 16 bytes.  Returns the main path's launches by step."""
+    from repro_torch.core import (
+        ProfileAggregate, Session, make_mesh, run_grouped, run_local,
+        run_sharded, trace_execution)
+    from repro_torch.core.table import Table
+    from repro_torch.kernels.countmin import ops as cm_ops
+    from repro_torch.kernels.countmin.ref import countmin_block_ref
+    from repro_torch.kernels.kmeans_assign import ops as km_ops
+    from repro_torch.kernels.kmeans_assign.ref import assign_and_reduce_ref
+    from repro_torch.kernels.xtx import ops as xtx_ops
+    from repro_torch.kernels.xtx.ref import xtx_xty_ref
+    from repro_torch.methods.kmeans import (
+        KMeansAggregate, kmeans_fit, kmeans_pp_seed)
+    from repro_torch.methods.linregr import LinregrAggregate
+    from repro_torch.methods.sketches import CountMinAggregate, FMAggregate
+    from repro_torch.tree import tree_leaves
+
+    t_section = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 25)
+    base = Table({"x": dyadic(torch, gen, (N_MAIN, K_MAIN), dev),
+                  "y": dyadic(torch, gen, (N_MAIN,), dev),
+                  "item": zipf_items(torch, gen, N_MAIN, dev),
+                  "g": torch.randint(0, G_MAIN, (N_MAIN,), generator=gen,
+                                     dtype=torch.int32, device=dev)})
+    centers = torch.randn((K_KM, D_KM), generator=gen, device=dev) \
+        * CENTER_SD
+    lab = torch.randint(0, K_KM, (N_MAIN,), generator=gen, device=dev)
+    blobs = Table({"x": centers[lab] + torch.randn(
+        (N_MAIN, D_KM), generator=gen, device=dev)})
+    del lab
+    seeds = kmeans_pp_seed(blobs, K_KM, SEED)
+    torch.cuda.synchronize()
+    print(f"[sharded] tables made on the card: {N_MAIN} x {K_MAIN} dyadic "
+          f"and {N_MAIN} x {D_KM} blobs, {time.perf_counter() - t_section:.1f}"
+          f" s; {smi}")
+    steps: dict[str, dict[str, int]] = {}
+    seconds: list[dict] = []
+
+    def states_equal(what, got, want):
+        a, b = tree_leaves(got), tree_leaves(want)
+        require(len(a) == len(b), f"{what}: states differ in shape")
+        for x, y in zip(a, b):
+            bitwise(torch, what, x, y)
+
+    def statements(tbl, mask):
+        """The main path's statements over ``tbl`` (any engine: the
+        table's distribution decides), each returning what is held."""
+        def batch():
+            s = Session()
+            hs = [s.scan(agg, tbl, columns=cols, mask=mask, label=label)
+                  for label, agg, cols in (
+                      ("profile", ProfileAggregate(), ("x", "y")),
+                      ("linregr", LinregrAggregate(use_kernel=True),
+                       {"x": "x", "y": "y"}),
+                      ("countmin", CountMinAggregate(use_kernel=True),
+                       ("item",)),
+                      ("fm", FMAggregate(), ("item",)))]
+            s.run()
+            return s.last_plan, [h.result() for h in hs]
+
+        def grouped(agg, cols):
+            return lambda: run_grouped(agg, tbl.select(*cols), "g", G_MAIN,
+                                       mask=mask, method="segment",
+                                       finalize=False)
+
+        return {
+            "linregr": lambda: (run_sharded if tbl.mesh is not None
+                                else run_local)(
+                LinregrAggregate(use_kernel=True), tbl.select("x", "y"),
+                mask=mask, finalize=False),
+            "linregr_grouped": grouped(LinregrAggregate(use_kernel=True),
+                                       ("x", "y", "g")),
+            "session batch": batch,
+            "countmin_grouped": grouped(CountMinAggregate(use_kernel=True),
+                                        ("item", "g")),
+            "fm_grouped": grouped(FMAggregate(use_kernel=True),
+                                  ("item", "g")),
+        }
+
+    want_launch = {"linregr": {"xtx": 1},
+                   "linregr_grouped": {"segment_linregr": 1},
+                   "session batch": {"xtx": 1, "countmin": 1},
+                   "countmin_grouped": {"segment_countmin": 1},
+                   "fm_grouped": {"segment_fm": 1}}
+    for segs in SHARD_SEGS:
+        n_pad = -(-N_MAIN // segs) * segs      # 10,000,008 at 24 segments
+        padded = n_pad != N_MAIN
+        if padded:
+            tbl, mask = base.pad_to(n_pad)
+            btbl, _ = blobs.pad_to(n_pad)
+        else:
+            tbl, mask, btbl = base, None, blobs
+        mesh = make_mesh((segs,), ("data",), devices=[dev] * segs)
+        dist, bdist = tbl.distribute(mesh), btbl.distribute(mesh)
+        local_runs = statements(tbl, mask)
+        for name, run in statements(dist, mask).items():
+            label = f"{name}, {segs} segment{'s' * (segs > 1)}" + (
+                f" (padded to {n_pad})" if padded else "")
+            counters.zero()
+            with trace_execution() as tr:
+                got, s_first = timed(torch, run)
+            steps[label] = {k: v for k, v in counters.read().items() if v}
+            want = local_runs[name]()
+            # repeated, each engine: the best of SHARD_REPS is printed
+            s_sh = min(timed(torch, run)[1] for _ in range(SHARD_REPS))
+            s_lo = min(timed(torch, local_runs[name])[1]
+                       for _ in range(SHARD_REPS))
+            if name == "session batch":
+                (plan_sh, got), (plan_lo, want) = got, want
+                engine = plan_sh.passes[0].engine
+                require(len(plan_sh.passes) == 1 and len(tr.scans) == 1,
+                        f"{label}: {len(tr.scans)} scans, want one")
+                require(engine == ("sharded" if segs > 1 else "local"),
+                        f"{label}: planned on {engine}")
+                print(f"[sharded] {label}: one planned scan on the "
+                      f"{engine} engine (the cost model's choice)")
+            # the local engine launches once where the planner keeps it
+            per = segs if (name != "session batch" or segs > 1) else 1
+            expect = {k: v * per for k, v in want_launch[name].items()}
+            require(steps[label] == expect,
+                    f"{label}: launches {steps[label]}, want {expect}")
+            states_equal(f"sharded {label} vs local", got, want)
+            seconds.append({"statement": name, "segments": segs,
+                            "sharded_s": s_sh, "local_s": s_lo,
+                            "ratio": s_sh / s_lo, "sharded_first_s": s_first})
+            print(f"[sharded] {label}: {s_sh:.4f} s sharded vs {s_lo:.4f} s "
+                  f"local ({s_sh / s_lo:.2f}x; best of {SHARD_REPS} repeats, "
+                  f"host clock, synchronized; the counted run {s_first:.4f} "
+                  "s); launches "
+                  f"{steps[label]}, fold state bitwise the local engine's; "
+                  f"{smi}")
+            del got, want
+        # one Lloyd round from the seeds on each engine (a check, not
+        # counted: one kmeans_assign launch per segment), where rounding
+        # cannot compound: the counts, the sums and the SSE by
+        # km_round_check, the centroids within section e's tolerance
+        label = f"kmeans round k={K_KM}, {segs} segment" + "s" * (segs > 1)
+        counters.zero()
+        r_sh = run_sharded(KMeansAggregate(seeds, None, use_kernel=True),
+                           bdist, finalize=False)
+        require(counters.peek()["kmeans_assign"] == segs,
+                f"{label}: {counters.peek()['kmeans_assign']} launches, "
+                f"want {segs}")
+        r_lo = run_local(KMeansAggregate(seeds, None, use_kernel=True), btbl,
+                         finalize=False)
+        one_round = km_round_check(
+            torch, label, btbl["x"], seeds, km_ops.assign_and_reduce(
+                btbl["x"], seeds, torch.ones((btbl.n_rows,), device=dev))[0],
+            r_sh, r_lo)
+        c_sh, c_lo = (KMeansAggregate(seeds, None).final(r)["centroids"]
+                      for r in (r_sh, r_lo))
+        one_round["centroid_max_diff"] = float((c_sh - c_lo).abs().max())
+        require(torch.allclose(c_sh, c_lo, rtol=1e-4, atol=1e-3),
+                f"{label}: centroids differ from local by "
+                f"{one_round['centroid_max_diff']}")
+        print(f"[sharded] {label}: {one_round['rows_apart']} rows assigned "
+              f"apart from kmeans_assign's own ({one_round['near_ties']} "
+              f"near ties), sums within {one_round['sums_err']:.4e} of "
+              f"float64 (local {one_round['sums_err_local']:.4e}, limit "
+              f"{one_round['sums_limit']:.4e}), SSE within "
+              f"{one_round['sse_err']:.4e} (local "
+              f"{one_round['sse_err_local']:.4e}), centroids within "
+              f"{one_round['centroid_max_diff']:.3e} of local (section e's "
+              "tolerance met)")
+        del r_sh, r_lo, c_sh, c_lo
+        # k-means from the same seeds on the blobs, sharded vs local
+        kw = {"init_centroids": seeds, "use_kernel": True,
+              "max_iters": KM_MAX_ITERS, "reassign_frac_tol": KM_REASSIGN_TOL}
+        label = f"kmeans_fit k={K_KM}, {segs} segment{'s' * (segs > 1)}" + (
+            f" (padded to {n_pad})" if padded else "")
+        counters.zero()
+        km_sh, s_first = timed(torch, lambda: kmeans_fit(bdist, K_KM, **kw))
+        steps[label] = {k: v for k, v in counters.read().items() if v}
+        km_lo = kmeans_fit(btbl, K_KM, **kw)
+        s_sh = min(timed(torch, lambda: kmeans_fit(bdist, K_KM, **kw))[1]
+                   for _ in range(SHARD_REPS))
+        s_lo = min(timed(torch, lambda: kmeans_fit(btbl, K_KM, **kw))[1]
+                   for _ in range(SHARD_REPS))
+        want = {"kmeans_assign": 2 * segs * km_sh.n_iters}
+        require(steps[label] == want,
+                f"{label}: launches {steps[label]}, want {want}")
+        require(km_sh.converged and km_sh.n_iters == km_lo.n_iters,
+                f"{label}: rounds {km_sh.n_iters} (converged "
+                f"{km_sh.converged}) vs local {km_lo.n_iters}")
+        # the segments' f32 sums round apart from the local ones over the
+        # rounds, and near-tie rows of a blob that two seeds share may go
+        # the other way: few rows then assign apart under the two fits'
+        # centroids, and the SSE agrees
+        d_km = float((km_sh.centroids - km_lo.centroids).abs().max())
+        ones = torch.ones((btbl.n_rows,), device=dev)
+        flips = int((km_ops.assign_and_reduce(btbl["x"], km_sh.centroids,
+                                              ones)[0]
+                     != km_ops.assign_and_reduce(btbl["x"], km_lo.centroids,
+                                                 ones)[0]).sum())
+        d_sse = abs(km_sh.sse - km_lo.sse) / km_lo.sse
+        within_e = torch.allclose(km_sh.centroids, km_lo.centroids,
+                                  rtol=1e-4, atol=1e-3)
+        require(flips <= KM_SHARD_ROWS_APART,
+                f"{label}: {flips} rows assign apart (centroids differ from "
+                f"local by {d_km})")
+        require(d_sse <= 1e-5, f"{label}: SSE {km_sh.sse} vs local "
+                f"{km_lo.sse}")
+        seconds.append({"statement": "kmeans_fit", "segments": segs,
+                        "sharded_s": s_sh, "local_s": s_lo,
+                        "ratio": s_sh / s_lo, "sharded_first_s": s_first,
+                        "rounds": km_sh.n_iters,
+                        "centroid_max_diff": d_km, "rows_apart": flips,
+                        "within_section_e_tolerance": within_e,
+                        "one_round": one_round})
+        print(f"[sharded] {label}: {s_sh:.4f} s sharded vs {s_lo:.4f} s "
+              f"local ({s_sh / s_lo:.2f}x; best of {SHARD_REPS} repeats; the "
+              f"counted fit {s_first:.4f} s), {km_sh.n_iters} rounds both, "
+              f"centroids within {d_km:.3e} (section e's tolerance: "
+              f"{'met' if within_e else 'not met'}), {flips} rows assign "
+              f"apart, SSE within {d_sse:.2e} relative; launches "
+              f"{steps[label]}; {smi}")
+        del ones
+        if segs == max(SHARD_SEGS):
+            # the kernels on segment 1's views, which start 4 mod 16 bytes
+            # in (xtx's y, countmin's items, kmeans_assign's weights)
+            rows = n_pad // segs
+            part = slice(rows, 2 * rows)
+            xs, ys = tbl["x"][part], tbl["y"][part]
+            items = tbl["item"][part]
+            ms = torch.ones((n_pad,), dtype=torch.bool, device=dev)[part] \
+                if mask is None else mask[part]
+            w = torch.ones((n_pad,), device=dev)[part]
+            bx = btbl["x"][part]
+            require(ys.data_ptr() % 16 != 0 and items.data_ptr() % 16 != 0
+                    and w.data_ptr() % 16 != 0,
+                    "segment 1's views start on 16 bytes")
+            got, want = xtx_ops.xtx_xty(xs, ys), xtx_xty_ref(xs, ys)
+            errs["xtx"] = max(errs["xtx"], bitwise(
+                torch, "xtx on segment 1's view", got[0], want[0]),
+                bitwise(torch, "xty on segment 1's view", got[1], want[1]))
+            errs["countmin"] = max(errs["countmin"], bitwise(
+                torch, "countmin on segment 1's view",
+                cm_ops.countmin_block(items, ms, 4, 1024),
+                countmin_block_ref(items, ms, 4, 1024)))
+            errs["kmeans_assign"] = max(errs["kmeans_assign"], km_gauss_check(
+                torch, "kmeans_assign on segment 1's view", bx,
+                km_lo.centroids, w, km_ops.assign_and_reduce(
+                    bx, km_lo.centroids, w),
+                assign_and_reduce_ref(bx, km_lo.centroids, w)))
+            print(f"[sharded] xtx, countmin, kmeans_assign on segment 1's "
+                  f"views ({rows} rows from row {rows}; y, item and the "
+                  "weights 4 mod 16 bytes in): held against their plain "
+                  "versions (xtx and countmin bitwise)")
+            del xs, ys, items, ms, w, bx, got, want
+        del tbl, mask, btbl, dist, bdist, km_sh, km_lo
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = {"seconds": seconds, "launches": steps,
+           "section_s": time.perf_counter() - t_section, "device": smi}
+    print(json.dumps({"sharded_section": out}))
+    print(f"[sharded] section n took {out['section_s']:.1f} s; {smi}")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4701,6 +5061,25 @@ def main() -> int:
                 "launches_by_shape": r["launches_by_shape"]}}))
     print(json.dumps({"kernel": tr["row"]}))
     rows.append(tr["row"])
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # n. the sharded engine on meshes of SHARD_SEGS segments of this card,
+    # once section m's model is freed: its launches join rows 1-6
+    shard = sharded_section(torch, dev, counters, errs, smi)
+    for r in rows:
+        by_step = {f"sharded {step}": got[r["name"]]
+                   for step, got in shard["launches"].items()
+                   if got.get(r["name"])}
+        if by_step:
+            r["launches"] = counters.total[r["name"]]
+            r["max_abs_err"] = errs[r["name"]]
+            r["launches_by_shape"] = {**r.get("launches_by_shape", {}),
+                                      **by_step}
+            print(json.dumps({"kernel_launches": {
+                "name": r["name"], "launches": r["launches"],
+                "launches_by_shape": r["launches_by_shape"]}}))
 
     # 6. summary ------------------------------------------------------------
     print(json.dumps({"kernels": [

@@ -1,12 +1,16 @@
-"""The port's core: tables, user-defined aggregates and their local
-engines, the planner, the session front end, templated aggregates, and
-execution tracing.
+"""The port's core: tables, user-defined aggregates and their local and
+sharded engines, the planner, the session front end, templated
+aggregates, and execution tracing.
 
 - Table / GroupedView — named columns on one device, the memoized
-  partitioning sort and the group-aligned block layout
+  partitioning sort, the group-aligned block layout, and a distributed
+  table's segments (``distribute``, ``pad_to``, ``sharded_blocks``)
+- make_mesh — a single-controller mesh of segments (a device may repeat)
 - Aggregate / FusedAggregate / run_many — the (init, transition, merge,
   final) pattern and the shared scan
-- run_local / run_grouped / segment_fold — the local and grouped engines
+- run_local / run_sharded / run_grouped / segment_fold /
+  merge_group_states — the local, sharded and grouped engines; segment
+  states merge as a left fold in segment order
 - run_stream — the out-of-core fold over host-side row blocks, copied to
   the card while the previous block folds
 - IterativeTask / fit / fit_grouped / fit_stream / FitResult — the
@@ -18,7 +22,8 @@ execution tracing.
   sum-decomposable loss, the solvers run under the executor
 - ScanAgg / GroupedScanAgg / JoinedGroupedScanAgg / IterativeFit /
   StreamAgg / plan / execute / explain — logical statements, the planner
-  that fuses them, and EXPLAIN
+  that fuses them, and EXPLAIN; ENGINE_CAPS / scan_cost /
+  select_scan_engine — its engine choice
 - calibration — measured cost tables; when one is active the planner
   ranks by measured seconds and sizes segment blocks by measurement
 - Join — the device-side sort-merge equi-join of a star schema
@@ -32,9 +37,11 @@ execution tracing.
 
 from .aggregates import (  # noqa: F401
     MERGE_MAX, MERGE_MIN, MERGE_SUM, Aggregate, FusedAggregate,
-    probe_segment_ops, run_grouped, run_local, run_many, run_stream,
-    segment_block_size, segment_block_update, segment_fold,
+    merge_group_states, probe_segment_ops, run_grouped, run_local,
+    run_many, run_sharded, run_stream, segment_block_size,
+    segment_block_update, segment_fold,
 )
+from .compat import make_mesh  # noqa: F401
 from .convex import (  # noqa: F401
     ConvexProgram, GradientAggregate, HessianAggregate, conjugate_gradient,
     gradient_descent, newton, parallel_sgd, sgd,
@@ -49,8 +56,9 @@ from .iterative import (  # noqa: F401
 from .join import Join, JoinResolution  # noqa: F401
 from .materialize import MaterializedHandle, materialize  # noqa: F401
 from .plan import (  # noqa: F401
-    GroupedScanAgg, IterativeFit, JoinedGroupedScanAgg, PhysicalPlan,
-    ScanAgg, StreamAgg, execute, explain, plan,
+    ENGINE_CAPS, GroupedScanAgg, IterativeFit, JoinedGroupedScanAgg,
+    PhysicalPlan, ScanAgg, StreamAgg, execute, explain, plan, scan_cost,
+    select_scan_engine,
 )
 from .server import AnalyticsServer, ServerHandle  # noqa: F401
 from .session import Handle, Session  # noqa: F401

@@ -1,7 +1,7 @@
 """User-defined aggregates: the core MADlib design pattern (§3.1.1, §4.1).
 
-The port's counterpart of the reference ``core/aggregates.py``, local
-engines only.  A method is an ``(init, transition, merge, final)``
+The port's counterpart of the reference ``core/aggregates.py``.  A
+method is an ``(init, transition, merge, final)``
 quadruple; the transition is block-at-a-time: it receives a block of rows
 ``(B, ...)`` and a validity mask, so the OLS ``x xᵀ`` rank-1 update is a
 ``(k, B) @ (B, k)`` product.
@@ -10,6 +10,14 @@ Engines here:
 
 * :func:`run_local`   — blocked fold over one table (a host loop over
   row blocks; PyTorch runs eagerly, so there is no program cache).
+* :func:`run_sharded` — the Greenplum segment model over a
+  :class:`~repro_torch.distributed.sharding.Mesh`: every segment folds
+  its own rows (launching the aggregate's kernel on them), then the
+  segment states merge with :meth:`Aggregate.mesh_merge`, a left fold
+  in segment order.  One process drives every segment, so there is no
+  collective whose summation order is not fixed: the merge is
+  deterministic, and on data whose sums are exact (dyadic values,
+  counts) the sharded state equals the local one bit for bit.
 * :func:`run_many`    — N aggregates in ONE pass through
   :class:`FusedAggregate`.
 * :func:`run_stream`  — out-of-core fold over a host-side iterator of
@@ -21,26 +29,32 @@ Engines here:
   fallback for generic-merge aggregates.  In a fused grouped pass, each
   member that has a segment kernel runs it over the shared layout; the
   reference folds a fused pass of several members block by block, with
-  the same states (bitwise where the sums are exact).
+  the same states (bitwise where the sums are exact).  On a mesh the
+  group-aligned blocks split into whole-block chunks, one per segment
+  (:meth:`~repro_torch.core.table.GroupedView.sharded_blocks`), each
+  segment folds its chunk and the ``(G, ...)`` stacks merge in segment
+  order (:func:`merge_group_states`).
 
 Where the reference vmaps over the group axis, the port writes the axis
 out: inits are stacked per group and ``final_grouped`` finalizes a
-stacked state.  The sharded engine waits for a later slice.
+stacked state.
 """
 
 from __future__ import annotations
 
+from functools import reduce
 from typing import Any, Iterable, Mapping, TypeVar
 
 import torch
 
 from ..device import resolve_device
+from ..distributed import sharding as _sh
 from ..kernels import registry as _kernels
 from ..tree import tree_index, tree_leaves, tree_map, tree_stack
 from . import calibration as _calibration
 from .table import (
     Columns, GroupedView, Table, _n_rows, as_column, host_tensor,
-    require_no_mesh, stored_dtype,
+    stored_dtype, table_mesh,
 )
 from .trace import record as _record
 
@@ -130,6 +144,29 @@ class Aggregate:
             return None
         return self._merge_ops_tree(state)
 
+    def mesh_merge(self, states: list) -> S:
+        """Merge the per-segment states of a sharded pass (segment order,
+        one device): leaf-wise with the merge combinators, or with the
+        aggregate's own ``merge`` when ``merge_ops`` is None, either way
+        a left fold ``((s0 . s1) . s2) ...``.  The reference merges with
+        ``psum``/``pmax``/``pmin`` or an all-gather fold; a fixed order
+        gives the same bits on any run."""
+        if self.merge_ops is None:
+            return reduce(self.merge, states)
+        return _fold_leafwise(self._merge_ops_tree(states[0]), states)
+
+
+def _fold_leafwise(ops, states: list):
+    """Left fold of same-shaped states, each leaf with its combinator."""
+    return tree_map(lambda op, *leaves: reduce(
+        lambda a, b: _combine_leaf(op, a, b), leaves), ops, *states)
+
+
+def _on_device(tree, dev: torch.device):
+    """A state tree's tensors on ``dev`` (the merge device)."""
+    return tree_map(lambda v: v.to(dev) if isinstance(v, torch.Tensor)
+                    else v, tree)
+
 
 class FusedAggregate(Aggregate):
     """Shared-scan combinator: N aggregates, ONE data pass.  The fused
@@ -160,6 +197,10 @@ class FusedAggregate(Aggregate):
     def merge(self, a, b):
         return tuple(agg.merge(sa, sb)
                      for agg, sa, sb in zip(self.aggs, a, b))
+
+    def mesh_merge(self, states):
+        return tuple(a.mesh_merge([s[i] for s in states])
+                     for i, a in enumerate(self.aggs))
 
     def segment_ops(self, state):
         ops = tuple(a.segment_ops(s) for a, s in zip(self.aggs, state))
@@ -208,15 +249,23 @@ def run_many(aggs, table: Table, *, block_size: int | None = None,
              engine: str = "auto", finalize: bool = True,
              trace_kind: str = "scan") -> Any:
     """Execute several aggregates over ``table`` in ONE shared scan.
-    Returns a dict when ``aggs`` is a mapping, else a tuple.
-    ``finalize=False`` returns the raw fused fold state.  ``jit`` is the
-    reference's: either value runs the eager fold, the un-jitted
-    answer."""
-    if engine not in ("auto", "local"):
-        raise ValueError(f"unknown engine {engine!r} (the port has 'auto' "
-                         "and 'local'; the sharded engine is not ported)")
-    return run_local(FusedAggregate(aggs), table, block_size=block_size,
-                     mask=mask, finalize=finalize, trace_kind=trace_kind)
+    ``engine="auto"`` picks the sharded engine when the table is
+    distributed, the local one otherwise; ``"local"``/``"sharded"`` force
+    one (the planner's choice is what runs).  Returns a dict when
+    ``aggs`` is a mapping, else a tuple.  ``finalize=False`` returns the
+    raw fused fold state.  ``jit`` is the reference's: either value runs
+    the eager fold, the un-jitted answer."""
+    if engine == "auto":
+        engine = "sharded" if table.mesh is not None else "local"
+    fused = FusedAggregate(aggs)
+    if engine == "sharded":
+        return run_sharded(fused, table, block_size=block_size, mask=mask,
+                           finalize=finalize, trace_kind=trace_kind)
+    if engine != "local":
+        raise ValueError(f"unknown engine {engine!r} "
+                         "(use 'auto', 'local' or 'sharded')")
+    return run_local(fused, table, block_size=block_size, mask=mask,
+                     finalize=finalize, trace_kind=trace_kind)
 
 
 def _combine_leaf(op: str, a, b):
@@ -271,6 +320,51 @@ def run_local(agg: Aggregate, table: Table, *, block_size: int | None = None,
     no compiled program to skip)."""
     _record(trace_kind, engine="local", rows=table.n_rows)
     state = _blocked_fold(agg, dict(table.columns), mask, block_size)
+    return agg.final(state) if finalize else state
+
+
+# ---------------------------------------------------------------------------
+# Sharded execution (the Greenplum segment model).
+# ---------------------------------------------------------------------------
+
+def sharded_fold(agg: Aggregate, columns: Columns, mask, block_size,
+                 mesh, row_axes) -> Any:
+    """The two phases of a sharded pass, unfinalized: every segment's
+    blocked fold over its rows and mask (its kernel launches on them),
+    then :meth:`Aggregate.mesh_merge` on the first segment's device."""
+    n = next(iter(columns.values())).shape[0]
+    if mask is None:
+        mask = torch.ones((n,), dtype=torch.bool,
+                          device=next(iter(columns.values())).device)
+    states = []
+    for part in _sh.segment_views(mesh, row_axes,
+                                  dict(columns, __mask__=mask)):
+        m = part.pop("__mask__")
+        states.append(_blocked_fold(agg, part, m, block_size))
+    home = mesh.segments(row_axes)[0]
+    return agg.mesh_merge([_on_device(s, home) for s in states])
+
+
+def run_sharded(agg: Aggregate, table: Table, *, mesh=None, row_axes=None,
+                block_size: int | None = None,
+                mask: torch.Tensor | None = None, jit: bool = True,
+                finalize: bool = True, trace_kind: str = "scan") -> Any:
+    """Execute an aggregate across the segments of ``mesh`` (the table's
+    when None): each segment folds its rows (transition), the states
+    merge in segment order (second-phase aggregation), and ``final``
+    runs once on the merged state: the paper's Figure-4 engine.
+    ``mask`` is a base row filter in table row order, split with the
+    rows.  Without a mesh it is :func:`run_local`, as in the reference.
+    Records one ``scan`` event with ``engine="sharded"``, the segment
+    count and the rows."""
+    mesh, row_axes = table_mesh("run_sharded", mesh, row_axes, table)
+    if mesh is None:
+        return run_local(agg, table, block_size=block_size, mask=mask,
+                         finalize=finalize, trace_kind=trace_kind)
+    _record(trace_kind, engine="sharded", rows=table.n_rows,
+            segs=_sh.mesh_segments(mesh, row_axes))
+    state = sharded_fold(agg, dict(table.columns), mask, block_size, mesh,
+                         row_axes)
     return agg.final(state) if finalize else state
 
 
@@ -564,6 +658,18 @@ def _segment_fold_members(agg: Aggregate, ops, columns: Columns,
     return tuple(states)
 
 
+def merge_group_states(agg: Aggregate, ops, states: list) -> Any:
+    """Merge the per-segment ``(G, ...)`` state stacks of a sharded
+    grouped pass (segment order, one device): a leaf-wise left fold with
+    the combinators ``ops`` when the aggregate declares them, else every
+    group's states folded with the aggregate's own ``merge``."""
+    if ops is not None:
+        return _fold_leafwise(ops, states)
+    g = tree_leaves(states[0])[0].shape[0]
+    return tree_stack([reduce(agg.merge, [tree_index(s, i) for s in states])
+                       for i in range(g)])
+
+
 def run_grouped(agg: Aggregate, table, group_col: str | None = None,
                 num_groups: int | None = None, *,
                 block_size: int | None = None,
@@ -578,10 +684,19 @@ def run_grouped(agg: Aggregate, table, group_col: str | None = None,
     (O(G·n)), the fallback for generic-merge aggregates; ``"auto"`` picks
     segment whenever the aggregate supports it.  ``mask`` is a base row
     filter in the original row order.  ``finalize=False`` returns the
-    stacked ``(G, ...)`` fold states.  ``mesh``/``row_axes`` (the sharded
-    grouped engine) must be None; ``jit`` either value (eager)."""
-    require_no_mesh("run_grouped", mesh, row_axes)
+    stacked ``(G, ...)`` fold states.  ``jit`` either value (eager).
+
+    ``mesh`` (the table's when None) runs MADlib's two-phase GROUP BY
+    across its segments: the segment path gives each segment a chunk of
+    whole group-aligned blocks, on which it launches the aggregate's
+    segment kernel, and the per-segment stacks merge in segment order;
+    the masked path folds each segment's rows once per group (rows padded
+    to divide the segments, the padding masked out) and merges the same
+    way, with the aggregate's own ``merge`` when it has no leaf-wise
+    combinators."""
     view = table if isinstance(table, GroupedView) else None
+    base_tbl = view.table if view is not None else table
+    mesh, row_axes = table_mesh("run_grouped", mesh, row_axes, base_tbl)
     if view is not None:
         if num_groups is not None and num_groups != view.num_groups:
             raise ValueError(f"run_grouped: num_groups={num_groups} "
@@ -597,11 +712,21 @@ def run_grouped(agg: Aggregate, table, group_col: str | None = None,
         data = {k: v for k, v in table.columns.items() if k != group_col}
     G = num_groups
 
-    ops = probe_segment_ops(agg, data) if method in ("auto", "segment") \
-        else None
+    if method in ("auto", "segment"):
+        ops = probe_segment_ops(agg, data)
+    elif mesh is not None:
+        # forced masked on a mesh: ops only choose the cross-segment
+        # merge, so an aggregate that cannot be probed merges generically
+        try:
+            ops = probe_segment_ops(agg, data)
+        except Exception:
+            ops = None
+    else:
+        ops = None
     if method == "auto":
         method = "segment" if ops is not None else "masked"
-    _record(trace_kind, engine=f"grouped-{method}", sharded=False, groups=G)
+    _record(trace_kind, engine=f"grouped-{method}", sharded=mesh is not None,
+            groups=G)
     group_final = agg.final_grouped if finalize else (lambda s: s)
 
     if method == "segment":
@@ -614,9 +739,22 @@ def run_grouped(agg: Aggregate, table, group_col: str | None = None,
             view = table.group_by(group_col, G)
         pmask = None if mask is None else view.permute(mask)
         bs = segment_block_size(view.n_rows, G, block_size)
-        cols_a, valid_a, bgids = view.aligned_blocks(bs, pmask)
-        return group_final(_segment_fold_members(agg, ops, cols_a, valid_a,
-                                                 bgids, G))
+        if mesh is None:
+            cols_a, valid_a, bgids = view.aligned_blocks(bs, pmask)
+            return group_final(_segment_fold_members(
+                agg, ops, cols_a, valid_a, bgids, G))
+        cols_a, valid_a, bgids = view.sharded_blocks(mesh, row_axes, bs,
+                                                     pmask)
+        chunks = _sh.segment_views(mesh, row_axes,
+                                   dict(cols_a, __valid__=valid_a))
+        gid_chunks = _sh.segment_views(mesh, row_axes, {"b": bgids})
+        states = []
+        for part, gpart in zip(chunks, gid_chunks):
+            valid = part.pop("__valid__")
+            states.append(_segment_fold_members(agg, ops, part, valid,
+                                                gpart["b"], G))
+        return group_final(_merge_segments(agg, ops, states, mesh,
+                                           row_axes))
 
     if method != "masked":
         raise ValueError(f"unknown method {method!r} "
@@ -629,6 +767,39 @@ def run_grouped(agg: Aggregate, table, group_col: str | None = None,
         base = mask
     if base is None:
         base = torch.ones(gids.shape, dtype=torch.bool, device=gids.device)
+    if mesh is not None:
+        return group_final(_run_grouped_masked_sharded(
+            agg, ops, data, gids, base, G, block_size, mesh, row_axes))
     states = tree_stack([_blocked_fold(agg, data, (gids == g) & base,
                                        block_size) for g in range(G)])
     return group_final(states)
+
+
+def _merge_segments(agg, ops, states: list, mesh, row_axes):
+    """:func:`merge_group_states` on the first segment's device."""
+    home = mesh.segments(row_axes)[0]
+    return merge_group_states(agg, ops,
+                              [_on_device(s, home) for s in states])
+
+
+def _run_grouped_masked_sharded(agg, ops, data, gids, base, G, block_size,
+                                mesh, row_axes):
+    """The sharded masked path: rows padded (gid -1, invalid) to divide
+    the segment count, every segment folds its rows once per group under
+    the group's mask, and the ``(G, ...)`` stacks merge in segment order
+    (leaf-wise where ``ops`` is known, else with ``agg.merge``)."""
+    segs = _sh.mesh_segments(mesh, row_axes)
+    n = gids.shape[0]
+    pad = -n % segs
+    if pad:
+        data = {k: _pad_rows(v, pad) for k, v in data.items()}
+        gids = torch.cat([gids, gids.new_full((pad,), -1)])
+        base = _pad_rows(base, pad)
+    states = []
+    for part in _sh.segment_views(mesh, row_axes,
+                                  dict(data, __gid__=gids, __valid__=base)):
+        g_s, v_s = part.pop("__gid__"), part.pop("__valid__")
+        states.append(tree_stack([
+            _blocked_fold(agg, part, (g_s == g) & v_s, block_size)
+            for g in range(G)]))
+    return _merge_segments(agg, ops, states, mesh, row_axes)

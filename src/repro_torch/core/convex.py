@@ -12,9 +12,9 @@ Solvers:
   user-defined aggregate (transition = block gradient, merge = sum);
 * :func:`sgd` — stochastic gradient descent with Robbins-Monro stepsizes
   (Eq. 1 of the paper), one shuffled pass per epoch;
-* :func:`parallel_sgd` — Zinkevich model averaging [47]; without a mesh
-  it is :func:`sgd`, as in the reference, and a mesh raises (the sharded
-  engine is ROADMAP Queue 1 item 13);
+* :func:`parallel_sgd` — Zinkevich model averaging [47]: each segment
+  of a mesh runs its epochs on its own rows, then the models are
+  averaged once; without a mesh it is :func:`sgd`, as in the reference;
 * :func:`newton` — Newton / IRLS steps with the Hessian accumulated by
   the same aggregate pattern;
 * :func:`conjugate_gradient` — MADlib's CG support module.
@@ -33,6 +33,7 @@ where the shuffle cannot matter (one minibatch of the whole table).
 from __future__ import annotations
 
 import dataclasses
+from functools import reduce
 from typing import Any, Callable
 
 import numpy as np
@@ -41,7 +42,7 @@ import torch
 from ..tree import tree_leaves, tree_map
 from .aggregates import MERGE_SUM, Aggregate
 from .iterative import IterativeTask, fit
-from .table import Columns, Table, _generator, require_no_mesh
+from .table import Columns, Table, _generator, table_mesh
 
 LossFn = Callable[[Any, Columns, torch.Tensor], torch.Tensor]
 # loss(params, block, mask) -> scalar SUM of f_i over unmasked rows.
@@ -246,7 +247,12 @@ class SGDEpochTask(IterativeTask):
     reference does.  The generator stays on the task (it is no tensor),
     made on the table's device; the state is ``params`` and ``epoch``.
     An epoch runs one ``torch.func.grad`` call per minibatch and pulls
-    nothing to the host."""
+    nothing to the host.
+
+    On a mesh the carry is per segment: each segment runs its epochs on
+    its own rows, drawing its permutations from the task's one generator
+    in segment order, and :meth:`mesh_epilogue` averages the models once
+    (the one-round mean-merge UDA of §5.1)."""
 
     def __init__(self, program: ConvexProgram, params0, stepsize: float,
                  batch: int, seed=0, anneal: bool = True):
@@ -289,6 +295,14 @@ class SGDEpochTask(IterativeTask):
         return new, torch.zeros((), device=dev), \
             torch.tensor(float("inf"), device=dev)
 
+    def mesh_epilogue(self, states):
+        # model averaging: the mean of the segments' models, summed in
+        # segment order (the reference's pmean)
+        n = len(states)
+        params = tree_map(lambda *ps: reduce(torch.add, ps) / n,
+                          *[s["params"] for s in states])
+        return {**states[0], "params": params}
+
 
 def sgd(program: ConvexProgram, table: Table, params0, *,
         stepsize: float = 1e-2, epochs: int = 1, batch: int = 64, seed=0,
@@ -304,14 +318,22 @@ def sgd(program: ConvexProgram, table: Table, params0, *,
 def parallel_sgd(program: ConvexProgram, table: Table, params0, *,
                  stepsize: float = 1e-2, epochs: int = 1, batch: int = 64,
                  mesh=None, row_axes=("data",), seed=0):
-    """Zinkevich model-averaging SGD [47].  Without a mesh (the argument
-    or the table's) it is :func:`sgd`, as in the reference; model
-    averaging across a mesh is the sharded engine, not ported yet."""
-    mesh = mesh or table.mesh
+    """Zinkevich model-averaging SGD [47]: each segment of ``mesh`` (the
+    table's when None) runs ``epochs`` epochs at a constant stepsize on
+    its own rows, then the models are averaged once
+    (:meth:`SGDEpochTask.mesh_epilogue`).  ``seed`` (an int or a
+    ``torch.Generator``) is the statement's generator: the segments draw
+    from it in segment order.  Without a mesh it is :func:`sgd`, as in
+    the reference."""
+    mesh, row_axes = table_mesh("parallel_sgd", mesh, row_axes, table)
     if mesh is None:
         return sgd(program, table, params0, stepsize=stepsize, epochs=epochs,
                    batch=batch, seed=seed)
-    require_no_mesh("parallel_sgd", mesh, row_axes)
+    task = SGDEpochTask(program, params0, stepsize, batch, seed,
+                        anneal=False)
+    res = fit(task, table, max_iters=epochs, tol=None, engine="sharded",
+              mesh=mesh, row_axes=row_axes)
+    return res.state["params"]
 
 
 def conjugate_gradient(matvec: Callable[[torch.Tensor], torch.Tensor],

@@ -1,7 +1,7 @@
 """Unified iterative executor: ONE driver loop for every multipass method.
 
-The port's counterpart of the reference ``core/iterative.py``, local
-engine only.  MADlib's §3.1.2 driver pattern is a state-resident outer
+The port's counterpart of the reference ``core/iterative.py``.
+MADlib's §3.1.2 driver pattern is a state-resident outer
 loop around a bulk UDA inner pass::
 
     state_0 = init ;  repeat:  agg_out = ONE shared scan (a UDA pass)
@@ -34,8 +34,20 @@ round) where ``mode="host"`` calls the recorded ``run_local`` engine;
 neither fuses the loop on the device yet (a CUDA-graph body is later
 work).  ``tol=None`` runs exactly ``max_iters`` rounds.  ``jit=True``
 and ``jit=False`` both run that loop: it is the reference's un-jitted
-answer.  The sharded engine is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP item.
+answer.
+
+On a mesh (the table's, or ``mesh=``), :func:`fit` runs the sharded
+engine.  One process drives every segment, so where the reference runs
+the loop inside one ``shard_map`` program with a replicated carry, the
+port runs one host loop whose every pass folds each segment's rows and
+merges the states in segment order (:class:`PassRunner` with a mesh).
+A task whose carry is per segment (SGD, which reads rows through
+``run_pass.columns``) overrides :meth:`IterativeTask.mesh_epilogue`:
+its loop then runs once per segment on that segment's rows, in segment
+order, and ``mesh_epilogue`` merges the final states.
+:func:`fit_grouped` on a mesh cuts the group-aligned blocks into one
+whole-block chunk per segment and merges each group's per-segment folds
+in segment order.
 """
 
 from __future__ import annotations
@@ -47,12 +59,13 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..distributed import sharding as _sh
 from ..tree import tree_index, tree_leaves, tree_map, tree_stack
 from .aggregates import (
-    Aggregate, _blocked_fold, _combine_leaf, probe_segment_ops, run_local,
-    run_stream, segment_block_size,
+    Aggregate, _blocked_fold, _combine_leaf, _on_device, probe_segment_ops,
+    run_local, run_sharded, run_stream, segment_block_size, sharded_fold,
 )
-from .table import Columns, Table, as_column, require_no_mesh
+from .table import Columns, Table, as_column, table_mesh
 from .trace import record as _record
 
 
@@ -72,32 +85,48 @@ class PassRunner:
     """Executes ONE shared scan: the blocked fold of the aggregate over
     ``columns`` under ``mask``, then its ``final``.  ``columns``/``mask``
     are exposed to tasks that are not pure folds (SGD epochs gather
-    their minibatches from them).  ``row_axes`` is the reference's
-    (non-empty inside its sharded engine): empty only."""
+    their minibatches from them).  With ``mesh`` the pass is sharded:
+    each segment of ``row_axes`` (default ``("data",)``) folds its rows
+    and the states merge in segment order before ``final``, where the
+    reference's runner merges with collectives inside ``shard_map``."""
 
     def __init__(self, columns: Columns, mask=None,
-                 block_size: int | None = None, row_axes=()):
-        require_no_mesh("PassRunner", None, row_axes)
+                 block_size: int | None = None, row_axes=(), mesh=None):
+        if mesh is not None:
+            _sh.check_mesh(mesh, "PassRunner")
         self.columns = columns
         self.mask = mask
         self.block_size = block_size
+        self.mesh = mesh
+        self.row_axes = tuple(row_axes or ("data",))
 
     def __call__(self, agg: Aggregate):
-        return agg.final(_blocked_fold(agg, self.columns, self.mask,
-                                       self.block_size))
+        if self.mesh is None:
+            return agg.final(_blocked_fold(agg, self.columns, self.mask,
+                                           self.block_size))
+        return agg.final(sharded_fold(agg, self.columns, self.mask,
+                                      self.block_size, self.mesh,
+                                      self.row_axes))
 
 
 class _EagerRunner:
     """Host-mode runner: one recorded ``run_local`` engine call per
-    pass."""
+    pass, ``run_sharded`` on a mesh."""
 
-    def __init__(self, table: Table, mask=None, block_size: int | None = None):
+    def __init__(self, table: Table, mask=None, block_size: int | None = None,
+                 mesh=None, row_axes=("data",)):
         self.table = table
         self.columns = dict(table.columns)
         self.mask = mask
         self.block_size = block_size
+        self.mesh = mesh
+        self.row_axes = row_axes
 
     def __call__(self, agg: Aggregate):
+        if self.mesh is not None:
+            return run_sharded(agg, self.table, mesh=self.mesh,
+                               row_axes=self.row_axes,
+                               block_size=self.block_size, mask=self.mask)
         return run_local(agg, self.table, block_size=self.block_size,
                          mask=self.mask)
 
@@ -147,6 +176,15 @@ class IterativeTask:
 
     def trace_record(self, state, agg_out, metric) -> Any:
         return metric
+
+    def mesh_epilogue(self, states: list) -> Any:
+        """Sharded-engine hook: the final state from the per-segment final
+        states, in segment order.  A task that overrides it has a carry
+        per segment (:func:`fit` runs its loop once per segment, on that
+        segment's rows) and merges here, as one-shot model averaging
+        does; the default is the replicated carry of a pure-UDA task,
+        which every segment holds alike."""
+        return states[0]
 
     def iteration(self, state, run_pass) -> tuple[Any, Any, torch.Tensor]:
         """One driver round: (new_state, agg_out, metric).  Override for
@@ -202,31 +240,59 @@ def fit(task: IterativeTask, table: Table, *, max_iters: int = 100,
         mode: str = "compiled", block_size: int | None = None,
         mask: torch.Tensor | None = None, warm_start: Any = None,
         mesh=None, row_axes=None, jit: bool = True) -> FitResult:
-    """Execute an :class:`IterativeTask` to convergence on the local
-    engine.
+    """Execute an :class:`IterativeTask` to convergence on one engine.
 
-    ``engine``: "auto" or "local".  ``mode``: "compiled" folds through
-    :class:`PassRunner`, "host" through the recorded ``run_local``; both
+    ``engine``: "auto" (sharded iff a mesh is given or the table is
+    distributed), "local" or "sharded" (local without a mesh, as in the
+    reference).  ``mode``: "compiled" folds through :class:`PassRunner`,
+    "host" through the recorded ``run_local`` / ``run_sharded``; both
     are one host loop that pulls the metric once per round (there is no
     fused device loop yet).  ``tol=None`` runs exactly ``max_iters``
     rounds.  ``warm_start`` seeds the driver state (skips
     ``task.init_state``).  ``jit`` either value: the same loop."""
     if engine not in ("auto", "local", "sharded"):
-        raise ValueError(f"unknown engine {engine!r} (use 'auto' or "
-                         "'local')")
+        raise ValueError(f"unknown engine {engine!r} (use 'auto', 'local' "
+                         "or 'sharded'; streaming goes through fit_stream)")
     if mode not in ("host", "compiled"):
         raise ValueError(f"unknown mode {mode!r}")
-    # engine="sharded" asks for the unported engine as a mesh does
-    require_no_mesh("fit", engine if engine == "sharded" else mesh,
-                    row_axes)
+    mesh, row_axes = table_mesh("fit", mesh, row_axes, table)
+    if engine == "auto" or mesh is None:
+        engine = "sharded" if mesh is not None else "local"
     columns = dict(table.columns)
     state0 = _warm_state(warm_start, table.device) \
         if warm_start is not None \
         else _as_state(task.init_state(columns), table.device)
-    _record("fit", engine="local", mode=mode)
-    runner = _EagerRunner(table, mask, block_size) if mode == "host" \
-        else PassRunner(columns, mask, block_size)
+    _record("fit", engine=engine, mode=mode)
+    if engine == "local":
+        runner = _EagerRunner(table, mask, block_size) if mode == "host" \
+            else PassRunner(columns, mask, block_size)
+        return _host_loop(task, runner, state0, max_iters, tol)
+    if type(task).mesh_epilogue is not IterativeTask.mesh_epilogue:
+        return _per_segment_fit(task, columns, mask, block_size, state0,
+                                max_iters, tol, mesh, row_axes)
+    runner = _EagerRunner(table, mask, block_size, mesh, row_axes) \
+        if mode == "host" else PassRunner(columns, mask, block_size,
+                                          row_axes, mesh)
     return _host_loop(task, runner, state0, max_iters, tol)
+
+
+def _per_segment_fit(task, columns, mask, block_size, state0, max_iters,
+                     tol, mesh, row_axes) -> FitResult:
+    """A per-segment carry on a mesh: the task's loop once per segment,
+    in segment order, over that segment's rows and mask, then
+    ``task.mesh_epilogue`` of the final states (on the first segment's
+    device).  Rounds, convergence and trace are the first segment's."""
+    if mask is not None:
+        columns = dict(columns, __mask__=mask)
+    runs = []
+    for part in _sh.segment_views(mesh, row_axes, columns):
+        m = part.pop("__mask__", None)
+        runs.append(_run_loop(task, PassRunner(part, m, block_size),
+                              state0, max_iters, tol))
+    home = mesh.segments(row_axes)[0]
+    state = task.mesh_epilogue([_on_device(r[0], home) for r in runs])
+    _, aux, n, converged, trace = runs[0]
+    return FitResult(state, task.finalize(state, aux), n, converged, trace)
 
 
 def fit_stream(task: IterativeTask,
@@ -257,9 +323,10 @@ def fit_stream(task: IterativeTask,
                       max_iters, tol)
 
 
-def _host_loop(task, runner, state0, max_iters, tol) -> FitResult:
+def _run_loop(task, runner, state0, max_iters, tol) -> tuple:
     """The paper-faithful driver: one engine call per pass, one scalar
-    (the metric) pulled to the host per round."""
+    (the metric) pulled to the host per round.  Returns ``(state, last
+    agg_out, rounds, converged, trace)``."""
     state = state0
     aux = None
     recs = []
@@ -271,8 +338,13 @@ def _host_loop(task, runner, state0, max_iters, tol) -> FitResult:
         if tol is not None and float(m) < tol:
             converged = True
             break
-    return FitResult(state, task.finalize(state, aux), n, converged,
-                     tree_stack(recs) if recs else None)
+    return state, aux, n, converged, tree_stack(recs) if recs else None
+
+
+def _host_loop(task, runner, state0, max_iters, tol) -> FitResult:
+    state, aux, n, converged, trace = _run_loop(task, runner, state0,
+                                                max_iters, tol)
+    return FitResult(state, task.finalize(state, aux), n, converged, trace)
 
 
 # ---------------------------------------------------------------------------
@@ -309,8 +381,16 @@ def fit_grouped(task: IterativeTask, table: Table, key_col: str,
     per-group numpy vectors, and whose ``stats`` records the layout plus
     (segment) the per-round active-row counts and total blocks scanned.
     ``warm_start``, when given, must already be stacked per group.
-    ``jit`` either value: the same loop."""
-    require_no_mesh("fit_grouped", mesh, row_axes)
+    ``jit`` either value: the same loop.
+
+    ``mesh`` (the table's when None) runs the segment layout sharded: the
+    group-aligned blocks split into one whole-block chunk per segment
+    (:meth:`~repro_torch.core.table.GroupedView.sharded_blocks`), a
+    round folds each active group's blocks in every segment that holds
+    some (one transition per segment and group), and the group's
+    per-segment states merge in segment order before the driver update.
+    The masked layout ignores ``mesh``, as the reference's does."""
+    mesh, row_axes = table_mesh("fit_grouped", mesh, row_axes, table)
     cols = dict(table.columns)
     gids = cols.pop(key_col).to(torch.int32)
     if num_groups is None:
@@ -326,10 +406,12 @@ def fit_grouped(task: IterativeTask, table: Table, key_col: str,
     if layout == "auto":
         layout = "segment" if _segment_task_ok(task, states0, cols) \
             else "masked"
-    _record("fit", engine=f"grouped-{layout}", sharded=False, groups=G)
+    _record("fit", engine=f"grouped-{layout}", sharded=mesh is not None,
+            groups=G)
     if layout == "segment":
         return _fit_grouped_segment(task, table, key_col, G, states0,
-                                    max_iters, tol, block_size, mask)
+                                    max_iters, tol, block_size, mask,
+                                    mesh, row_axes)
     if layout != "masked":
         raise ValueError(f"unknown layout {layout!r} "
                          "(use 'auto', 'segment' or 'masked')")
@@ -418,12 +500,30 @@ def _fit_grouped_masked(task, cols, gids, G, states0, max_iters, tol,
     return _grouped_result(task, G, tol, *out[:5], {"layout": "masked"})
 
 
+def _block_pieces(nblk, start, per: int) -> list[list]:
+    """Each group's blocks cut at the segment chunks of ``per`` blocks:
+    ``[(segment, first block in the chunk, past its last), ...]`` in
+    segment order."""
+    pieces = []
+    for g in range(len(nblk)):
+        lo, hi, out = int(start[g]), int(start[g] + nblk[g]), []
+        while lo < hi:
+            s = lo // per
+            stop = min(hi, (s + 1) * per)
+            out.append((s, lo - s * per, stop - s * per))
+            lo = stop
+        pieces.append(out)
+    return pieces
+
+
 def _fit_grouped_segment(task, table, key_col, G, states0, max_iters, tol,
-                         block_size, mask):
+                         block_size, mask, mesh=None, row_axes=("data",)):
     """Partitioned layout: per round, one transition per still-active
-    group over its contiguous range of group-aligned blocks.  Equal to
-    the reference's block-by-block fold under the leaf-wise merge that
-    this layout requires (bitwise on dyadic data)."""
+    group over its contiguous range of group-aligned blocks (one per
+    segment that holds some of them, on a mesh, merged in segment
+    order).  Equal to the reference's block-by-block fold under the
+    leaf-wise merge that this layout requires (bitwise on dyadic
+    data)."""
     if type(task).iteration is not IterativeTask.iteration:
         raise ValueError("fit_grouped: layout='segment' requires the "
                          "default single-scan iteration(); multi-statement "
@@ -440,10 +540,22 @@ def _fit_grouped_segment(task, table, key_col, G, states0, max_iters, tol,
     # blocks [start[g], start[g] + nblk[g]).
     pmask = None if mask is None else view.permute(mask)
     bs = segment_block_size(n, G, block_size)
-    cols, valid, bgids = view.aligned_blocks(bs, pmask)
+    if mesh is None:
+        cols, valid, bgids = view.aligned_blocks(bs, pmask)
+    else:
+        cols, valid, bgids = view.sharded_blocks(mesh, row_axes, bs, pmask)
     bg = bgids.cpu().numpy()
     nblk = np.bincount(bg[bg < G], minlength=G)[:G].astype(np.int64)
     start = np.concatenate([[0], np.cumsum(nblk)])[:-1]
+    if mesh is not None:
+        # each segment's chunk of whole blocks, cut (views, or copies to
+        # a segment's own device) once for the whole fit
+        chunks = _sh.segment_views(mesh, row_axes,
+                                   dict(cols, __valid__=valid))
+        chunk_valid = [c.pop("__valid__") for c in chunks]
+        pieces = _block_pieces(nblk, start,
+                               len(bg) // _sh.mesh_segments(mesh, row_axes))
+        home = mesh.segments(row_axes)[0]
     counts = view.counts.cpu().numpy().astype(np.int64)
     active_rows: list[int] = []
     blocks = [0]
@@ -453,13 +565,22 @@ def _fit_grouped_segment(task, table, key_col, G, states0, max_iters, tol,
         active_rows.append(int(counts[act].sum()))
         blocks[0] += int(nblk[act].sum())
 
+    def fold(agg, part, vm, lo, hi):
+        rows = slice(lo * bs, hi * bs)
+        blk = {k: v[rows] for k, v in part.items()}
+        return agg.transition(agg.init(blk), blk, vm[rows])
+
     def round_fn(g, state):
         agg = task.make_aggregate(state)
         merged = agg.init(cols)
-        if nblk[g]:
-            rows = slice(int(start[g]) * bs, int(start[g] + nblk[g]) * bs)
-            blk = {k: v[rows] for k, v in cols.items()}
-            bstate = agg.transition(agg.init(blk), blk, valid[rows])
+        if mesh is None:
+            bstates = [fold(agg, cols, valid, int(start[g]),
+                            int(start[g] + nblk[g]))] if nblk[g] else []
+        else:
+            bstates = [_on_device(fold(agg, chunks[s], chunk_valid[s], lo,
+                                       hi), home)
+                       for s, lo, hi in pieces[g]]
+        for bstate in bstates:
             merged = tree_map(_combine_leaf, ops, merged, bstate)
         out = agg.final(merged)
         new = task.update(state, out)
@@ -470,7 +591,7 @@ def _fit_grouped_segment(task, table, key_col, G, states0, max_iters, tol,
     rounds = out[5]
     stats = {
         "layout": "segment",
-        "sharded": False,
+        "sharded": mesh is not None,
         "block_size": bs,
         "rounds": rounds,
         "blocks": blocks[0],

@@ -35,10 +35,12 @@ entries (and the joined columns they hold) before its id can be reused.
 One lock guards the memo's lookups and fills and the dimension's sort
 memo, since two drains of different fact tables may resolve against one
 dimension at once; the fact-side match runs outside it, under a lock of
-its spec alone, so resolutions of unrelated tables overlap.  The
-reference's mesh branch (the dimension's sorted columns replicated over
-a distributed fact) waits for the sharded engines: a joined statement
-with ``mesh=`` raises in the planner (ROADMAP Queue 1 item 13).
+its spec alone, so resolutions of unrelated tables overlap.
+
+Over a distributed fact table the dimension's sorted keys and attributes
+are replicated to each segment's device and every segment resolves its
+own rows' foreign keys there (the fact keys stay row-split); the joined
+table keeps the fact's mesh, so its grouped pass runs sharded.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ import weakref
 
 import torch
 
+from ..distributed import sharding as _sh
 from .table import Table
 from .trace import record
 
@@ -179,8 +182,21 @@ class Join:
         common = torch.promote_types(sorted_keys.dtype, fk.dtype)
         keys = sorted_keys.to(common).contiguous()
         fkc = fk.to(common).contiguous()
-        pos = torch.searchsorted(keys, fkc, side="left").clamp_(0, n_dim - 1)
-        matched = keys[pos] == fkc
+        attr = sorted_attr
+        if self.fact.mesh is not None:
+            # the broadcast side of the star: the dimension on every
+            # segment's device, each segment matching its own fact rows
+            mesh, axes = self.fact.mesh, self.fact.row_axes or ("data",)
+            keys_on = _sh.replicate(mesh, keys, axes)
+            attr_on = _sh.replicate(mesh, sorted_attr, axes)
+            home = fkc.device
+            parts = [self._match(keys_on[p["fk"].device],
+                                 attr_on[p["fk"].device], p["fk"], n_dim)
+                     for p in _sh.segment_views(mesh, axes, {"fk": fkc})]
+            matched = torch.cat([m.to(home) for m, _ in parts])
+            gids = torch.cat([g.to(home) for _, g in parts])
+        else:
+            matched, gids = self._match(keys, attr, fkc, n_dim)
         dangling = int((~matched).sum())
         if dangling and self.on_missing == "error":
             raise ValueError(
@@ -188,9 +204,17 @@ class Join:
                 f"keys ({self.fact_key!r}) matching no dim[{self.dim_key!r}] "
                 "row; fix the data or pass on_missing='drop' to exclude "
                 "them from every group")
-        gids = torch.where(matched, sorted_attr[pos],
-                           torch.full_like(sorted_attr[pos], -1))
         return self._finish(gids, num_groups=num_groups, dangling=dangling)
+
+    @staticmethod
+    def _match(keys, attr, fk, n_dim: int):
+        """``(matched, gids)`` of foreign keys ``fk`` against the sorted
+        dimension ``keys``/``attr`` on one device; unmatched rows get
+        gid -1."""
+        pos = torch.searchsorted(keys, fk, side="left").clamp_(0, n_dim - 1)
+        matched = keys[pos] == fk
+        gid = attr[pos]
+        return matched, torch.where(matched, gid, torch.full_like(gid, -1))
 
     def _finish(self, gids: torch.Tensor, *, num_groups: int,
                 dangling: int) -> JoinResolution:

@@ -19,6 +19,9 @@ rows ``[r:n]`` alone and merging once, never by a rescan:
   rescan, on the card through the same kernels as the rescan.
 
 Grouped statements keep stacked ``(G, ...)`` states and merge group-wise.
+A view over a distributed table keeps its base's mesh: the build and
+every rescan run on the sharded engines, the delta folds locally (as in
+the reference), and the members' grouping key holds the mesh.
 A delta that brings a NEW group id under ``num_groups=None`` falls back
 to a rescan (the full run would have grown ``G``).  Statements with a
 base ``mask`` are rejected: a row filter is aligned with one table
@@ -73,6 +76,8 @@ class MaterializedHandle:
             self.engine = base.engine
         else:
             self.group_col = base.group_col
+            self.mesh = base.mesh
+            self.row_axes = base.row_axes
             self._groups_fixed = base.num_groups is not None
             self._groups_spec = base.num_groups
             self._method = self._resolve_method(base.method)
@@ -112,12 +117,14 @@ class MaterializedHandle:
                 raise ValueError("materialize: members disagree on "
                                  "block_size")
         if self.kind == "grouped":
-            key = (base.group_col, base.num_groups, base.method)
+            key = (base.group_col, base.num_groups, base.method,
+                   id(base.mesh), base.row_axes)
             for n in self.nodes:
-                if (n.group_col, n.num_groups, n.method) != key:
+                if (n.group_col, n.num_groups, n.method, id(n.mesh),
+                        n.row_axes) != key:
                     raise ValueError(
                         "materialize: grouped members disagree on "
-                        "group_col/num_groups/method")
+                        "group_col/num_groups/method/mesh/row_axes")
         elif len({n.engine for n in self.nodes}) > 1:
             raise ValueError("materialize: members disagree on engine")
 
@@ -156,7 +163,8 @@ class MaterializedHandle:
             self._G = G
             state = run_grouped(self.fused, t, self.group_col,
                                 num_groups=G, block_size=self.block_size,
-                                method=self._method, finalize=False)
+                                method=self._method, mesh=self.mesh,
+                                row_axes=self.row_axes, finalize=False)
         self._pin(state, t.n_rows, version, epoch)
 
     def _merge(self, a, b):

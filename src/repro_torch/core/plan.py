@@ -8,8 +8,10 @@ pass each (one ``run_many`` per ``(table, mask, block size)``, one
 ``run_grouped`` per ``(table, key)``, one shared key resolution and
 segment scan per ``(fact, dim, key, attr)`` star triple, one
 ``run_stream`` fold per block source, which is mandatory there: a shared
-iterator can be consumed only once) and picks the grouped method by
-measured seconds when an active calibration
+iterator can be consumed only once), filters the engines through the
+capability matrix :data:`ENGINE_CAPS`, and picks the scan engine (local
+or sharded over a distributed table's segments) and the grouped method
+by measured seconds when an active calibration
 (:mod:`repro_torch.core.calibration`) covers every candidate, else by
 the rows-moved heuristic; :func:`execute` runs one statement through it
 and :func:`explain` renders the physical plan, line for line as the
@@ -44,6 +46,7 @@ trace ``kernel`` event  ``engine="pallas"``        ``engine="cuda"``
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Mapping, Sequence
 
 import torch
@@ -56,9 +59,30 @@ from .aggregates import (
 from .iterative import (
     IterativeTask, _as_state, _segment_task_ok, fit, fit_grouped, fit_stream,
 )
+from ..distributed import sharding as _sh
 from .join import Join
-from .table import GroupedView, Table, require_no_mesh
+from .table import GroupedView, Table
 from .trace import record as _record
+
+# ---------------------------------------------------------------------------
+# The capability matrix: which cross-cutting features each engine honors.
+# The planner filters candidate engines through it before costing them.
+# ---------------------------------------------------------------------------
+
+ENGINE_CAPS: dict[str, dict[str, bool]] = {
+    "local":           {"mask": True,  "group_by": False, "fit": True,
+                        "stream": False},
+    "sharded":         {"mask": True,  "group_by": False, "fit": True,
+                        "stream": False},
+    "stream":          {"mask": False, "group_by": False, "fit": True,
+                        "stream": True},
+    "grouped-segment": {"mask": True,  "group_by": True,  "fit": True,
+                        "stream": False},
+    "grouped-masked":  {"mask": True,  "group_by": True,  "fit": True,
+                        "stream": False},
+    "sharded-grouped": {"mask": True,  "group_by": True,  "fit": True,
+                        "stream": False},
+}
 
 
 # ---------------------------------------------------------------------------
@@ -76,7 +100,7 @@ class ScanAgg:
     columns: Any = None
     mask: Any = None             # base row filter, table row order
     block_size: int | None = None
-    engine: str = "auto"         # "auto" | "local"
+    engine: str = "auto"         # "auto" | "local" | "sharded"
     jit: bool = True             # the reference's; eager either way
     label: str | None = None     # the statement's name in a Session
 
@@ -96,7 +120,7 @@ class GroupedScanAgg:
     mask: Any = None
     block_size: int | None = None
     method: str = "auto"         # "auto" | "segment" | "masked"
-    mesh: Any = None             # the sharded engine: None only
+    mesh: Any = None             # None -> the table's mesh (may be None)
     row_axes: Any = None
     jit: bool = True             # the reference's; eager either way
     label: str | None = None     # the statement's name in a Session
@@ -111,8 +135,8 @@ class JoinedGroupedScanAgg:
     and routes the result through the ordinary grouped core.  Statements
     over one (fact, dim, key, attr) triple fuse into ONE pass;
     ``num_groups`` defaults to ``max(dim.attr) + 1``; ``mask`` and
-    ``columns`` are in FACT row order.  ``mesh``/``row_axes`` (the
-    sharded grouped engine) are not ported yet."""
+    ``columns`` are in FACT row order.  ``mesh`` (the fact table's when
+    None) runs the pass on the sharded grouped engine."""
 
     agg: Aggregate
     join: Join
@@ -121,7 +145,7 @@ class JoinedGroupedScanAgg:
     mask: Any = None
     block_size: int | None = None
     method: str = "auto"         # "auto" | "segment" | "masked"
-    mesh: Any = None
+    mesh: Any = None             # None -> the fact table's mesh
     row_axes: Any = None
     jit: bool = True             # the reference's; eager either way
     label: str | None = None
@@ -136,8 +160,8 @@ class IterativeFit:
     ``group_col`` set -> ``fit_grouped``; else ``fit``.  Fit statements
     never fuse with one another (each owns its driver loop), but they
     share partitioning sorts with grouped scans through the same
-    ``group_by`` memo.  ``mesh`` and ``row_axes`` (the sharded engine)
-    are not ported yet."""
+    ``group_by`` memo.  ``mesh`` and ``row_axes`` (the table's when None)
+    run the fit on the sharded engine."""
 
     task: IterativeTask
     table: Table | None = None
@@ -146,7 +170,7 @@ class IterativeFit:
     num_groups: int | None = None
     max_iters: int = 100
     tol: float | None = 1e-6
-    engine: str = "auto"         # fit(): "auto" | "local"
+    engine: str = "auto"         # fit(): "auto" | "local" | "sharded"
     mode: str = "compiled"       # fit(): "compiled" | "host"
     layout: str = "auto"         # fit_grouped(): "auto"|"segment"|"masked"
     block_size: int | None = None
@@ -226,6 +250,9 @@ class _Projected(Aggregate):
     def final_grouped(self, states):
         return self.agg.final_grouped(states)
 
+    def mesh_merge(self, states):
+        return self.agg.mesh_merge(states)
+
     @property
     def segment_kernel(self):
         return self.agg.segment_kernel
@@ -253,8 +280,6 @@ def _member_agg(node) -> Aggregate:
 # ---------------------------------------------------------------------------
 # Cost model.  With an ACTIVE measured calibration candidates rank by
 # interpolated measured seconds; otherwise by the rows-moved heuristic.
-# The port has one scan engine, "local", so a scan pass has nothing to
-# select, but its cost is measured where the calibration covers it.
 # ---------------------------------------------------------------------------
 
 _HEURISTIC = {"kind": "heuristic"}
@@ -285,32 +310,93 @@ def _measured_costs(cand_keys: Mapping[str, str], agg_cls: str, rows: int,
                    "timestamp": cal.timestamp}
 
 
-def grouped_cost(method: str, rows: int, groups: int, block: int) -> float:
+def scan_cost(engine: str, rows: int, segs: int = 1) -> float:
+    """Rows-moved cost of a one-pass scan: ``local`` folds every row in
+    one fold (a table spread over more than one segment pays a gather
+    first); ``sharded`` is the two-phase pattern, each segment's chunk
+    plus one merge step per segment.  At ``segs == 1`` the merge term
+    breaks the tie to local."""
+    if engine == "local":
+        return float(rows) * (2.0 if segs > 1 else 1.0)
+    if engine == "sharded":
+        return math.ceil(rows / segs) + segs
+    raise ValueError(f"scan_cost: unknown engine {engine!r}")
+
+
+def grouped_cost(method: str, rows: int, groups: int, block: int,
+                 segs: int = 1) -> float:
     """The segment layout scans the group-aligned blocks once (padding at
     most one partial block per group); the masked fallback scans the full
-    table once per group."""
+    table once per group.  Over several segments each scans its chunk,
+    plus G partial states per segment to merge."""
     if method == "segment":
-        return float(rows + groups * block)
-    if method == "masked":
-        return float(rows * groups)
-    raise ValueError(f"grouped_cost: unknown method {method!r}")
+        base = rows + groups * block
+    elif method == "masked":
+        base = rows * groups
+    else:
+        raise ValueError(f"grouped_cost: unknown method {method!r}")
+    if segs > 1:
+        return math.ceil(base / segs) + groups * segs
+    return float(base)
+
+
+def _capable(engine: str, *, mask: bool = False, group_by: bool = False,
+             stream: bool = False) -> bool:
+    """Can ``engine`` honor what the statement needs?
+    (``sharded-grouped[segment]`` looks up ``sharded-grouped``.)"""
+    caps = ENGINE_CAPS[engine.split("[")[0]]
+    return ((not mask or caps["mask"])
+            and (not group_by or caps["group_by"])
+            and (not stream or caps["stream"]))
+
+
+def select_scan_engine(rows: int, mesh=None, row_axes=None, *,
+                       mask: bool = False, forced: str = "auto",
+                       agg_cls: str = "generic"
+                       ) -> tuple[str, dict[str, float], dict]:
+    """Pick local vs sharded for a one-pass scan: ``(engine, candidate
+    costs, cost source)``.  Candidates pass :data:`ENGINE_CAPS` for what
+    the statement needs (``mask``) and rank by measured seconds when the
+    active calibration covers them all (bucket ``agg_cls``), else by
+    :func:`scan_cost`.  A forced ``"sharded"`` without a mesh is local,
+    as ``run_sharded`` is."""
+    segs = _sh.mesh_segments(mesh, row_axes)
+    candidates = ["local"] + (["sharded"] if mesh is not None else [])
+    costs = {e: scan_cost(e, rows, segs) for e in candidates
+             if _capable(e, mask=mask)}
+    source = _HEURISTIC
+    measured = _measured_costs({e: e for e in costs}, agg_cls, rows)
+    if measured is not None:
+        costs, source = measured
+    if forced != "auto":
+        if forced not in ("local", "sharded"):
+            raise ValueError(f"unknown scan engine {forced!r}")
+        if forced == "sharded" and mesh is None:
+            forced = "local"
+        return forced, costs, source
+    return min(costs, key=lambda e: costs[e]), costs, source
 
 
 def select_grouped_method(rows: int, groups: int, *, segment_ok: bool,
-                          block_size: int | None = None,
-                          forced: str = "auto", agg_cls: str = "generic"
+                          block_size: int | None = None, segs: int = 1,
+                          mask: bool = False, forced: str = "auto",
+                          agg_cls: str = "generic"
                           ) -> tuple[str, dict[str, float], dict]:
     """Pick segment vs masked for a grouped pass: ``(method, candidate
     costs, cost source)``; a generic-merge aggregate
-    (``segment_ok=False``) removes the segment candidate.  Candidates
-    rank by measured seconds (calibration keys ``grouped-<method>``,
-    bucket ``agg_cls``) when the active calibration covers them all."""
+    (``segment_ok=False``) removes the segment candidate, and both pass
+    :data:`ENGINE_CAPS`.  Candidates rank by measured seconds
+    (calibration keys ``grouped-<method>``, or ``sharded-grouped-
+    <method>`` over more than one segment; bucket ``agg_cls``) when the
+    active calibration covers them all."""
     bs = segment_block_size(rows, groups, block_size)
-    costs = {method: grouped_cost(method, rows, groups, bs)
-             for method in (("segment",) if segment_ok else ())
-             + ("masked",)}
+    costs = {}
+    for method in (("segment",) if segment_ok else ()) + ("masked",):
+        if _capable(f"grouped-{method}", mask=mask, group_by=True):
+            costs[method] = grouped_cost(method, rows, groups, bs, segs)
     source = _HEURISTIC
-    measured = _measured_costs({m: "grouped-" + m for m in costs}, agg_cls,
+    prefix = "sharded-grouped-" if segs > 1 else "grouped-"
+    measured = _measured_costs({m: prefix + m for m in costs}, agg_cls,
                                rows, groups)
     if measured is not None:
         costs, source = measured
@@ -367,6 +453,13 @@ def _projection_key(node):
     return None if proj is None else tuple(sorted(proj.items()))
 
 
+def _mesh_key(node) -> tuple:
+    """A grouped statement's own ``mesh``/``row_axes`` in fusion and
+    fingerprint keys (the mesh by identity)."""
+    return (None if node.mesh is None else id(node.mesh),
+            tuple(node.row_axes) if node.row_axes else None)
+
+
 def statement_fingerprint(node) -> tuple:
     """Identity of a retained statement's physical shape, what a living
     view pins beside the table version: same aggregate INSTANCE,
@@ -379,7 +472,7 @@ def statement_fingerprint(node) -> tuple:
     if isinstance(node, GroupedScanAgg):
         return ("grouped", id(node.agg), proj_key, node.group_col,
                 node.num_groups, _mask_key(node.mask), node.block_size,
-                node.method)
+                node.method) + _mesh_key(node)
     raise TypeError(f"statement_fingerprint: not a retainable scan "
                     f"statement: {node!r}")
 
@@ -413,7 +506,7 @@ def semantic_fingerprint(node) -> tuple | None:
     if isinstance(node.table, GroupedView):
         return None
     return ("grouped", agg_key, proj_key, node.group_col, node.num_groups,
-            node.block_size, node.method)
+            node.block_size, node.method) + _mesh_key(node)
 
 
 @dataclasses.dataclass
@@ -452,31 +545,41 @@ def fused_scan_pass(members: Sequence[tuple[int, ScanAgg]], *,
             "fusing them would change their fold partitioning (and "
             "bit-exactness) vs solo execution")
 
-    forced = base.engine if engine == "auto" else engine
-    if forced not in ("auto", "local"):
-        raise ValueError(f"unknown scan engine {forced!r} (the port has "
-                         "'local'; the sharded engine is not ported)")
     idx = [i for i, _ in members]
     aggs = [_member_agg(n) for n in nodes]
     rows = base.table.n_rows
-    costs, source = {"local": float(rows)}, _HEURISTIC
-    measured = _measured_costs({"local": "local"}, _agg_cost_class(aggs),
-                               rows)
-    if measured is not None:
-        costs, source = measured
+    eng, costs, source = select_scan_engine(
+        rows, base.table.mesh, base.table.row_axes,
+        mask=base.mask is not None,
+        forced=base.engine if engine == "auto" else engine,
+        agg_cls=_agg_cost_class(aggs))
 
     def run():
         out = run_many(aggs, base.table, block_size=base.block_size,
-                       mask=base.mask, engine="local")
+                       mask=base.mask, engine=eng)
         return dict(zip(idx, out))
 
     return PhysicalPass(
-        kind="scan", engine="local", members=list(members),
-        cost=costs["local"],
+        kind="scan", engine=eng, members=list(members),
+        cost=costs[eng],
         info={"table": base.table, "rows": rows, "mask": base.mask,
               "block_size": base.block_size, "costs": costs,
               "cost_source": source},
         run=run)
+
+
+def _node_mesh(node, table) -> tuple:
+    """A statement's mesh (its own, else its table's) and row axes."""
+    mesh = node.mesh if node.mesh is not None else table.mesh
+    if mesh is not None:
+        _sh.check_mesh(mesh, type(node).__name__)
+    return mesh, node.row_axes or table.row_axes or None
+
+
+def _grouped_engine(method: str, mesh) -> str:
+    """The grouped pass's engine string, as explain renders it."""
+    return f"sharded-grouped[{method}]" if mesh is not None \
+        else f"grouped-{method}"
 
 
 def _grouped_view(node) -> GroupedView:
@@ -516,14 +619,15 @@ def fused_grouped_pass(members: Sequence[tuple[int, GroupedScanAgg]]
         raise ValueError(
             "fused_grouped_pass: mixed-mask fusion rejected — one base "
             "mask applies to every fused grouped aggregate")
-    if len({(n.num_groups, n.block_size, n.method) for n in nodes}) > 1:
+    if len({(n.num_groups, n.block_size, n.method) + _mesh_key(n)
+            for n in nodes}) > 1:
         raise ValueError("fused_grouped_pass: members disagree on "
-                         "num_groups/block_size/method")
-    for n in nodes:
-        require_no_mesh("GroupedScanAgg", n.mesh, n.row_axes)
+                         "num_groups/block_size/method/mesh")
 
     base_tbl = base.table.table if isinstance(base.table, GroupedView) \
         else base.table
+    mesh, row_axes = _node_mesh(base, base_tbl)
+    segs = _sh.mesh_segments(mesh, row_axes)
     groups = _resolve_groups(base)
     rows = base.table.n_rows
 
@@ -535,7 +639,8 @@ def fused_grouped_pass(members: Sequence[tuple[int, GroupedScanAgg]]
                      for a in member_aggs)
     method, costs, source = select_grouped_method(
         rows, groups, segment_ok=segment_ok, block_size=base.block_size,
-        forced=base.method, agg_cls=_agg_cost_class(member_aggs))
+        segs=segs, mask=base.mask is not None, forced=base.method,
+        agg_cls=_agg_cost_class(member_aggs))
 
     idx = [i for i, _ in members]
     projections = [_normalize_projection(n.columns) for n in nodes]
@@ -547,11 +652,12 @@ def fused_grouped_pass(members: Sequence[tuple[int, GroupedScanAgg]]
             view = view.select(*union)
         out = run_grouped(FusedAggregate(member_aggs), view,
                           block_size=base.block_size, mask=base.mask,
-                          method=method)
+                          method=method, mesh=mesh, row_axes=row_axes)
         return dict(zip(idx, out))
 
     return PhysicalPass(
-        kind="grouped", engine=f"grouped-{method}", members=list(members),
+        kind="grouped", engine=_grouped_engine(method, mesh),
+        members=list(members),
         cost=costs[method],
         info={"table": base_tbl, "group_col": base.group_col,
               "groups": groups, "rows": rows, "mask": base.mask,
@@ -579,12 +685,13 @@ def fused_join_pass(members: Sequence[tuple[int, JoinedGroupedScanAgg]]
         raise ValueError(
             "fused_join_pass: mixed-mask fusion rejected — one base mask "
             "applies to every fused joined aggregate")
-    if len({(n.num_groups, n.block_size, n.method) for n in nodes}) > 1:
+    if len({(n.num_groups, n.block_size, n.method) + _mesh_key(n)
+            for n in nodes}) > 1:
         raise ValueError("fused_join_pass: members disagree on "
-                         "num_groups/block_size/method")
-    for n in nodes:
-        require_no_mesh("JoinedGroupedScanAgg", n.mesh, n.row_axes)
+                         "num_groups/block_size/method/mesh")
 
+    mesh, row_axes = _node_mesh(base, j.fact)
+    segs = _sh.mesh_segments(mesh, row_axes)
     groups = int(base.num_groups) if base.num_groups is not None \
         else j.attr_groups()
     rows = j.fact.n_rows
@@ -595,7 +702,8 @@ def fused_join_pass(members: Sequence[tuple[int, JoinedGroupedScanAgg]]
                      for a in member_aggs)
     method, costs, source = select_grouped_method(
         rows, groups, segment_ok=segment_ok, block_size=base.block_size,
-        forced=base.method, agg_cls=_agg_cost_class(member_aggs))
+        segs=segs, mask=base.mask is not None, forced=base.method,
+        agg_cls=_agg_cost_class(member_aggs))
     join_costs = {s: join_cost(s, rows, j.dim.n_rows)
                   for s in ("sort-share", "gather-materialize")}
     # candidate costs include the key-resolution term, so the pass cost
@@ -612,11 +720,12 @@ def fused_join_pass(members: Sequence[tuple[int, JoinedGroupedScanAgg]]
             view = view.select(*union)
         out = run_grouped(FusedAggregate(member_aggs), view,
                           block_size=base.block_size, mask=base.mask,
-                          method=method)
+                          method=method, mesh=mesh, row_axes=row_axes)
         return dict(zip(idx, out))
 
     return PhysicalPass(
-        kind="join", engine=f"grouped-{method}", members=list(members),
+        kind="join", engine=_grouped_engine(method, mesh),
+        members=list(members),
         cost=costs[method],
         info={"table": j.fact, "group_col": j.attr_col, "groups": groups,
               "rows": rows, "mask": base.mask, "costs": costs,
@@ -652,13 +761,16 @@ def _fit_pass(index: int, node: IterativeFit) -> PhysicalPass:
                 run_layout = layout
             except Exception:
                 layout = "auto"
-        engine = f"grouped-{layout}"
+        engine = _grouped_engine(layout, _node_mesh(node, node.table)[0])
         info = {"table": node.table, "group_col": node.group_col,
                 "groups": _resolve_groups(node),
                 "view_key": (id(node.table), node.group_col)
                 if layout == "segment" else None}
     else:
-        engine = "local" if node.engine == "auto" else node.engine
+        engine = node.engine
+        if engine == "auto":
+            mesh = _node_mesh(node, node.table)[0]
+            engine = "sharded" if mesh is not None else "local"
         info = {"table": node.table}
     rows = None if node.table is None else node.table.n_rows
     cost = None if rows is None else node.max_iters * float(rows)
@@ -839,14 +951,14 @@ def plan(statements: Sequence[Any]) -> PhysicalPlan:
         elif isinstance(node, GroupedScanAgg):
             key = ("grouped", id(node.table), node.group_col,
                    node.num_groups, _mask_key(node.mask), node.block_size,
-                   node.method)
+                   node.method) + _mesh_key(node)
         elif isinstance(node, JoinedGroupedScanAgg):
             # keyed on the join SPEC (both tables by identity, keys, attr,
             # policy): joined statements built apart, even with distinct
             # Join instances, fuse into one shared-resolution pass
             key = (("join",) + node.join.spec_key()
                    + (node.num_groups, _mask_key(node.mask),
-                      node.block_size, node.method))
+                      node.block_size, node.method) + _mesh_key(node))
         elif isinstance(node, StreamAgg):
             key = ("stream", id(node.blocks))
         elif isinstance(node, IterativeFit):

@@ -1,6 +1,6 @@
 """Session: the declarative front end over the logical-plan layer.
 
-The port's counterpart of the reference ``core/session.py``, local mode.
+The port's counterpart of the reference ``core/session.py``.
 A :class:`Session` batches statements as logical plan nodes, and
 :meth:`Session.run` plans and executes them together: independent
 one-pass statistics over the same table fold into ONE data pass, and
@@ -269,7 +269,8 @@ class Session:
                 max_iters: int = 30, tol: float = 1e-6, block_size=None
                 ) -> Handle:
         from ..methods.logregr import IRLSTask, _result
-        t = Table({"x": table[x_col], "y": table[y_col]})
+        t = Table({"x": table[x_col], "y": table[y_col]}, table.mesh,
+                  table.row_axes)
         return self.fit(IRLSTask(), t, max_iters=max_iters, tol=tol,
                         block_size=block_size, label="logregr",
                         post=_result)

@@ -14,10 +14,17 @@ the stream engine.
 The memo and versioning contracts are the reference's: one stable sort
 per ``(table, key)`` (:meth:`Table.sort_permutation`), a ``group_by``
 memo stamped with the table version, ``append`` bumping the version and
-``invalidate`` bumping version and epoch.  Distributed tables
-(``distribute``, ``sharded_blocks``) are not ported yet: ``Table`` takes
-the reference's ``mesh``/``row_axes`` fields, and a mesh raises
-(:func:`require_no_mesh`).
+``invalidate`` bumping version and epoch.
+
+A distributed table (:meth:`Table.distribute`, Greenplum's ``DISTRIBUTED
+BY``) carries a :class:`~repro_torch.distributed.sharding.Mesh` and the
+``row_axes`` its rows split over.  Its columns stay one tensor each, in
+global row order, on the mesh's first segment device; segment ``s`` of
+``p`` owns rows ``[s n / p, (s + 1) n / p)``, and the sharded engines
+hand each segment its rows as views (copies where a segment runs on
+another device).  Every table derived from a distributed one keeps its
+mesh; :meth:`GroupedView.sharded_blocks` cuts the group-aligned layout
+into whole-block chunks, one per segment.
 """
 
 from __future__ import annotations
@@ -29,20 +36,35 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..distributed import sharding as _sh
 from .trace import record
 
 Columns = Mapping[str, torch.Tensor]
 
 
 def require_no_mesh(what: str, mesh=None, row_axes=None) -> None:
-    """The reference's sharding arguments, as the port takes them:
-    ``mesh=None`` and empty ``row_axes`` are no-ops (the local engine is
-    the reference's answer without a mesh); anything else raises, naming
-    the ROADMAP item that ports the sharded engine."""
+    """The reference's sharding arguments where the port has no
+    distribution yet (the LM's: training, checkpoints, models):
+    ``mesh=None`` and empty ``row_axes`` are no-ops; anything else
+    raises, naming the ROADMAP item that ports it."""
     if mesh is not None or row_axes:
         raise NotImplementedError(
-            f"{what}: the sharded engine (mesh=, row_axes=) is not ported "
-            "to repro_torch yet (ROADMAP Queue 1 item 13)")
+            f"{what}: the LM's distribution (mesh=, row_axes=) is not "
+            "ported to repro_torch yet (ROADMAP Queue 1 item 13b)")
+
+
+def table_mesh(what: str, mesh, row_axes, table) -> tuple:
+    """``(mesh, row_axes)`` of a statement: its own ``mesh`` or else the
+    table's, and its ``row_axes`` or else the table's or ``("data",)``
+    (the reference's defaulting).  A mesh that is not a
+    :class:`~repro_torch.distributed.sharding.Mesh` raises
+    ``TypeError``."""
+    if mesh is None and table is not None:
+        mesh = table.mesh
+    if mesh is not None:
+        _sh.check_mesh(mesh, what)
+    axes = row_axes or (table.row_axes if table is not None else None)
+    return mesh, tuple(axes or ("data",))
 
 
 def _n_rows(columns: Columns) -> int:
@@ -99,8 +121,8 @@ def as_column(v, device) -> torch.Tensor:
 @dataclasses.dataclass(eq=False)
 class Table:
     """Named columns sharing a leading row axis, on one device.
-    ``mesh``/``row_axes`` are the reference's distribution fields: None
-    (or empty) only, until the sharded engine is ported."""
+    ``mesh``/``row_axes`` record how rows are distributed (None and
+    ``()`` for a local table); :meth:`distribute` sets them."""
 
     columns: dict[str, torch.Tensor]
     mesh: Any = None
@@ -121,7 +143,9 @@ class Table:
                                               repr=False)
 
     def __post_init__(self):
-        require_no_mesh("Table", self.mesh, self.row_axes)
+        if self.mesh is not None:
+            _sh.check_mesh(self.mesh, "Table")
+        self.row_axes = tuple(self.row_axes or ())
 
     # -- construction ------------------------------------------------------
     @classmethod
@@ -132,6 +156,17 @@ class Table:
         cols = {k: as_column(v, dev) for k, v in columns.items()}
         _n_rows(cols)
         return cls(cols)
+
+    def distribute(self, mesh, row_axes=("data",)) -> "Table":
+        """Split rows over ``row_axes`` of ``mesh`` (Greenplum's
+        ``DISTRIBUTED BY``): the columns move to the mesh's first segment
+        device, and segment ``s`` of ``p`` owns rows ``[s n / p, (s + 1)
+        n / p)``.  Rows must divide the segment count; pad first with
+        :meth:`pad_to`."""
+        _sh.check_mesh(mesh, "Table.distribute")
+        row_axes = tuple(row_axes)
+        return Table(_sh.distribute_rows(mesh, row_axes, dict(self.columns)),
+                     mesh, row_axes)
 
     # -- basic relational ops ----------------------------------------------
     @property
@@ -150,13 +185,50 @@ class Table:
         return self.columns[name]
 
     def select(self, *names: str) -> "Table":
-        return Table({n: self.columns[n] for n in names})
+        return Table({n: self.columns[n] for n in names}, self.mesh,
+                     self.row_axes)
+
+    def _place_rows(self, columns: dict) -> dict:
+        """Fresh columns of a table that keeps this one's distribution:
+        as they are on a local table; on a distributed one, checked to
+        divide the segment count and placed as :meth:`distribute`
+        places them."""
+        if self.mesh is None:
+            return columns
+        return _sh.distribute_rows(self.mesh, self.row_axes or ("data",),
+                                   columns)
 
     def with_column(self, name: str, values) -> "Table":
         cols = dict(self.columns)
         cols[name] = as_column(values, self.device)
         _n_rows(cols)
-        return Table(cols)
+        return Table(self._place_rows(cols), self.mesh, self.row_axes)
+
+    def map_rows(self, fn: Callable[[Columns], Columns]) -> "Table":
+        """Row-wise projection (a SELECT of expressions): ``fn`` maps the
+        column dict to a new one of the same row count."""
+        cols = {k: as_column(v, self.device)
+                for k, v in dict(fn(self.columns)).items()}
+        _n_rows(cols)
+        return Table(self._place_rows(cols), self.mesh, self.row_axes)
+
+    def pad_to(self, n: int, fill: float = 0.0
+               ) -> tuple["Table", torch.Tensor]:
+        """Pad to ``n`` rows with ``fill`` (cast to each column's dtype);
+        returns the padded table and its bool validity mask (the first
+        ``n_rows`` rows)."""
+        cur = self.n_rows
+        if n < cur:
+            raise ValueError(f"pad_to({n}) smaller than n_rows={cur}")
+        cols = {k: torch.cat([v, v.new_full((n - cur,) + tuple(v.shape[1:]),
+                                            fill)])
+                for k, v in self.columns.items()}
+        mask = torch.arange(n, device=self.device) < cur
+        if self.mesh is not None:
+            placed = self._place_rows(dict(cols, __valid__=mask))
+            mask = placed.pop("__valid__")
+            cols = placed
+        return Table(cols, self.mesh, self.row_axes), mask
 
     def blocks(self, block_size: int) -> Iterator["Table"]:
         """Row blocks of ``block_size`` consecutive rows (the last one
@@ -165,7 +237,8 @@ class Table:
         n = self.n_rows
         for start in range(0, n, block_size):
             stop = min(start + block_size, n)
-            yield Table({k: v[start:stop] for k, v in self.columns.items()})
+            yield Table({k: v[start:stop] for k, v in self.columns.items()},
+                        self.mesh, self.row_axes)
 
     # -- versioning --------------------------------------------------------
     @property
@@ -201,6 +274,7 @@ class Table:
                     f"append column {k!r}: trailing shape "
                     f"{tuple(v.shape[1:])} != {tuple(old.shape[1:])}")
             cols[k] = torch.cat([old, v], dim=0)
+        cols = self._place_rows(cols)
         self.columns.clear()
         self.columns.update(cols)
         self._version += 1
@@ -280,7 +354,8 @@ class Table:
             out_int32=True)
         idx = perm.long()
         data = {k: v[idx] for k, v in self.columns.items() if k != key_col}
-        return GroupedView(Table(data), sorted_gids, perm, num_groups,
+        return GroupedView(Table(data, self.mesh, self.row_axes),
+                           sorted_gids, perm, num_groups,
                            torch.diff(offsets), offsets)
 
 
@@ -364,6 +439,25 @@ class GroupedView:
         if base_mask is not None:
             valid = valid & as_column(base_mask, dev)[src]
         return cols, valid, torch.from_numpy(bg_np).to(dev)
+
+    def sharded_blocks(self, mesh, row_axes=("data",),
+                       block_size: int = 4096, base_mask=None):
+        """:meth:`aligned_blocks` for the segments of ``mesh``: the block
+        count padded to a multiple of the segment count (sentinel
+        blocks), so segment ``s`` of ``p`` owns the contiguous whole-block
+        chunk ``s`` of the rows, the valid mask and the block ids, the
+        MADlib two-phase layout.  Placed as :meth:`Table.distribute`
+        places columns."""
+        _sh.check_mesh(mesh, "GroupedView.sharded_blocks")
+        row_axes = tuple(row_axes)
+        segs = _sh.mesh_segments(mesh, row_axes)
+        cols, valid, bgids = self.aligned_blocks(block_size, base_mask,
+                                                 pad_blocks_to=segs)
+        placed = _sh.distribute_rows(mesh, row_axes,
+                                     dict(cols, __valid__=valid))
+        valid = placed.pop("__valid__")
+        bgids = _sh.distribute_rows(mesh, row_axes, {"b": bgids})["b"]
+        return placed, valid, bgids
 
 
 def synthetic_regression_table(seed: int, n_rows: int, n_vars: int,

@@ -96,7 +96,7 @@ def map_columns(table: Table,
         new = fn(name, col)
         if new is not None:
             cols[name] = new
-    return Table(cols)
+    return Table(cols, table.mesh, table.row_axes)
 
 
 def one_hot_encode(table: Table, column: str, num_classes: int) -> Table:

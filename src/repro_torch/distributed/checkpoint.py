@@ -12,7 +12,7 @@ fields, a dict its keys (``opt/mu/embed``).  bfloat16 leaves are stored
 as their 16-bit patterns (numpy has no bfloat16), with the dtype
 ``bfloat16`` in the manifest.  ``restore`` copies into the tensors of
 the state it is given, casting to their dtypes, in place.  Restoring
-onto other shardings (``shardings=``) is ROADMAP Queue 1 item 13.
+onto other shardings (``shardings=``) is ROADMAP Queue 1 item 13b.
 """
 
 from __future__ import annotations
@@ -141,7 +141,7 @@ def restore(ckpt_dir: str, target_tree, *, step: int | None = None,
     if shardings is not None:
         raise NotImplementedError(
             "restore: shardings= (elastic resharding) is not ported to "
-            "repro_torch yet (ROADMAP Queue 1 item 13)")
+            "repro_torch yet (ROADMAP Queue 1 item 13b)")
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")

@@ -1,6 +1,6 @@
 """Straggler detection (counterpart of ``StragglerMitigator`` in the
 reference package's ``distributed/fault_tolerance.py``; the heartbeat
-monitor and the elastic mesh plan are ROADMAP Queue 1 item 13)."""
+monitor and the elastic mesh plan are ROADMAP Queue 1 item 13b)."""
 
 from __future__ import annotations
 

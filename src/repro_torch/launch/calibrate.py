@@ -10,8 +10,12 @@ times every (engine x aggregate class x shape bucket) cell on
 ``--device`` (the card unless ``--device cpu``):
 
 * engines: ``local``, ``grouped-segment`` and ``grouped-masked``, the
-  keys :func:`repro_torch.core.plan.select_grouped_method` and the scan
-  pass look up (one card has no sharded engine);
+  keys :func:`repro_torch.core.plan.select_grouped_method` and
+  :func:`~repro_torch.core.plan.select_scan_engine` look up; with a mesh
+  of more than one segment (``make_host_mesh()`` on a host of several
+  cards, or ``mesh=``) also ``sharded``, ``sharded-grouped-segment`` and
+  ``sharded-grouped-masked``, which one card skips as the reference does
+  on one device;
 * aggregate classes: ``xtx`` (``LinregrAggregate`` over 8 variables) and
   ``sketch`` (``CountMinAggregate(4, 128)``), both with
   ``use_kernel=True``: the CUDA kernels on the card (``xtx``,
@@ -41,7 +45,7 @@ on the CPU by the host clock.  The JSON has the reference's schema
 parameter) plus a top-level ``device`` (the card's name and power limit
 from nvidia-smi) that the loader ignores.  The reference's replayed XLA
 statistics are not applicable here (``hlo_context``); their tooling is
-ROADMAP item 13.
+ROADMAP item 13c.
 
 The file goes to ``--out`` (default ``build/calibration/<backend>.json``
 under the working directory) and changes nothing until the caller
@@ -58,16 +62,20 @@ from typing import Callable
 import torch
 
 from ..core import calibration
-from ..core.aggregates import run_grouped, run_local, segment_block_size
+from ..core.aggregates import (
+    run_grouped, run_local, run_sharded, segment_block_size,
+)
 from ..core.table import Table
 from ..device import resolve_device
+from ..distributed.sharding import mesh_segments
+from .mesh import make_host_mesh
 from ..methods.linregr import LinregrAggregate
 from ..methods.sketches import CountMinAggregate
 
 _DIMS = 8
 _SKETCH = (4, 128)
 HLO_CONTEXT = ("not applicable: the port replays no compiled-program "
-               "statistics (ROADMAP item 13)")
+               "statistics (ROADMAP item 13c)")
 
 
 def _xtx_cols(gen, rows, dev):
@@ -124,12 +132,23 @@ def _fmt(s: float) -> str:
     return f"{s:.4f} s" if s >= 1.0 else f"{s * 1e3:.3f} ms"
 
 
+def host_mesh(dev: torch.device):
+    """The mesh the sharded cells run on: ``make_host_mesh()`` where the
+    host has more than one card, else None (no sharded cells)."""
+    if dev.type != "cuda" or torch.cuda.device_count() < 2:
+        return None
+    return make_host_mesh()
+
+
 def measure(rows_list, groups_list, reps: int, block_sizes, *,
             device=None, masked_groups_max: int | None = None,
-            log=print) -> dict:
+            mesh=None, log=print) -> dict:
     """The ``engines`` and ``grouped_block`` tables (see
-    :class:`~repro_torch.core.calibration.Calibration`)."""
+    :class:`~repro_torch.core.calibration.Calibration`); the sharded
+    cells on ``mesh`` when it has more than one segment."""
     dev = resolve_device(device)
+    if mesh is not None and mesh_segments(mesh) < 2:
+        mesh = None
     engines: dict[str, dict[str, list]] = {}
     grouped_block: list = []
 
@@ -145,6 +164,11 @@ def measure(rows_list, groups_list, reps: int, block_sizes, *,
             s = _time(lambda: run_local(make(), tbl), reps, dev)
             put("local", cls, {"rows": rows, "seconds": s})
             log(f"  local/{cls} rows={rows}: {_fmt(s)}")
+            if mesh is not None and rows % mesh_segments(mesh) == 0:
+                dist = tbl.distribute(mesh)
+                s = _time(lambda: run_sharded(make(), dist), reps, dev)
+                put("sharded", cls, {"rows": rows, "seconds": s})
+                log(f"  sharded/{cls} rows={rows}: {_fmt(s)}")
             for groups in groups_list:
                 gids = _skewed_gids(gen, rows, groups, dev)
                 view = Table(dict(cols, g=gids)).group_by("g", groups)
@@ -154,6 +178,13 @@ def measure(rows_list, groups_list, reps: int, block_sizes, *,
                 put("grouped-segment", cls, {**gb, "seconds": s})
                 log(f"  grouped-segment/{cls} rows={rows} groups={groups}: "
                     f"{_fmt(s)}")
+                if mesh is not None:
+                    s = _time(lambda: run_grouped(make(), view,
+                                                  method="segment",
+                                                  mesh=mesh), reps, dev)
+                    put("sharded-grouped-segment", cls, {**gb, "seconds": s})
+                    log(f"  sharded-grouped-segment/{cls} rows={rows} "
+                        f"groups={groups}: {_fmt(s)}")
                 m = groups if masked_groups_max is None \
                     else min(groups, masked_groups_max)
                 mview = view if m == groups else Table(
@@ -167,6 +198,12 @@ def measure(rows_list, groups_list, reps: int, block_sizes, *,
                 log(f"  grouped-masked/{cls} rows={rows} groups={groups}: "
                     f"{_fmt(entry['seconds'])}"
                     + (f" (timed over {m} groups)" if m != groups else ""))
+                if mesh is not None:
+                    s = _time(lambda: run_grouped(make(), mview,
+                                                  method="masked",
+                                                  mesh=mesh), reps, dev)
+                    put("sharded-grouped-masked", cls,
+                        {**entry, "seconds": s * groups / m})
                 del gids, view, mview
             del cols, tbl
 
@@ -225,16 +262,20 @@ def card_description(dev: torch.device) -> str:
 
 def calibrate(rows_list, groups_list, reps: int, block_sizes, *,
               device=None, out: str | None = None,
-              masked_groups_max: int | None = None,
+              masked_groups_max: int | None = None, mesh=None,
               log=print) -> tuple[calibration.Calibration, str]:
-    """Measure, write the JSON and return ``(calibration, path)``."""
+    """Measure, write the JSON and return ``(calibration, path)``.  The
+    sharded cells run on ``mesh``, by default :func:`host_mesh`."""
     dev = resolve_device(device)
+    if mesh is None:
+        mesh = host_mesh(dev)
     backend = dev.type
     log(f"calibrating backend={backend} rows={list(rows_list)} "
         f"groups={list(groups_list)} reps={reps} "
         f"blocks={list(block_sizes)}")
     tables = measure(rows_list, groups_list, reps, block_sizes, device=dev,
-                     masked_groups_max=masked_groups_max, log=log)
+                     masked_groups_max=masked_groups_max, mesh=mesh,
+                     log=log)
     cal = calibration.Calibration(
         backend=backend, timestamp=time.strftime("%Y-%m-%dT%H:%M:%S"),
         engines=tables["engines"], kernels={},

@@ -356,7 +356,8 @@ def kmeans_pp_seed(table: Table, k: int, seed=0, x_col: str = "x",
     cents = [x[first]]
     d2 = torch.sum((x - cents[0][None, :]) ** 2, -1)
     for r in range(1, k):
-        t = Table({"x": x, "d2": d2, "__row__": rows})
+        t = Table({"x": x, "d2": d2, "__row__": rows}, table.mesh,
+                  table.row_axes)
         sess = Session()
         z = sess.scan(SumD2Aggregate(), t, block_size=block_size,
                       label="kmeans++:potential")
@@ -389,7 +390,7 @@ def kmeans_fit(table: Table, k: int, *, seed=0, max_iters: int = 50,
     to ``reassign_frac_tol`` (checked from round 2)."""
     if variant not in ("fused", "two_pass"):
         raise ValueError(f"unknown variant {variant!r}")
-    t = Table({"x": table[x_col]})
+    t = Table({"x": table[x_col]}, table.mesh, table.row_axes)
     n = t.n_rows
     if init_centroids is not None:
         cents = as_column(init_centroids, t.device)
@@ -430,8 +431,10 @@ def kmeans_grouped(table: Table, key_col: str, k: int,
     by every group or a stacked ``(G, k, d)`` per-group seeding.  Returns
     a :class:`KMeansResult` whose fields carry a leading group axis.
     ``use_kernel`` routes every group's transition through
-    ``kmeans_assign``; ``mesh`` (the sharded engine) is not ported yet."""
-    t = Table({"x": table[x_col], key_col: table[key_col]})
+    ``kmeans_assign``; ``mesh`` (the table's when None) runs the grouped
+    Lloyd loop on the sharded segment layout."""
+    t = Table({"x": table[x_col], key_col: table[key_col]}, table.mesh,
+              table.row_axes)
     init_centroids = as_column(init_centroids, t.device)
     task = KMeansTask(init_centroids if init_centroids.dim() == 2
                       else init_centroids[0], use_kernel)

@@ -156,7 +156,8 @@ def linregr_grouped(table: Table, key_col: str,
     """``SELECT g, (linregr(y, x)).* FROM data GROUP BY g`` — one model
     per group in a shared scan; every result field has a leading group
     axis.  The partitioning sort is shared through the group_by memo.
-    ``mesh`` must be None."""
+    ``mesh`` (the table's when None) runs the scan on the sharded grouped
+    engine."""
     return execute(GroupedScanAgg(
         LinregrAggregate(use_kernel), table, key_col, num_groups,
         columns={"x": x_col, "y": y_col}, block_size=block_size,
@@ -175,7 +176,8 @@ def linregr_joined(fact: Table, dim: Table, *, fact_key: str,
     attribute, as ONE joined-grouped statement: the join resolves on the
     device against the memoized dimension key sort (the dimension's
     columns are never gathered onto fact rows) and the scan runs on the
-    grouped core, through ``segment_linregr`` with ``use_kernel``."""
+    grouped core, through ``segment_linregr`` with ``use_kernel``.
+    ``mesh`` (the fact table's when None) runs it sharded."""
     return execute(JoinedGroupedScanAgg(
         LinregrAggregate(use_kernel),
         Join(fact, dim, fact_key, dim_key, attr_col,

@@ -24,7 +24,7 @@ import torch
 
 from ..core.aggregates import MERGE_SUM, Aggregate
 from ..core.convex import ConvexProgram
-from ..core.convex import sgd as sgd_solver
+from ..core.convex import parallel_sgd, sgd as sgd_solver
 from ..core.iterative import IterativeTask
 from ..core.plan import IterativeFit, execute
 from ..core.table import Table
@@ -132,7 +132,8 @@ def logregr(table: Table, *, x_col: str = "x", y_col: str = "y",
     """``SELECT * FROM logregr('y', 'x', 'data')`` — IRLS under the
     unified executor.  ``warm_start`` is a starting β (tensor or numpy
     array, e.g. a reference package's coefficients)."""
-    t = Table({"x": table[x_col], "y": table[y_col]})
+    t = Table({"x": table[x_col], "y": table[y_col]}, table.mesh,
+              table.row_axes)
     ws = None if warm_start is None else {"beta": warm_start}
     res = execute(IterativeFit(IRLSTask(), t, max_iters=max_iters, tol=tol,
                                block_size=block_size, mode=mode,
@@ -160,10 +161,10 @@ def logregr_grouped(table: Table, key_col: str,
     """One logistic model per group, fit in shared scans
     (``SELECT g, (logregr(y, x)).* FROM data GROUP BY g``).  Every field
     of the result carries a leading group axis; ``n_iters``/``converged``
-    are per-group vectors.  ``mesh`` (the sharded engine) is not ported
-    yet."""
+    are per-group vectors.  ``mesh`` (the table's when None) fits on the
+    sharded segment layout."""
     t = Table({"x": table[x_col], "y": table[y_col],
-               key_col: table[key_col]})
+               key_col: table[key_col]}, table.mesh, table.row_axes)
     res = execute(IterativeFit(IRLSTask(), t, group_col=key_col,
                                num_groups=num_groups, max_iters=max_iters,
                                tol=tol, block_size=block_size, mesh=mesh,
@@ -190,7 +191,9 @@ def logistic_program(mu: float = 0.0) -> ConvexProgram:
 def logregr_sgd(table: Table, *, epochs: int = 5, stepsize: float = 0.5,
                 batch: int = 128, seed=0, mu: float = 0.0) -> torch.Tensor:
     """Logistic regression by SGD from w = 0; ``seed`` (an int or a
-    ``torch.Generator`` on the table's device) drives the shuffles."""
+    ``torch.Generator`` on the table's device) drives the shuffles.  On a
+    distributed table: :func:`~repro_torch.core.convex.parallel_sgd`."""
     w0 = torch.zeros((table["x"].shape[-1],), device=table.device)
-    return sgd_solver(logistic_program(mu), table, w0, stepsize=stepsize,
-                      epochs=epochs, batch=batch, seed=seed)
+    solver = parallel_sgd if table.mesh is not None else sgd_solver
+    return solver(logistic_program(mu), table, w0, stepsize=stepsize,
+                  epochs=epochs, batch=batch, seed=seed)

@@ -97,7 +97,8 @@ def naive_bayes_grouped(table: Table, key_col: str, num_classes: int,
                         ) -> NaiveBayesModel:
     """``SELECT g, naive_bayes(...) FROM data GROUP BY g``: one NB model
     per group through the partitioned grouped-scan core; every model
-    field carries a leading group axis.  ``mesh`` must be None."""
+    field carries a leading group axis.  ``mesh`` (the table's when None)
+    runs it on the sharded grouped engine."""
     return execute(GroupedScanAgg(
         NaiveBayesAggregate(num_classes), table, key_col, num_groups,
         columns=("x", "y"), block_size=block_size, method=method,

@@ -141,10 +141,11 @@ def quantiles_grouped(table: Table, key_col: str, qs, *,
 
     The two statements share ONE partitioning sort through the
     ``Table.group_by`` memo; the group id rides along as a data column
-    for the histogram's range lookup.  ``mesh`` (the sharded grouped
-    engine) must be None."""
+    for the histogram's range lookup.  ``mesh`` (the table's when None)
+    runs both passes on the sharded grouped engine."""
     gcol = table[key_col]
-    t = Table({value_col: table[value_col], "__g__": gcol, key_col: gcol})
+    t = Table({value_col: table[value_col], "__g__": gcol, key_col: gcol},
+              table.mesh, table.row_axes)
     prof = execute(GroupedScanAgg(
         ProfileAggregate(), t, key_col, num_groups, columns=(value_col,),
         block_size=block_size, mesh=mesh,

@@ -14,7 +14,7 @@ from typing import Callable
 
 import torch
 
-from ..core.convex import ConvexProgram, sgd
+from ..core.convex import ConvexProgram, parallel_sgd, sgd
 from ..core.table import Table
 from .crf import crf_program
 from .logregr import logistic_program
@@ -64,6 +64,8 @@ def fit_sgd_model(name: str, table: Table, params0, *, epochs: int = 5,
                   **prog_kwargs):
     """Fit the registry's ``name`` model from ``params0`` by SGD with
     Robbins-Monro stepsizes; ``seed`` (an int or a ``torch.Generator`` on
-    the table's device) drives the shuffles."""
-    return sgd(REGISTRY[name](**prog_kwargs), table, params0,
-               stepsize=stepsize, epochs=epochs, batch=batch, seed=seed)
+    the table's device) drives the shuffles.  On a distributed table:
+    :func:`~repro_torch.core.convex.parallel_sgd`."""
+    solver = parallel_sgd if table.mesh is not None else sgd
+    return solver(REGISTRY[name](**prog_kwargs), table, params0,
+                  stepsize=stepsize, epochs=epochs, batch=batch, seed=seed)

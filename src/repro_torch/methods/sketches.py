@@ -167,8 +167,8 @@ def countmin_sketch_grouped(table: Table, key_col: str,
     counter stack from one partitioned grouped scan, bit-identical to
     sketching each group's rows alone.  Emitted over the original table
     with an ``item_col`` projection, so batched grouped statements share
-    one partitioning sort through the ``group_by`` memo.  ``mesh`` must
-    be None."""
+    one partitioning sort through the ``group_by`` memo.  ``mesh`` (the
+    table's when None) runs it on the sharded grouped engine."""
     return execute(GroupedScanAgg(
         CountMinAggregate(depth, width, use_kernel=use_kernel,
                           item_col=item_col), table, key_col,
@@ -185,7 +185,7 @@ def fm_distinct_count_grouped(table: Table, key_col: str,
                               ) -> torch.Tensor:
     """Per-group Flajolet-Martin estimates (``SELECT g, count(DISTINCT
     item) GROUP BY g``, approximated): a ``(num_groups,)`` vector from one
-    grouped scan.  ``mesh`` must be None."""
+    grouped scan.  ``mesh`` (the table's when None) runs it sharded."""
     return execute(GroupedScanAgg(
         FMAggregate(num_hashes, bits, item_col=item_col,
                     use_kernel=use_kernel), table, key_col,

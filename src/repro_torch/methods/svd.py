@@ -61,7 +61,7 @@ def svd_power(table: Table, k: int, *, n_iters: int = 20, seed=0,
               a_col: str = "a", block_size: int | None = None):
     """Top-k SVD by block power iteration on A^T A (driver + UDA
     rounds).  Returns (singular values (k,), right vectors (d, k))."""
-    t = Table({"a": table[a_col]})
+    t = Table({"a": table[a_col]}, table.mesh, table.row_axes)
     d, dev = t["a"].shape[-1], t.device
     gen = _generator(seed, dev)
     q, _ = torch.linalg.qr(torch.randn((d, k), generator=gen, device=dev))
@@ -76,7 +76,7 @@ def svd_randomized(table: Table, k: int, *, oversample: int = 8,
     """Randomized SVD (Halko): range finding, power sharpening and a
     small eigendecomposition.  Power iterations matter for flat
     spectra."""
-    t = Table({"a": table[a_col]})
+    t = Table({"a": table[a_col]}, table.mesh, table.row_axes)
     d, dev = t["a"].shape[-1], t.device
     gen = _generator(seed, dev)
     omega = torch.randn((d, k + oversample), generator=gen, device=dev)

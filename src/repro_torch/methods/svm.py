@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.convex import ConvexProgram, gradient_descent, sgd
+from ..core.convex import ConvexProgram, gradient_descent, parallel_sgd, sgd
 from ..core.table import Table
 
 
@@ -34,7 +34,8 @@ def svm_fit(table: Table, *, mu: float = 1e-3, epochs: int = 10,
     """Fit w from zero: ``solver="sgd"`` (``seed``, an int or a
     ``torch.Generator`` on the table's device, drives the shuffles) or
     ``"gd"`` (200 rounds of full-batch subgradient descent at
-    ``stepsize / 100``)."""
+    ``stepsize / 100``).  SGD on a distributed table is
+    :func:`~repro_torch.core.convex.parallel_sgd`."""
     d = table["x"].shape[-1]
     prog = svm_program(mu)
     w0 = torch.zeros((d,), device=table.device)
@@ -42,8 +43,9 @@ def svm_fit(table: Table, *, mu: float = 1e-3, epochs: int = 10,
         w, _, _ = gradient_descent(prog, table, w0, stepsize=stepsize / 100,
                                    max_iters=200, tol=1e-5)
         return w
-    return sgd(prog, table, w0, stepsize=stepsize, epochs=epochs, batch=batch,
-               seed=seed)
+    solver = parallel_sgd if table.mesh is not None else sgd
+    return solver(prog, table, w0, stepsize=stepsize, epochs=epochs,
+                  batch=batch, seed=seed)
 
 
 def svm_predict(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -37,11 +37,11 @@ def check_ported(cfg: ModelConfig) -> None:
     if cfg.seq_parallel:
         raise NotImplementedError(
             f"{cfg.name}: seq_parallel is not ported yet (ROADMAP Queue 1 "
-            "item 13, distributed)")
+            "item 13b, distributed)")
     if cfg.moe_impl != "gather":
         raise NotImplementedError(
             f"{cfg.name}: moe_impl={cfg.moe_impl!r} is not ported yet "
-            "(ROADMAP Queue 1 item 13, distributed)")
+            "(ROADMAP Queue 1 item 13b, distributed)")
 
 
 def period_pattern(cfg: ModelConfig) -> list[str]:

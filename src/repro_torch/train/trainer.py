@@ -15,7 +15,7 @@ The model, the optimizer state and the step stay on the device; the
 metrics (``loss``, ``grad_norm``, ``lr`` and the last micro-batch's
 ``nll`` and MoE terms) come back as 0-d device tensors, so a step never
 waits for the host.  The sharded assembly (``shardings_for_state``,
-``jit_train_step``) is ROADMAP Queue 1 item 13: a ``mesh`` raises.
+``jit_train_step``) is ROADMAP Queue 1 item 13b: a ``mesh`` raises.
 """
 
 from __future__ import annotations

@@ -327,7 +327,7 @@ def test_parallel_sgd_without_a_mesh_is_sgd():
     a = parallel_sgd(prog, t, torch.zeros(5), batch=32, seed=2)
     b = sgd(prog, t, torch.zeros(5), batch=32, seed=2)
     assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="Mesh"):
         parallel_sgd(prog, t, torch.zeros(5), mesh=object())
 
 

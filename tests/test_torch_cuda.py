@@ -1475,3 +1475,84 @@ def test_train_step_on_card_matches_the_cpu(cuda_device):
         for n, w in want.items():
             err = float((got[n].cpu() - w).abs().max())
             assert err <= 1e-4 * float(w.abs().max()) + 1e-30, (n, err)
+
+
+# ---------------------------------------------------------------------------
+# The sharded engine on one card: segment views at any row offset.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("segs,k", [(24, 160), (24, 7), (8, 33)])
+def test_xtx_on_every_segment_view(cuda_device, segs, k):
+    """Each segment's rows of x and y as the sharded engine hands them to
+    xtx (views: y's start is 4 mod 16 bytes for odd rows per segment):
+    bitwise the plain version."""
+    rows = 4_167 if segs == 24 else 3_001
+    draw = Draw(segs + k)
+    x = torch.from_numpy(draw.dyadic((segs * rows, k))).to(cuda_device)
+    y = torch.from_numpy(draw.dyadic((segs * rows,))).to(cuda_device)
+    assert any(y[s * rows:].data_ptr() % 16 for s in range(segs))
+    for s in range(segs):
+        xs, ys = x[s * rows:(s + 1) * rows], y[s * rows:(s + 1) * rows]
+        got = xtx_ops.xtx_xty(xs, ys)
+        want = xtx_ref.xtx_xty_ref(xs, ys)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("d", [32, 33])
+def test_kmeans_assign_on_every_segment_view(cuda_device, d):
+    """kmeans_assign on each of 24 segments' views of x and the row
+    weights (starts off 16 bytes where rows per segment are odd): bitwise
+    the plain version."""
+    segs, rows = 24, 1_001
+    draw = Draw(d)
+    x, c, m = _km_inputs(draw, segs * rows, d, 16, cuda_device, False)
+    assert any(m[s * rows:].data_ptr() % 16 for s in range(segs))
+    for s in range(segs):
+        part = slice(s * rows, (s + 1) * rows)
+        got = km_ops.assign_and_reduce(x[part], c, m[part])
+        want = km_ref.assign_and_reduce_ref(x[part], c, m[part])
+        torch.cuda.synchronize()
+        assert torch.equal(got[0].long(), want[0])
+        for g, w in zip(got[1:], want[1:]):
+            assert torch.equal(g, w)
+
+
+def test_sharded_engines_launch_once_per_segment(cuda_device):
+    """24 segments on one card: run_sharded and the sharded GROUP BY
+    launch their kernel once per segment and fold bitwise what the local
+    engine folds (dyadic data)."""
+    from repro_torch.core import make_mesh, run_sharded
+    segs, n = 24, 24 * 2_083
+    draw = Draw(24)
+    cols = {"x": draw.dyadic((n, 9)), "y": draw.dyadic((n,)),
+            "item": _items(draw, n), "g": draw.ints((n,), 0, 63)}
+    t = Table.from_columns(cols, device=cuda_device)
+    d = t.distribute(make_mesh((segs,), ("data",),
+                               devices=[cuda_device] * segs))
+    before = xtx_ops.xtx_launches
+    got = run_sharded(LinregrAggregate(use_kernel=True), d.select("x", "y"),
+                      finalize=False)
+    assert xtx_ops.xtx_launches == before + segs
+    want = run_local(LinregrAggregate(use_kernel=True), t.select("x", "y"),
+                     finalize=False)
+    for key in want:
+        assert torch.equal(got[key], want[key])
+    for agg, counter in ((LinregrAggregate(use_kernel=True),
+                          "segment_linregr_launches"),
+                         (CountMinAggregate(use_kernel=True),
+                          "segment_countmin_launches"),
+                         (FMAggregate(use_kernel=True),
+                          "segment_fm_launches")):
+        cols_of = ("x", "y", "g") if isinstance(agg, LinregrAggregate) \
+            else ("item", "g")
+        before = getattr(sf_ops, counter)
+        got = run_grouped(agg, d.select(*cols_of), "g", 64,
+                          method="segment", finalize=False)
+        assert getattr(sf_ops, counter) == before + segs
+        want = run_grouped(agg, t.select(*cols_of), "g", 64,
+                           method="segment", finalize=False)
+        got_l = got if isinstance(got, dict) else {"s": got}
+        want_l = want if isinstance(want, dict) else {"s": want}
+        for key in want_l:
+            assert torch.equal(got_l[key], want_l[key])

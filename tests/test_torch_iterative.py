@@ -136,18 +136,23 @@ def test_fit_records_one_event_and_host_mode_scans():
 
 
 def test_unported_engines_raise_naming_their_item():
+    """The sharded engine is ported: a mesh that is not a Mesh raises
+    TypeError; ``row_axes`` or ``engine="sharded"`` without a mesh run
+    the local engine, as in the reference."""
     _, x, init = _blobs(11, 64)
     t, _ = _tables({"x": x})
-    for kw in ({"mesh": object()}, {"row_axes": ("data",)},
-               {"engine": "sharded"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            fit(km.KMeansTask(init), t, **kw)
+    with pytest.raises(TypeError, match="Mesh"):
+        fit(km.KMeansTask(init), t, mesh=object())
+    want = fit(km.KMeansTask(init), t)
+    for kw in ({"row_axes": ("data",)}, {"engine": "sharded"}):
+        got = fit(km.KMeansTask(init), t, **kw)
+        assert got.n_iters == want.n_iters
+        assert torch.equal(got.state["cents"], want.state["cents"])
     # jit=False is the reference's un-jitted run: the same eager loop
     eager = fit(km.KMeansTask(init), t, jit=False)
-    want = fit(km.KMeansTask(init), t)
     assert eager.n_iters == want.n_iters
     assert torch.equal(eager.state["cents"], want.state["cents"])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+    with pytest.raises(TypeError, match="Mesh"):
         fit_grouped(km.KMeansTask(init), t.with_column(
             "g", torch.zeros(64, dtype=torch.int32)), "g", mesh=object())
     with pytest.raises(ValueError, match="unknown mode"):

@@ -197,7 +197,7 @@ def test_mesh_is_not_ported():
     fact, dim, *_ = _star(Draw(60), "clean")
     node = _node(LinregrAggregate, Join, JoinedGroupedScanAgg, fact, dim)
     node.mesh = object()
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="Mesh"):
         execute(node)
 
 

@@ -5,9 +5,10 @@ has, with the reference's defaults: ``mesh=None`` / ``row_axes=None``
 are no-ops (the local engine is the reference's answer without a mesh),
 and ``jit=True`` and ``jit=False`` both run the port's eager code, which
 is the reference's un-jitted answer.  Each call with them returns
-exactly (bitwise) what the call without them returns.  A mesh, non-empty
-``row_axes`` or ``engine="sharded"`` raises ``NotImplementedError``
-naming ROADMAP Queue 1 item 13 (the sharded engine).
+exactly (bitwise) what the call without them returns.  Every entry point
+that takes a mesh runs the sharded engine on a real 2-segment CPU mesh
+and, on dyadic data, answers bit for bit what it answers without one; a
+``mesh`` that is not a ``repro_torch`` Mesh raises ``TypeError``.
 """
 
 import numpy as np
@@ -16,8 +17,8 @@ import torch
 
 from repro_torch.core import (
     GroupedScanAgg, JoinedGroupedScanAgg, Join, PassRunner, ScanAgg,
-    Session, execute, fit, fit_grouped, parallel_sgd, run_grouped, run_local,
-    run_many,
+    Session, execute, fit, fit_grouped, make_mesh, parallel_sgd, run_grouped,
+    run_local, run_many, sgd,
 )
 from repro_torch.core.table import Table
 from repro_torch.methods import kmeans as km
@@ -147,47 +148,88 @@ def test_reference_keywords_with_their_defaults(name):
         _assert_same(call(t, kw), want)
 
 
-# every entry point that takes a mesh, given one
+# every entry point that takes a mesh: ``call(t, mesh)``, where ``mesh``
+# is None (the local answer), a real 2-segment CPU Mesh, or object()
+def _dyadic_table() -> Table:
+    """_table with dyadic floats: every sum a fold makes is exact, so the
+    sharded answer must equal the local one bit for bit."""
+    draw = Draw(2)
+    return Table.from_columns({
+        "x": draw.dyadic((N, 3)), "y": draw.dyadic((N,)),
+        "v": draw.dyadic((N,)), "item": draw.ints((N,), 0, 50),
+        "label": draw.ints((N,), 0, 1), "g": draw.ints((N,), 0, G - 1),
+        "fk": draw.ints((N,), 0, 7)}, device="cpu")
+
+
+def _on(mesh, **kw):
+    return {} if mesh is None else dict(kw, mesh=mesh)
+
+
+def _sgd_by_hand(t, mesh):
+    """parallel_sgd's model average built by hand: plain SGD on each
+    segment's rows in segment order from one generator, then the mean."""
+    gen = torch.Generator().manual_seed(0)
+    half = N // 2
+    ws = [sgd(sm.least_squares_program(), Table(
+        {k: v[s * half:(s + 1) * half] for k, v in t.columns.items()}),
+        torch.zeros(3), seed=gen, anneal=False) for s in range(2)]
+    return (ws[0] + ws[1]) / 2
+
+
 MESH_CALLS = {
-    "Table": lambda t: Table(dict(t.columns), mesh=object()),
-    "Table(row_axes)": lambda t: Table(dict(t.columns), row_axes=("data",)),
-    "run_grouped": lambda t: run_grouped(lin.LinregrAggregate(), t, "g", G,
-                                         mesh=object()),
-    "GroupedScanAgg": lambda t: execute(GroupedScanAgg(
+    "Table": lambda t, m: run_many(
+        {"a": lin.LinregrAggregate(), "b": sk.CountMinAggregate()},
+        Table(dict(t.columns), **_on(m))),
+    "Table(row_axes)": lambda t, m: run_local(
+        lin.LinregrAggregate(), t) if m is None else run_many(
+        [lin.LinregrAggregate()], Table(dict(t.columns), mesh=m,
+                                        row_axes=("data",)))[0],
+    "run_grouped": lambda t, m: run_grouped(lin.LinregrAggregate(), t, "g",
+                                            G, **_on(m)),
+    "GroupedScanAgg": lambda t, m: execute(GroupedScanAgg(
         lin.LinregrAggregate(), t, "g", G, columns=("x", "y"),
-        row_axes=("data",))),
-    "JoinedGroupedScanAgg": lambda t: execute(JoinedGroupedScanAgg(
-        lin.LinregrAggregate(), _join(t), columns=("x", "y"),
-        mesh=object())),
-    "PassRunner": lambda t: PassRunner(dict(t.columns), row_axes=("data",)),
-    "linregr_grouped": lambda t: lin.linregr_grouped(t, "g", G,
-                                                     mesh=object()),
-    "quantiles_grouped": lambda t: qt.quantiles_grouped(
-        t, "g", [0.5], num_groups=G, mesh=object()),
-    "naive_bayes_grouped": lambda t: nb.naive_bayes_grouped(
-        _nb_table(t), "g", 2, G, mesh=object()),
-    "countmin_sketch_grouped": lambda t: sk.countmin_sketch_grouped(
-        t, "g", G, mesh=object()),
-    "fm_distinct_count_grouped": lambda t: sk.fm_distinct_count_grouped(
-        t, "g", G, mesh=object()),
-    "fit": lambda t: fit(_kmeans(t), t.select("x"), mesh=object()),
-    "fit(engine)": lambda t: fit(_kmeans(t), t.select("x"),
-                                 engine="sharded"),
-    "fit_grouped": lambda t: fit_grouped(_kmeans(t), t.select("x", "g"),
-                                         "g", G, row_axes=("data",)),
-    "Session.grouped_scan": lambda t: _session(
-        "grouped_scan", {"mesh": object()})(t),
-    "parallel_sgd": lambda t: parallel_sgd(
-        sm.least_squares_program(), t, torch.zeros(3), mesh=object()),
+        **_on(m, row_axes=("data",)))),
+    "JoinedGroupedScanAgg": lambda t, m: execute(JoinedGroupedScanAgg(
+        lin.LinregrAggregate(), _join(t), columns=("x", "y"), **_on(m))),
+    "PassRunner": lambda t, m: PassRunner(
+        dict(t.columns), **_on(m, row_axes=("data",)))(
+        lin.LinregrAggregate()),
+    "linregr_grouped": lambda t, m: lin.linregr_grouped(t, "g", G,
+                                                        **_on(m)),
+    "quantiles_grouped": lambda t, m: qt.quantiles_grouped(
+        t, "g", [0.5], num_groups=G, **_on(m)),
+    "naive_bayes_grouped": lambda t, m: nb.naive_bayes_grouped(
+        _nb_table(t), "g", 2, G, **_on(m)),
+    "countmin_sketch_grouped": lambda t, m: sk.countmin_sketch_grouped(
+        t, "g", G, **_on(m)),
+    "fm_distinct_count_grouped": lambda t, m: sk.fm_distinct_count_grouped(
+        t, "g", G, **_on(m)),
+    "fit": lambda t, m: fit(_kmeans(t), t.select("x"), **_on(m)).state,
+    "fit(engine)": lambda t, m: fit(_kmeans(t), t.select("x"),
+                                    **_on(m, engine="sharded")).state,
+    "fit_grouped": lambda t, m: fit_grouped(
+        _kmeans(t), t.select("x", "g"), "g", G,
+        **_on(m, row_axes=("data",))).state,
+    "Session.grouped_scan": lambda t, m: _session(
+        "grouped_scan", _on(m))(t),
+    "parallel_sgd": lambda t, m: _sgd_by_hand(t, m) if m is None
+    else parallel_sgd(sm.least_squares_program(), t, torch.zeros(3),
+                      mesh=m),
 }
 
 
 @pytest.mark.parametrize("name", sorted(MESH_CALLS))
 def test_a_mesh_raises_naming_item_13(name):
-    t = _table()
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 13"):
-        MESH_CALLS[name](t)
+    """Each entry point on a real 2-segment CPU mesh answers bit for bit
+    what it answers without one (parallel_sgd: what its per-segment SGD
+    averaged by hand gives), and a mesh that is not a Mesh raises
+    TypeError."""
+    t = _dyadic_table()
+    call = MESH_CALLS[name]
+    _assert_same(call(t, make_mesh((2,), ("data",), devices=["cpu"] * 2)),
+                 call(t, None))
+    with pytest.raises(TypeError, match="Mesh"):
+        call(t, object())
 
 
 @pytest.mark.parametrize("mode", ["compiled", "host"])

@@ -193,7 +193,10 @@ def test_plan_fuses_statements_and_rejects_mixed_masks():
         fused_grouped_pass([(0, GroupedScanAgg(a, t, "g", G, mask=m1)),
                             (1, GroupedScanAgg(b, t, "g", G, mask=m2))])
     with pytest.raises(ValueError, match="unknown scan engine"):
-        fused_scan_pass([(0, ScanAgg(a, t, engine="sharded"))])
+        fused_scan_pass([(0, ScanAgg(a, t, engine="bogus"))])
+    # a forced sharded engine without a mesh is local, as run_sharded is
+    assert fused_scan_pass([(0, ScanAgg(a, t, engine="sharded"))]
+                           ).engine == "local"
     assert fused_scan_pass([(0, ScanAgg(a, t))]).engine == "local"
 
 
@@ -208,4 +211,4 @@ def test_fused_aggregate_forwards_kernel_hook_and_names():
                    t.select("x", "y"))
     assert set(out) == {"a", "b"}
     with pytest.raises(ValueError, match="unknown engine"):
-        run_many([LinregrAggregate()], t, engine="sharded")
+        run_many([LinregrAggregate()], t, engine="bogus")

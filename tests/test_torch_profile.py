@@ -269,11 +269,12 @@ def _tiny():
                               device="cpu")
 
 
-# fit, logregr, naive Bayes, the server, explain, joins, living views and
-# streams are ported: what stays raises (a sharded fit)
+# fit, logregr, naive Bayes, the server, explain, joins, living views,
+# streams and the sharded engine are ported: a fit given a mesh that is
+# not a Mesh raises
 @pytest.mark.parametrize("call", [
     lambda s: (s.fit(None, _tiny(), mesh=object()), s.run()),
 ])
 def test_unported_session_methods_raise(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="Mesh"):
         call(Session())
