@@ -191,7 +191,32 @@ n. then, with section m's model freed, the sharded engine on one card:
    rows assigned apart, SSE within 1e-5), each kernel launched once per
    segment per pass; xtx, countmin and kmeans_assign against their plain
    versions on segment 1's views (4 mod 16 bytes in); seconds of each
-   statement on both engines beside the card's name and power limit.
+   statement on both engines beside the card's name and power limit;
+o. then, with section n's tables freed, the LM's distribution on meshes
+   whose positions all are ``cuda:0``: stablelm-1.6b at full width and
+   depth (bf16, f32 AdamW) through ``jit_train_step`` over (data, model)
+   = (2, 2), each data shard folding 2 micro-batches of (2, 4096), against
+   the unsharded ``grad_accum=4`` step (loss within 1e-6 relative, every
+   gradient element within 1e-5 of its leaf's max, beside the readings of
+   two planted merge faults; bitwise on a repeat; the flash launches a
+   step section m's), 3 steps timed (seconds, tokens/s, peak);
+   ``compressed_psum`` of the two shards' gradients (every leaf's int8
+   mean within 3 scales of the f32 mean; int8 bytes against f32); GPipe
+   of the trained weights' 24 blocks in 4 stages over pod = 4 with 8
+   micro-batches of (1, 4096), bitwise the sequential run, beside
+   ``bubble_fraction(4, 8)``; section m's ``launch.train --full`` run,
+   which went through the one-shard mesh of this card, bitwise the
+   launcher with the plain step; split-K decode attention at qwen3-8b's
+   decode shape (B = 4, 32 on 8 heads of 128, a 4,096-position bf16 cache
+   over model = 4, ragged positions) within 1e-5 of the unsharded softmax
+   in f32, timed beside it; the caches' shardings from
+   ``decode_state_axes`` split their positions as split-K's shards do,
+   and 16 decode steps of qwen3-8b under the mesh, bitwise the plain
+   decode;
+   moonshot-v1-16b-a3b's all-to-all MoE over model = 4: at depth 2 in f32
+   with capacity_factor = E / k within 1e-4 of the gather MoE with nothing
+   dropped, at full depth in bf16 its forward timed beside the gather
+   MoE's, both ``drop_frac`` printed, bitwise on a repeat.
 
 The last line is ``{"ok": true, "device": {...}}``.  Imports neither JAX
 nor the JAX package.
@@ -1515,6 +1540,7 @@ def train_section(torch, dev, counters, errs, smi) -> dict:
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.data import TokenStream, make_lm_batches
     from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.distributed.sharding import as_device
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import \
         flash_attention_bwd_ref, flash_attention_ref
@@ -1857,11 +1883,19 @@ def train_section(torch, dev, counters, errs, smi) -> dict:
 
     # the driver as a user runs it: the reference's defaults (batch 8, seq
     # 128), the corpus profile on
+    meshes = []
+    real_jit = launch_train.jit_train_step
+
+    def spy(step, st, axes, spec, m, rules=None):
+        meshes.append([str(d) for d in m.devices.flat])
+        return real_jit(step, st, axes, spec, m, rules)
+
     counters.zero()
-    losses, s_drv = timed(torch, lambda: launch_train.main(
-        ["--arch", TRAIN_ARCH, "--full", "--steps", "4"]))
+    with mock.patch.object(launch_train, "jit_train_step", spy):
+        losses, s_drv = timed(torch, lambda: launch_train.main(
+            ["--arch", TRAIN_ARCH, "--full", "--steps", "4"]))
     drv = counters.read()
-    out["driver"] = {"losses": losses, "seconds": s_drv,
+    out["driver"] = {"losses": losses, "seconds": s_drv, "meshes": meshes,
                      "launches": {k: drv[k] for k in (
                          "countmin", "flash_attention",
                          "flash_attention_bwd", "flash_attention_bwd_tc")}}
@@ -1869,8 +1903,10 @@ def train_section(torch, dev, counters, errs, smi) -> dict:
           f"losses {[round(x, 4) for x in losses]}, {s_drv:.2f} s; launches "
           f"countmin {drv['countmin']}, flash forward "
           f"{drv['flash_attention']}, backward {drv['flash_attention_bwd']} "
-          f"({drv['flash_attention_bwd_tc']} on tensor cores)")
+          f"({drv['flash_attention_bwd_tc']} on tensor cores); mesh "
+          f"{meshes}")
     if not (len(losses) == 4 and all(map(math.isfinite, losses))
+            and meshes == [[str(as_device(dev))]]
             and drv["countmin"] == 2
             and drv["flash_attention_bwd"] == 4 * cfg.n_layers
             and drv["flash_attention_bwd_tc"] == 4 * cfg.n_layers):
@@ -3915,6 +3951,506 @@ def sharded_section(torch, dev, counters, errs, smi) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# o. the LM's distribution on a single-controller mesh of this card
+# ---------------------------------------------------------------------------
+
+# o1/o2: stablelm-1.6b over (data, model) = (2, 2), each data shard folding
+# DIST_ACCUM micro-batches: 2 x 2 = section m's four micro-batches of
+# (2, 4096)
+DIST_MESH = (2, 2)
+DIST_ACCUM = 2
+DIST_STEPS = 3
+# o1: both steps run the same kernels on the same four (2, 4096) pieces and
+# differ only in the order of four f32 sums: the loss within DIST_LOSS_REL
+# of the unsharded loss, every gradient element within DIST_GRAD_REL of its
+# leaf's max |unsharded| (tests/test_torch_sharded_train.py's rule)
+DIST_LOSS_REL = 1e-6
+DIST_GRAD_REL = 1e-5
+# o2: the int8 merge's mean within COMPRESS_SCALES scales of the f32 mean
+# (the reference's rule, tests/test_multidevice.py)
+COMPRESS_SCALES = 3.0
+# o3: moonshot over (data, model) = (1, 4): 16 local experts a shard and
+# 2,048 tokens a shard at (2, 4096); at depth A2A_CHECK_DEPTH in f32 with
+# capacity_factor = E / k nothing drops, and the a2a logits are held within
+# A2A_REL of max |gather| (the same f32 products summed in other orders:
+# the expert matmuls in other batches, the combine in expert order)
+MOE_EP = 4
+A2A_CHECK_DEPTH = 2
+A2A_REL = 1e-4
+# o4: qwen3-8b's decode attention: B = 4, 32 query heads on 8 kv heads of
+# 128, a 4,096-position bf16 cache split over model = 4, ragged positions;
+# split-K against the unsharded softmax in f32 within SPLITK_TOL (the same
+# f32 exponentials summed in other orders), then DECODE_STEPS decode steps
+# of the full model under the mesh, bitwise the plain decode
+SPLITK_B, SPLITK_CACHE = 4, 4096
+SPLITK_POS = (17, 1500, 2900, 4095)
+SPLITK_TOL = 1e-5
+DECODE_STEPS = 16
+# o5: stablelm's 24 blocks in PIPE_STAGES stages over pod = PIPE_STAGES,
+# PIPE_MICRO micro-batches of (1, 4096)
+PIPE_STAGES, PIPE_MICRO = 4, 8
+
+
+def dist_section(torch, dev, counters, smi, driver) -> dict:
+    """Section o, the LM's distribution on meshes whose positions all are
+    this card: o1 the sharded train step (stablelm-1.6b, DIST_MESH, each
+    data shard folding DIST_ACCUM micro-batches) against section m's
+    unsharded grad_accum=4 step (loss and every gradient element, beside
+    two planted merge faults; bitwise on a repeat; flash launches a step),
+    its seconds, tokens/s and peak; o2 ``compressed_psum`` of the shards'
+    gradients over the data axis; o5 GPipe over the same weights; o6
+    section m's ``launch.train --full`` run (``driver``: its losses and
+    the one-shard mesh it trained over) against the launcher with the
+    plain step; o4 split-K decode attention at qwen3-8b's decode shape,
+    the caches' shardings from ``decode_state_axes`` against split-K's
+    key ranges, and 16 decode steps of qwen3-8b under the mesh; o3 the
+    all-to-all MoE of moonshot-v1-16b-a3b against the gather MoE.  Every
+    check is made before the first miss ends the section.  Returns the
+    launches by main-path step."""
+    import dataclasses
+    import math
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.compat import make_mesh
+    from repro_torch.data import TokenStream, make_lm_batches
+    from repro_torch.distributed import compression as C
+    from repro_torch.distributed import decode as D
+    from repro_torch.distributed import sharding as S
+    from repro_torch.distributed.pipeline import bubble_fraction, \
+        make_pipeline
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model as M
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.trainer import jit_train_step
+
+    t_section = time.perf_counter()
+    fails: list[str] = []
+    out: dict = {"launches": {}, "device": smi}
+
+    def mesh_of(shape, names):
+        return make_mesh(shape, names, devices=[dev] * math.prod(shape))
+
+    def launches(step: str, got: dict) -> None:
+        out["launches"][step] = {k: v for k, v in got.items() if v}
+
+    # -- o1: the sharded train step ------------------------------------------
+    cfg = get_config(TRAIN_ARCH)
+    g = torch.Generator(device=dev)
+    g.manual_seed(TRAIN_INIT_SEED)
+    state = init_train_state(cfg, generator=g, device=dev)
+    mesh = mesh_of(DIST_MESH, ("data", "model"))
+    batches = make_lm_batches(TokenStream(
+        vocab=cfg.vocab, seq_len=LM_SEQ, batch=TRAIN_BATCH, seed=SEED),
+        device=dev)
+    batch = next(batches)
+    kw = dict(base_lr=TRAIN_LR, warmup=1, total_steps=TRAIN_STEPS)
+    sharded = jit_train_step(
+        make_train_step(cfg, grad_accum=DIST_ACCUM, **kw), state,
+        M.param_axes(state.model), batch, mesh)
+    plain = make_train_step(cfg, grad_accum=TRAIN_ACCUM, **kw)
+    n_data = DIST_MESH[0]
+
+    def rel_err(got, want):
+        """max |got - want| / max |want|, over one leaf."""
+        return float((got - want).abs().max()) / (
+            float(want.abs().max()) or 1.0)
+
+    # the unsharded grad_accum=4 step's loss and gradient: o1's reference,
+    # and o2's for the planted dropped-shard fault
+    l_p, _, g_p = plain.grads(state, batch)
+    l_p = float(l_p)
+
+    # o2 first, on the shards' gradient sums at the initial weights
+    with S.activation_sharding(mesh):
+        (per, s_shards) = timed(torch, lambda: sharded.shard_grads(
+            state, batch))
+    names = list(per[0][2])
+    # planted fault: shard 1 dropped from the merge (shard 0's mean alone)
+    drop_loss = abs(float(per[0][0]) / DIST_ACCUM - l_p) / abs(l_p)
+    drop_grad = 0.0
+    ug = torch.Generator(device=dev)
+    ug.manual_seed(SEED + 26)
+    worst, n_vals, s_merge = 0.0, 0, 0.0
+    for name in names:
+        means = [{"g": p[2][name].div_(DIST_ACCUM)} for p in per]
+        drop_grad = max(drop_grad, rel_err(means[0]["g"], g_p[name]))
+        errs_ = [C.init_error_feedback(m) for m in means]
+        (merged, _), s = timed(torch, lambda: C.compressed_psum(
+            means, errs_, ug))
+        s_merge += s
+        f32_mean = (means[0]["g"] + means[1]["g"]) / n_data
+        scale = max(float(m["g"].abs().max()) for m in means) / 127.0
+        dev_max = float((merged["g"] - f32_mean).abs().max())
+        ratio = dev_max / scale if scale else 0.0
+        worst = max(worst, ratio)
+        n_vals += means[0]["g"].numel()
+        if not dev_max < COMPRESS_SCALES * scale:
+            fails.append(f"o2 compressed_psum {name}: |out - mean| "
+                         f"{dev_max} against {COMPRESS_SCALES} x {scale}")
+        del means, errs_, merged, f32_mean
+    del per
+    torch.cuda.empty_cache()
+    out["o2"] = {"leaves": len(names), "values": n_vals,
+                 "int8_bytes": n_vals * n_data,
+                 "f32_bytes": 4 * n_vals * n_data, "scales": len(names),
+                 "worst_dev_in_scales": worst, "seconds": s_merge,
+                 "shard_grads_s": s_shards}
+    print(f"[dist] o2 compressed_psum over data = {n_data} of the shards' "
+          f"gradients ({len(names)} leaves, {n_vals} values a shard): int8 "
+          f"merged {n_vals * n_data} bytes against f32 {4 * n_vals * n_data}"
+          f" (+{len(names)} scales a shard); worst |out - f32 mean| "
+          f"{worst:.3f} scales (limit {COMPRESS_SCALES}); {s_merge:.2f} s; "
+          f"{smi}")
+
+    # o1's checks: the sharded gradient against the unsharded grad_accum=4,
+    # beside a planted scale fault (the merge divided by grad_accum, not
+    # by n x grad_accum)
+    l_s, _, g_s = sharded.grads(state, batch)
+    rels = [rel_err(g_s[k], g_p[k]) for k in names]
+    scale_grad = max(rel_err(g_s[k] * n_data, g_p[k]) for k in names)
+    del g_p
+    torch.cuda.empty_cache()
+    l_s2, _, g_s2 = sharded.grads(state, batch)
+    repeat = torch.equal(l_s, l_s2) and all(
+        torch.equal(g_s[k], g_s2[k]) for k in g_s)
+    l_s = float(l_s)
+    del g_s, g_s2
+    torch.cuda.empty_cache()
+    loss_rel = abs(l_s - l_p) / abs(l_p)
+    i_max = max(range(len(rels)), key=rels.__getitem__)
+    print(f"[dist] o1 {TRAIN_ARCH} over (data, model) = {DIST_MESH}, "
+          f"{DIST_ACCUM} micro-batches a data shard: loss {l_s!r} against "
+          f"the unsharded grad_accum={TRAIN_ACCUM} step's {l_p!r} (relative "
+          f"{loss_rel:.3e}, limit {DIST_LOSS_REL}); worst gradient leaf "
+          f"max |diff| / max |unsharded| {rels[i_max]:.3e} ({names[i_max]}),"
+          f" limit {DIST_GRAD_REL}; planted faults: shard 1 dropped, loss "
+          f"{drop_loss:.3e} and gradient {drop_grad:.3e}; the merge scaled "
+          f"by {n_data}, gradient {scale_grad:.3e}; bitwise on a repeat "
+          f"{repeat}")
+    if not (math.isfinite(l_s) and loss_rel <= DIST_LOSS_REL
+            and rels[i_max] <= DIST_GRAD_REL and repeat):
+        fails.append(f"o1 sharded step: loss {l_s} vs {l_p}, worst leaf "
+                     f"{rels[i_max]} ({names[i_max]}), repeat {repeat}")
+    want_bwd = cfg.n_layers * TRAIN_ACCUM
+    want_fwd = want_bwd * (2 if cfg.remat else 1)
+    recs = []
+    torch.cuda.reset_peak_memory_stats()
+    counters.zero()
+    for i in range(DIST_STEPS):
+        if i:
+            batch = next(batches)
+        before = counters.peek()
+        (state, mets), sec = timed(torch, lambda: sharded(state, batch))
+        got = {k: v - before[k] for k, v in counters.peek().items()}
+        recs.append({"seconds": sec, "loss": float(mets["loss"]),
+                     "flash_fwd": got["flash_attention"],
+                     "flash_bwd": got["flash_attention_bwd"],
+                     "flash_bwd_tc": got["flash_attention_bwd_tc"]})
+        if (got["flash_attention"], got["flash_attention_bwd"],
+                got["flash_attention_bwd_tc"]) != (want_fwd, want_bwd,
+                                                   want_bwd):
+            fails.append(f"o1 step {i}: flash launches {got}, want forward "
+                         f"{want_fwd} and backward {want_bwd} on tc")
+        if not math.isfinite(recs[-1]["loss"]):
+            fails.append(f"o1 step {i}: loss {recs[-1]['loss']}")
+    launches("o1 sharded train steps (data 2 x model 2)", counters.read())
+    batches.close()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    later = recs[1:] or recs
+    step_s = sum(r["seconds"] for r in later) / len(later)
+    tokens = TRAIN_BATCH * LM_SEQ
+    out["o1"] = {"mesh": list(DIST_MESH), "grad_accum": DIST_ACCUM,
+                 "loss": l_s, "unsharded_loss": l_p, "loss_rel": loss_rel,
+                 "max_leaf_rel": rels[i_max], "max_leaf": names[i_max],
+                 "planted_drop_shard": {"loss_rel": drop_loss,
+                                        "max_leaf_rel": drop_grad},
+                 "planted_scale": {"max_leaf_rel": scale_grad},
+                 "bitwise_repeat": repeat,
+                 "steps": recs, "step_s": step_s,
+                 "tokens_s": tokens / step_s, "peak_gb": peak}
+    print(f"[dist] o1 {DIST_STEPS} sharded steps of {TRAIN_BATCH} x {LM_SEQ}"
+          f" tokens: {step_s:.3f} s a step after the first "
+          f"({tokens / step_s:.0f} tokens/s, host clock, synchronized), "
+          f"losses {[round(r['loss'], 6) for r in recs]}, peak {peak:.2f} GB"
+          f"; flash launches a step forward {recs[0]['flash_fwd']}, "
+          f"backward {recs[0]['flash_bwd']} (section m's: {want_fwd}, "
+          f"{want_bwd}); {smi}")
+
+    # -- o5: GPipe over the trained weights -------------------------------------
+    per_stage = cfg.n_layers // PIPE_STAGES
+    model = state.model
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    class Stage(torch.nn.Module):
+        def __init__(self, blocks):
+            super().__init__()
+            self.blocks = blocks
+
+        def forward(self, x):
+            pos = torch.arange(x.shape[1], device=x.device)[None].expand(
+                x.shape[0], -1)
+            for blk in self.blocks:
+                x, _ = M._run_block(cfg, blk, x, pos)
+            return x
+
+    with torch.no_grad():
+        stages = [Stage(model.blocks[s * per_stage:(s + 1) * per_stage])
+                  for s in range(PIPE_STAGES)]
+        pnames = [n for n, _ in stages[0].named_parameters()]
+        stacked = {n: torch.stack([dict(st.named_parameters())[n]
+                                   for st in stages]) for n in pnames}
+        model.requires_grad_(False)
+        gp = torch.Generator(device=dev)
+        gp.manual_seed(SEED + 27)
+        toks = torch.randint(0, cfg.vocab, (PIPE_MICRO, 1, LM_SEQ),
+                             generator=gp, device=dev)
+        x = model.embed[toks]
+
+        def stage_fn(p, a):
+            return torch.func.functional_call(stages[0], p, (a,))
+
+        pipe = make_pipeline(mesh_of((PIPE_STAGES,), ("pod",)), stage_fn)
+        counters.zero()
+        got, s_pipe = timed(torch, lambda: pipe(stacked, x))
+        launches("o5 GPipe 4 stages x 8 micro-batches", counters.read())
+
+        def sequential():
+            outs = []
+            for mb in x:
+                for s in range(PIPE_STAGES):
+                    mb = stage_fn({n: v[s] for n, v in stacked.items()}, mb)
+                outs.append(mb)
+            return torch.stack(outs)
+
+        want, s_seq = timed(torch, sequential)
+
+        def own_blocks(mb):
+            for st in stages:
+                mb = st(mb)
+            return mb
+
+        own = torch.stack([own_blocks(mb) for mb in x])
+    same = torch.equal(got, want)
+    bubble = bubble_fraction(PIPE_STAGES, PIPE_MICRO)
+    out["o5"] = {"stages": PIPE_STAGES, "micro": PIPE_MICRO,
+                 "bitwise": same, "model_blocks_bitwise": torch.equal(got, own),
+                 "bubble_fraction": bubble, "seconds": s_pipe,
+                 "sequential_s": s_seq}
+    print(f"[dist] o5 GPipe, {cfg.n_layers} blocks in {PIPE_STAGES} stages "
+          f"over pod = {PIPE_STAGES}, {PIPE_MICRO} micro-batches of (1, "
+          f"{LM_SEQ}): final hidden states bitwise the sequential run "
+          f"{same} (and the model's own blocks {torch.equal(got, own)}); "
+          f"bubble_fraction({PIPE_STAGES}, {PIPE_MICRO}) = {bubble:.6f}; "
+          f"{s_pipe:.3f} s against {s_seq:.3f} s sequential (host clock); "
+          f"{smi}")
+    if not (same and abs(bubble - 3 / 11) < 1e-12):
+        fails.append(f"o5 GPipe: bitwise {same}, bubble {bubble}")
+    del model, stages, stacked, x, got, want, own, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- o6: section m's launcher run against the launcher's plain step -----
+    # (section m's run went through jit_train_step over the one-shard mesh
+    # of this card, and its launches are section m's)
+    argv = ["--arch", TRAIN_ARCH, "--full", "--steps", "4"]
+    with mock.patch.object(launch_train, "jit_train_step",
+                           lambda step, *a, **k: step):
+        plain_losses, s_plain = timed(torch,
+                                      lambda: launch_train.main(argv))
+    gc.collect()
+    torch.cuda.empty_cache()
+    ok6 = (len(driver["meshes"]) == 1 and len(driver["meshes"][0]) == 1
+           and driver["losses"] == plain_losses)
+    out["o6"] = {"meshes": driver["meshes"], "losses": driver["losses"],
+                 "plain_step_losses": plain_losses,
+                 "seconds": driver["seconds"], "plain_seconds": s_plain}
+    print(f"[dist] o6 launch.train --arch {TRAIN_ARCH} --full --steps 4 "
+          f"through the mesh {driver['meshes']} (section m's run): losses "
+          f"{driver['losses']}; with the plain step {plain_losses}; bitwise "
+          f"{ok6}; {driver['seconds']:.2f} s against {s_plain:.2f} s; {smi}")
+    if not ok6:
+        fails.append(f"o6 launch.train: mesh {driver['meshes']}, losses "
+                     f"{driver['losses']} vs the plain step's {plain_losses}")
+
+    # -- o4: split-K decode attention, then decode under the mesh ------------
+    qcfg = get_config(LM_ARCH)
+    hq, hk, dh = qcfg.n_heads, qcfg.n_kv_heads, qcfg.d_head
+    gk = torch.Generator(device=dev)
+    gk.manual_seed(SEED + 28)
+    q = torch.randn(SPLITK_B, 1, hq, dh, generator=gk, device=dev
+                    ).to(torch.bfloat16)
+    ck, cv = (torch.randn(SPLITK_B, SPLITK_CACHE, hk, dh, generator=gk,
+                          device=dev).to(torch.bfloat16) for _ in range(2))
+    pos = torch.tensor(SPLITK_POS, device=dev)
+    mesh4 = mesh_of((1, MOE_EP), ("data", "model"))
+    attn = D.make_splitk_decode_attention(mesh4, batch_axes=("data",))
+
+    def unsharded():
+        qg = q.reshape(SPLITK_B, hk, hq // hk, dh).float()
+        lg = torch.einsum("bhgd,bkhd->bhgk", qg, ck.float()) / dh ** 0.5
+        valid = torch.arange(SPLITK_CACHE, device=dev)[None] <= pos[:, None]
+        lg = torch.where(valid[:, None, None], lg,
+                         torch.tensor(-1e30, device=dev))
+        w = torch.softmax(lg, -1)
+        return torch.einsum("bhgk,bkhd->bhgd", w, cv.float()).reshape(
+            SPLITK_B, 1, hq, dh)
+
+    # split-K computes in f32 and returns q's dtype: held in f32 (q cast
+    # up front, as splitk_partial casts it), and the bf16 call its cast
+    got32 = attn(q.float(), ck, cv, pos)
+    ref = unsharded()
+    err = float((got32 - ref).abs().max())
+    same_cast = torch.equal(attn(q, ck, cv, pos), got32.to(torch.bfloat16))
+    repeat_k = torch.equal(attn(q.float(), ck, cv, pos), got32)
+    ms_split = cuda_ms(torch, lambda: attn(q, ck, cv, pos), 20)
+    ms_plain = cuda_ms(torch, unsharded, 20)
+    out["o4_splitk"] = {"shape": [SPLITK_B, hq, hk, SPLITK_CACHE, dh],
+                        "shards": MOE_EP, "max_abs_err": err,
+                        "bf16_out_is_cast": same_cast,
+                        "bitwise_repeat": repeat_k, "ms": ms_split,
+                        "unsharded_ms": ms_plain}
+    print(f"[dist] o4 split-K decode attention, B {SPLITK_B}, {hq} heads on "
+          f"{hk} kv heads of {dh}, a {SPLITK_CACHE}-position bf16 cache over "
+          f"model = {MOE_EP}, pos {list(SPLITK_POS)}: f32 combine within "
+          f"{err:.3e} of the unsharded softmax (limit {SPLITK_TOL}), the "
+          f"bf16 output its cast {same_cast}, bitwise on a repeat "
+          f"{repeat_k}; {ms_split:.4f} ms split-K "
+          f"against {ms_plain:.4f} ms unsharded (CUDA events); {smi}")
+    if not (err <= SPLITK_TOL and same_cast and repeat_k):
+        fails.append(f"o4 split-K: error {err}, cast {same_cast}, repeat "
+                     f"{repeat_k}")
+    del q, ck, cv, got32, ref
+    torch.cuda.empty_cache()
+
+    gq = torch.Generator(device=dev)
+    gq.manual_seed(SEED + 29)
+    model = M.init_model(qcfg, generator=gq, device=dev)
+    rules = dict(S.DEFAULT_RULES, kv_seq="model")
+    tok0 = torch.randint(0, qcfg.vocab, (SPLITK_B, 1), generator=gq,
+                         device=dev)
+    runs, secs = [], []
+    for under_mesh in (False, True):
+        st = M.init_decode_state(qcfg, SPLITK_B, SPLITK_CACHE, device=dev)
+        if under_mesh:
+            # every cache splits its positions over model = MOE_EP as
+            # split-K's shards take their keys: shard s the range
+            # [s Sl, (s + 1) Sl)
+            sh = S.param_sharding(M.decode_state_axes(qcfg), mesh4, st, rules)
+            spec = sh[0]["k"].spec
+            sl = SPLITK_CACHE // MOE_EP
+            ranges = [slice(e * sl, (e + 1) * sl) for e in range(MOE_EP)]
+            layout_ok = True
+            for s_l, c_l in zip(sh, st):
+                for key, leaf in c_l.items():
+                    s_l[key].check(leaf.shape, leaf.device, f"o4 {key}")
+                    got_r = [s_l[key].index((0, e), leaf.shape)[1]
+                             for e in range(MOE_EP)]
+                    layout_ok &= (s_l[key].spec == spec and got_r == ranges)
+        tok, logits_all, toks_all = tok0, [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(DECODE_STEPS):
+            p = torch.tensor([i, i + 3, i + 7, i + 11], device=dev)
+            if under_mesh:
+                with S.activation_sharding(mesh4, rules):
+                    lg, st = M.decode_step(model, st, tok, p)
+            else:
+                lg, st = M.decode_step(model, st, tok, p)
+            tok = torch.argmax(lg, -1)[:, None]
+            logits_all.append(lg)
+            toks_all.append(tok)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        runs.append((torch.stack(logits_all), torch.cat(toks_all, 1)))
+        del st
+    same_dec = (torch.equal(runs[0][0], runs[1][0])
+                and torch.equal(runs[0][1], runs[1][1]))
+    out["o4_decode"] = {"steps": DECODE_STEPS, "bitwise": same_dec,
+                        "cache_spec": [e for e in spec],
+                        "cache_layout_is_splitk": layout_ok,
+                        "seconds": secs}
+    print(f"[dist] o4 {LM_ARCH} caches by decode_state_axes over model = "
+          f"{MOE_EP}: every layer {spec}, positions split as split-K's "
+          f"shards {layout_ok}; {DECODE_STEPS} decode steps at batch "
+          f"{SPLITK_B} under activation_sharding: tokens and logits bitwise "
+          f"the plain decode_step {same_dec}; {secs[1]:.3f} s against "
+          f"{secs[0]:.3f} s (host clock); {smi}")
+    if not (same_dec and layout_ok):
+        fails.append(f"o4 decode: bitwise {same_dec}, cache layout "
+                     f"{layout_ok}")
+    del model, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- o3: the all-to-all MoE -------------------------------------------------
+    mcfg = get_config("moonshot-v1-16b-a3b")
+    gm = torch.Generator(device=dev)
+    gm.manual_seed(SEED + 30)
+    toks = torch.randint(0, mcfg.vocab, (LM_BATCH, LM_SEQ), generator=gm,
+                         device=dev)
+    c32 = dataclasses.replace(mcfg, n_layers=A2A_CHECK_DEPTH,
+                              dtype="float32",
+                              capacity_factor=mcfg.n_experts / mcfg.top_k)
+    model = M.init_model(c32, generator=gm, device=dev)
+    lg_g, aux_g = M.forward(model, toks)
+    model.cfg = dataclasses.replace(c32, moe_impl="a2a")
+    with S.activation_sharding(mesh4):
+        lg_a, aux_a = M.forward(model, toks)
+    rel = float((lg_a - lg_g).abs().max()) / float(lg_g.abs().max())
+    drops32 = (float(aux_g["drop_frac"]), float(aux_a["drop_frac"]))
+    print(f"[dist] o3 moonshot-v1-16b-a3b at depth {A2A_CHECK_DEPTH} in f32, "
+          f"capacity_factor = E / k: a2a logits within {rel:.3e} of max "
+          f"|gather| (limit {A2A_REL}); drop_frac gather {drops32[0]}, a2a "
+          f"{drops32[1]}")
+    if not (rel <= A2A_REL and drops32 == (0.0, 0.0)):
+        fails.append(f"o3 a2a f32: rel {rel}, drops {drops32}")
+    del model, lg_g, lg_a
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = M.init_model(mcfg, generator=gm, device=dev)
+    tokens = LM_BATCH * LM_SEQ
+    M.forward(model, toks)                                    # warm
+    (_, aux_g), s_g = timed(torch, lambda: M.forward(model, toks))
+    model.cfg = dataclasses.replace(mcfg, moe_impl="a2a")
+    counters.zero()
+    with S.activation_sharding(mesh4):
+        (lg1, aux1), s_a1 = timed(torch, lambda: M.forward(model, toks))
+        (lg2, aux2), s_a2 = timed(torch, lambda: M.forward(model, toks))
+    launches("o3 moonshot a2a forward x2 (model = 4)", counters.read())
+    rep = torch.equal(lg1, lg2) and all(torch.equal(aux1[k], aux2[k])
+                                        for k in aux1)
+    d_g, d_a = float(aux_g["drop_frac"]), float(aux1["drop_frac"])
+    out["o3"] = {"ep": MOE_EP, "f32_rel": rel, "f32_drop_frac": drops32,
+                 "gather_ms": s_g * 1e3, "a2a_ms": s_a2 * 1e3,
+                 "a2a_first_ms": s_a1 * 1e3, "gather_tokens_s": tokens / s_g,
+                 "a2a_tokens_s": tokens / s_a2,
+                 "drop_frac": {"gather": d_g, "a2a": d_a},
+                 "a2a_bitwise_repeat": rep}
+    print(f"[dist] o3 moonshot-v1-16b-a3b full depth bf16 (2, {LM_SEQ}), "
+          f"capacity_factor {mcfg.capacity_factor}: forward a2a "
+          f"{s_a2 * 1e3:.1f} ms ({tokens / s_a2:.0f} tokens/s) against gather"
+          f" {s_g * 1e3:.1f} ms ({tokens / s_g:.0f} tokens/s), host clock; "
+          f"drop_frac (summed over {mcfg.n_layers} layers) gather {d_g:.6f}, "
+          f"a2a {d_a:.6f}; a2a bitwise on a repeat {rep}; {smi}")
+    if not (rep and 0.0 <= d_a / mcfg.n_layers < 1.0
+            and 0.0 <= d_g / mcfg.n_layers < 1.0):
+        fails.append(f"o3 a2a bf16: repeat {rep}, drops {d_g}, {d_a}")
+    del model, lg1, lg2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out["section_s"] = time.perf_counter() - t_section
+    print(json.dumps({"dist_section": out}))
+    print(f"[dist] section o took {out['section_s']:.1f} s; {smi}")
+    require(not fails, "section o: " + "; ".join(fails))
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5061,6 +5597,7 @@ def main() -> int:
                 "launches_by_shape": r["launches_by_shape"]}}))
     print(json.dumps({"kernel": tr["row"]}))
     rows.append(tr["row"])
+    driver = tr["driver"]
     del tr
     gc.collect()
     torch.cuda.empty_cache()
@@ -5075,6 +5612,25 @@ def main() -> int:
         if by_step:
             r["launches"] = counters.total[r["name"]]
             r["max_abs_err"] = errs[r["name"]]
+            r["launches_by_shape"] = {**r.get("launches_by_shape", {}),
+                                      **by_step}
+            print(json.dumps({"kernel_launches": {
+                "name": r["name"], "launches": r["launches"],
+                "launches_by_shape": r["launches_by_shape"]}}))
+
+    # o. the LM's distribution on meshes of this card, once section n's
+    # tables are freed: its launches join rows 5, 7 and 8
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist = dist_section(torch, dev, counters, smi, driver)
+    for r in rows:
+        by_step = {step: got[r["name"]]
+                   for step, got in dist["launches"].items()
+                   if got.get(r["name"])}
+        if by_step:
+            r["launches"] = counters.total[r["name"]]
+            if "launches_tc" in r:
+                r["launches_tc"] = counters.total[f"{r['name']}_tc"]
             r["launches_by_shape"] = {**r.get("launches_by_shape", {}),
                                       **by_step}
             print(json.dumps({"kernel_launches": {

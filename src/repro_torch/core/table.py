@@ -42,17 +42,6 @@ from .trace import record
 Columns = Mapping[str, torch.Tensor]
 
 
-def require_no_mesh(what: str, mesh=None, row_axes=None) -> None:
-    """The reference's sharding arguments where the port has no
-    distribution yet (the LM's: training, checkpoints, models):
-    ``mesh=None`` and empty ``row_axes`` are no-ops; anything else
-    raises, naming the ROADMAP item that ports it."""
-    if mesh is not None or row_axes:
-        raise NotImplementedError(
-            f"{what}: the LM's distribution (mesh=, row_axes=) is not "
-            "ported to repro_torch yet (ROADMAP Queue 1 item 13b)")
-
-
 def table_mesh(what: str, mesh, row_axes, table) -> tuple:
     """``(mesh, row_axes)`` of a statement: its own ``mesh`` or else the
     table's, and its ``row_axes`` or else the table's or ``("data",)``

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..distributed.sharding import as_device
 from ..methods.quantiles import HistogramAggregate
 from ..methods.sketches import CountMinAggregate, FMAggregate, \
     countmin_query
@@ -77,15 +78,26 @@ def synthetic_batch(cfg, batch: int, seq: int, *,
 _DONE = object()
 
 
-def make_lm_batches(stream, *, device, prefetch: int = 2) -> Iterator[dict]:
+def make_lm_batches(stream, mesh=None, sharding=None, *, device=None,
+                    prefetch: int = 2) -> Iterator[dict]:
     """Batches of ``stream`` (dicts of numpy arrays) as tensors on
     ``device``, in the stream's order.  A producer thread keeps up to
     ``prefetch`` batches in flight: each array goes into pinned host
     memory (on a card) and is copied with ``non_blocking=True`` on a
     stream of the producer's own, which the consumer's stream waits on
     before it uses the batch.  An exception in the producer is raised
-    here."""
-    dev = torch.device(device)
+    here.
+
+    With the reference's ``mesh`` (and no ``device``) the batches land on
+    the mesh's first device, which holds a sharded global tensor;
+    ``sharding`` (a dict of ``NamedSharding`` by key, from
+    ``batch_sharding``) checks that each array splits into its slices
+    there."""
+    if device is None and mesh is not None:
+        device = mesh.devices.flat[0]
+    dev = as_device(resolve_device(device))
+    if sharding is not None:
+        stream = _checked(stream, sharding, dev)
     on_card = dev.type == "cuda"
     copy_stream = torch.cuda.Stream(dev) if on_card else None
     q: queue.Queue = queue.Queue(maxsize=prefetch)
@@ -141,6 +153,15 @@ def make_lm_batches(stream, *, device, prefetch: int = 2) -> Iterator[dict]:
     finally:
         stop.set()
         t.join()
+
+
+def _checked(stream, sharding: dict, dev: torch.device):
+    """``stream``'s batches, each array checked against its sharding as
+    it will land on ``dev``."""
+    for np_batch in stream:
+        for k, v in np_batch.items():
+            sharding[k].check(np.shape(v), dev, f"make_lm_batches: {k}")
+        yield np_batch
 
 
 def corpus_profile(token_batches, *, vocab: int, n_batches: int = 4,

@@ -1,7 +1,7 @@
-"""Distribution on the card (counterpart of the reference package's
-``distributed``): the row sharding of a distributed table over a
-single-controller mesh of segments (``sharding``), checkpoints and fault
-tolerance on one card.  The LM's distribution (the rest of
-``sharding``, ``compression``, ``decode``, ``ep_a2a``, ``pipeline``, the
-heartbeat monitor and the elastic mesh plan) is ROADMAP Queue 1 item
-13b."""
+"""Distribution on a single-controller mesh (counterpart of the reference
+package's ``distributed``): the row sharding of a distributed table and
+the LM's logical shardings (``sharding``), split-K decode attention
+(``decode``), the all-to-all MoE (``ep_a2a``), the GPipe schedule
+(``pipeline``), int8 gradient compression (``compression``), checkpoints
+that restore onto another mesh (``checkpoint``), and fault tolerance
+(``fault_tolerance``)."""

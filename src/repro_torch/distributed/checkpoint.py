@@ -11,8 +11,11 @@ path through the state joined by ``/``: a module contributes its
 fields, a dict its keys (``opt/mu/embed``).  bfloat16 leaves are stored
 as their 16-bit patterns (numpy has no bfloat16), with the dtype
 ``bfloat16`` in the manifest.  ``restore`` copies into the tensors of
-the state it is given, casting to their dtypes, in place.  Restoring
-onto other shardings (``shardings=``) is ROADMAP Queue 1 item 13b.
+the state it is given, casting to their dtypes, in place; with
+``shardings=`` (a tree of ``NamedSharding`` keyed as the state, e.g.
+``train.shardings_for_state`` on the new mesh) each leaf is first checked
+against its sharding, so a checkpoint saved from one mesh restores onto
+another (elastic restart).
 """
 
 from __future__ import annotations
@@ -137,17 +140,19 @@ def latest_step(ckpt_dir: str) -> int | None:
 def restore(ckpt_dir: str, target_tree, *, step: int | None = None,
             shardings=None):
     """Load the checkpoint at ``step`` (the latest by default) into the
-    tensors of ``target_tree``, in place.  Returns (target_tree, step)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore: shardings= (elastic resharding) is not ported to "
-            "repro_torch yet (ROADMAP Queue 1 item 13b)")
+    tensors of ``target_tree``, in place.  Returns (target_tree, step).
+
+    ``shardings`` (keyed as ``target_tree``) places each leaf: its shape
+    must split into the sharding's slices, and the leaf must live on the
+    sharding's device (the mesh's first position holds the global
+    tensor)."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
     path = os.path.join(ckpt_dir, f"step_{step:010d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
+    flat_sh = _flatten(shardings) if shardings is not None else None
     with torch.no_grad():
         for k, leaf in _flatten(target_tree).items():
             meta = manifest["leaves"][k]
@@ -159,5 +164,9 @@ def restore(ckpt_dir: str, target_tree, *, step: int | None = None,
                 raise ValueError(f"restore: {k} has shape "
                                  f"{tuple(src.shape)} in {path}, the "
                                  f"target {tuple(leaf.shape)}")
+            if flat_sh is not None:
+                if flat_sh.get(k) is None:
+                    raise ValueError(f"restore: no sharding for {k}")
+                flat_sh[k].check(leaf.shape, leaf.device, f"restore: {k}")
             leaf.copy_(src)
     return target_tree, step

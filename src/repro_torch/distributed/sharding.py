@@ -18,19 +18,35 @@ the mesh; here one process drives every segment:
 
 Merges across segments are left folds in segment order (the engines in
 ``core/aggregates.py``), never a collective whose order is not fixed.
-The LM half of the reference module (``to_pspec``, ``param_sharding``,
-``activation_sharding``, ``constrain``, ``batch_sharding``) is ROADMAP
-Queue 1 item 13b.
+
+The LM half maps the model's logical axis names onto mesh axes
+(:data:`DEFAULT_RULES`, :func:`to_pspec`) and describes a tensor's
+placement as a :class:`NamedSharding` of a :class:`PartitionSpec`: one
+global tensor on the mesh's first device, and the slice of it that each
+mesh position owns (:meth:`NamedSharding.index`).  Code that the
+reference runs under ``shard_map`` loops over the positions in order
+(``decode``, ``ep_a2a``, ``pipeline``, ``compression`` and the sharded
+train step).  :func:`constrain` checks the logical spec and returns its
+tensor: a global tensor already holds what the partitioned program
+computes, so a forward under :func:`activation_sharding` is bitwise the
+unsharded one.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import contextlib
+import threading
+from typing import Any, Sequence
 
 import numpy as np
 import torch
 
-from ..core.trace import record
+
+def record(kind: str, **detail) -> None:
+    """``core.trace.record``, imported at the call: ``core`` imports this
+    module, and a model module may import it first."""
+    from ..core.trace import record as _record
+    _record(kind, **detail)
 
 
 def as_device(d) -> torch.device:
@@ -165,4 +181,314 @@ def segment_views(mesh: Mesh, row_axes, tensors: dict) -> list[dict]:
         if moved:
             record("copy", segment=s, device=str(dev), bytes=moved)
         out.append(part)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The LM half: logical axes -> mesh axes
+# ---------------------------------------------------------------------------
+
+DEFAULT_RULES: dict[str, Any] = {
+    "batch": ("pod", "data"),
+    "fsdp": "data",
+    "tensor": "model",
+    "vocab": "model",
+    "expert": "model",
+    "layers": None,
+}
+
+_ctx = threading.local()
+
+
+class PartitionSpec(tuple):
+    """One entry per tensor dimension: ``None`` (replicated), a mesh axis
+    name, or a tuple of names (the dimension splits over their product,
+    the first named axis slowest).  A one-name tuple is that name and an
+    empty one is None, as JAX canonicalises them."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, tuple(_canonical(e) for e in entries))
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+def _canonical(entry):
+    if isinstance(entry, tuple) and len(entry) <= 1:
+        return entry[0] if entry else None
+    return entry
+
+
+def row_pspec(row_axes=("data",), ndim: int = 1) -> PartitionSpec:
+    """The spec that splits the leading (row) axis over ``row_axes`` and
+    replicates the rest (the reference's in_spec of a row-leading array);
+    :func:`row_sharding` gives its row ranges."""
+    return PartitionSpec(tuple(row_axes), *([None] * (ndim - 1)))
+
+
+def _names(entry) -> tuple:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+class NamedSharding:
+    """A :class:`PartitionSpec` on a :class:`Mesh`: the tensor stays one
+    global tensor, and the position ``pos`` (one index per mesh axis)
+    owns the slice :meth:`index` gives, on ``mesh.devices[pos]``."""
+
+    def __init__(self, mesh: Mesh, spec: PartitionSpec):
+        self.mesh = mesh
+        self.spec = PartitionSpec(*spec)
+        unknown = [a for e in self.spec for a in _names(e)
+                   if a not in mesh.axis_names]
+        if unknown:
+            raise ValueError(f"NamedSharding: axes {unknown} not in "
+                             f"{mesh.axis_names}")
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, NamedSharding) and other.mesh is self.mesh
+                and other.spec == self.spec)
+
+    def __hash__(self) -> int:
+        return hash((id(self.mesh), self.spec))
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.mesh.shape}, {self.spec!r})"
+
+    def positions(self) -> list[tuple[int, ...]]:
+        """Every mesh position, in row-major order."""
+        return list(np.ndindex(*self.mesh.devices.shape))
+
+    def device(self, pos: tuple[int, ...]) -> torch.device:
+        return self.mesh.devices[tuple(pos)]
+
+    def index(self, pos: tuple[int, ...], shape) -> tuple[slice, ...]:
+        """The slices of a tensor of ``shape`` that position ``pos``
+        owns: dimension d splits into :meth:`parts` equal ranges, and
+        ``pos`` takes the range its coordinates on the dimension's axes
+        number (row-major over the named axes)."""
+        shape = tuple(shape)
+        if len(self.spec) > len(shape):
+            raise ValueError(f"NamedSharding: spec {self.spec} has more "
+                             f"entries than the shape {shape}")
+        out = []
+        for d, n in enumerate(shape):
+            names = _names(self.spec[d]) if d < len(self.spec) else ()
+            if not names:
+                out.append(slice(0, n))
+                continue
+            sizes = [self.mesh.shape[a] for a in names]
+            coords = [pos[self.mesh.axis_names.index(a)] for a in names]
+            k = int(np.ravel_multi_index(coords, sizes))
+            p = int(np.prod(sizes))
+            if n % p:
+                raise ValueError(f"NamedSharding: dimension {d} of {shape} "
+                                 f"does not split into {p} parts")
+            out.append(slice(k * n // p, (k + 1) * n // p))
+        return tuple(out)
+
+    def check(self, shape, device=None, what: str = "NamedSharding"
+              ) -> None:
+        """Raise ``ValueError`` unless a tensor of ``shape`` splits into
+        every position's slice and, where ``device`` is given, lives on
+        the mesh's first position: one controller keeps the global tensor
+        there."""
+        for pos in self.positions():
+            self.index(pos, shape)
+        home = self.mesh.devices.flat[0]
+        if device is not None and torch.device(device) != home:
+            raise ValueError(f"{what}: on {device}, its sharding's global "
+                             f"tensor on {home}")
+
+
+def _mesh_axes(mesh: Mesh) -> set[str]:
+    return set(mesh.axis_names)
+
+
+def to_pspec(logical: tuple, mesh: Mesh, rules: dict | None = None
+             ) -> PartitionSpec:
+    """Map a tuple of logical axis names to a PartitionSpec valid on
+    ``mesh``: each name through ``rules``, keeping only the mesh axes
+    that ``mesh`` has."""
+    rules = rules or DEFAULT_RULES
+    axes = _mesh_axes(mesh)
+    out = []
+    for name in logical:
+        m = None if name is None else rules.get(name)
+        if m is None:
+            out.append(None)
+        elif isinstance(m, tuple):
+            kept = tuple(a for a in m if a in axes)
+            out.append(kept if kept else None)
+        else:
+            out.append(m if m in axes else None)
+    return PartitionSpec(*out)
+
+
+def _divisible(dim: int, spec_entry, mesh: Mesh) -> bool:
+    if spec_entry is None:
+        return True
+    total = int(np.prod([mesh.shape[a] for a in _names(spec_entry)]))
+    return dim % total == 0
+
+
+def _fit(spec: PartitionSpec, shape, mesh: Mesh) -> PartitionSpec:
+    """``spec`` with every entry whose dimension does not divide its mesh
+    extent replaced by None (replicated)."""
+    return PartitionSpec(*(
+        None if e is not None and i < len(shape)
+        and not _divisible(shape[i], e, mesh) else e
+        for i, e in enumerate(spec)))
+
+
+def _is_axes(t) -> bool:
+    return isinstance(t, tuple) and all(
+        a is None or isinstance(a, str) for a in t)
+
+
+def _map_axes(fn, axes, *trees):
+    """``fn(logical, leaf, ...)`` over an axes tree (dicts and lists whose
+    leaves are tuples of logical names) and trees of the same structure."""
+    if _is_axes(axes):
+        return fn(axes, *trees)
+    if isinstance(axes, dict):
+        return {k: _map_axes(fn, axes[k], *(t[k] for t in trees))
+                for k in axes}
+    if isinstance(axes, (list, tuple)):
+        return type(axes)(_map_axes(fn, a, *(t[i] for t in trees))
+                          for i, a in enumerate(axes))
+    raise TypeError(f"_map_axes: unexpected node {type(axes).__name__}")
+
+
+def param_sharding(axes_tree, mesh: Mesh, params_tree,
+                   rules: dict | None = None):
+    """An axes tree (tuples of logical names) and the parameters it
+    describes -> a tree of :class:`NamedSharding`.
+
+    A mesh axis appears at most once per spec: the first logical
+    dimension that maps to it wins (MoE's "expert" takes the model axis
+    and the per-expert "tensor" dimensions stay replicated).  A dimension
+    that does not divide its mesh extent falls back to replicated (10
+    heads on a 16-way tensor axis)."""
+
+    def one(logical, leaf):
+        spec = to_pspec(tuple(logical), mesh, rules)
+        shape = tuple(leaf.shape)
+        fixed, used = [], set()
+        for i, e in enumerate(spec):
+            names = _names(e)
+            if any(n in used for n in names) or (
+                    i < len(shape) and not _divisible(shape[i], e, mesh)):
+                fixed.append(None)
+            else:
+                fixed.append(e)
+                used.update(names)
+        return NamedSharding(mesh, PartitionSpec(*fixed))
+
+    return _map_axes(one, axes_tree, params_tree)
+
+
+@contextlib.contextmanager
+def activation_sharding(mesh: Mesh, rules: dict | None = None):
+    """Turn on :func:`constrain` and the mesh-aware blocks (the a2a MoE)
+    inside model code."""
+    check_mesh(mesh, "activation_sharding")
+    prev = getattr(_ctx, "active", None)
+    _ctx.active = (mesh, rules or DEFAULT_RULES)
+    try:
+        yield
+    finally:
+        _ctx.active = prev
+
+
+def get_active():
+    """(mesh, rules) of the enclosing :func:`activation_sharding`, or
+    None."""
+    return getattr(_ctx, "active", None)
+
+
+def constrain(x, logical: tuple):
+    """The reference's contextual sharding constraint.  Outside
+    :func:`activation_sharding` nothing is checked; inside, ``logical``
+    maps to a spec on the live mesh (a dimension that does not divide
+    falls back to replicated) and must fit ``x``'s rank.  Returns ``x``
+    itself: one controller holds the global tensor, which already is
+    what the partitioned program computes."""
+    active = get_active()
+    if active is None:
+        return x
+    mesh, rules = active
+    spec = _fit(to_pspec(logical, mesh, rules), x.shape, mesh)
+    if len(spec) > x.dim():
+        raise ValueError(f"constrain: {len(spec)} logical axes for a "
+                         f"tensor of rank {x.dim()}")
+    return x
+
+
+def batch_sharding(mesh: Mesh, tree, rules: dict | None = None,
+                   logical_tree=None):
+    """Shardings of a batch tree (leaves with a ``shape``).  The leading
+    axis maps to "batch" unless ``logical_tree`` gives a leaf its own
+    logical tuple (M-RoPE positions (3, B, S) take (None, "batch",
+    None)); a dimension that does not divide falls back to replicated."""
+
+    def one(leaf, logical=None):
+        shape = tuple(leaf.shape)
+        logical = logical or (("batch",) + (None,) * (len(shape) - 1))
+        return NamedSharding(mesh, _fit(to_pspec(tuple(logical), mesh,
+                                                 rules), shape, mesh))
+
+    if logical_tree is None:
+        if isinstance(tree, dict):
+            return {k: batch_sharding(mesh, v, rules) for k, v in
+                    tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(batch_sharding(mesh, v, rules) for v in tree)
+        return one(tree)
+    return _map_axes(lambda lg, leaf: one(leaf, tuple(lg)), logical_tree,
+                    tree)
+
+
+def axes_in_mesh(mesh: Mesh, axes) -> tuple[str, ...]:
+    """The names of ``axes`` (a name, a tuple of names or None) that
+    ``mesh`` has, in order."""
+    return tuple(a for a in _names(axes) if a in mesh.axis_names)
+
+
+def axis_extent(mesh: Mesh, axes) -> int:
+    """The product of the sizes of ``axes`` on ``mesh`` (1 for none)."""
+    return int(np.prod([mesh.shape[a] for a in _names(axes)]))
+
+
+def split_range(n: int, parts: int, what: str) -> list[tuple[int, int]]:
+    """``parts`` equal contiguous ranges of ``n``; raises where they are
+    not equal, as ``shard_map`` does for an in_spec that does not
+    divide."""
+    if parts <= 0 or n % parts:
+        raise ValueError(f"{what}: {n} does not split into {parts} equal "
+                         "shards")
+    step = n // parts
+    return [(i * step, (i + 1) * step) for i in range(parts)]
+
+
+def ordered_mean(xs: list):
+    """The mean of ``xs``, summed left to right (a fixed merge order)."""
+    acc = xs[0]
+    for v in xs[1:]:
+        acc = acc + v
+    return acc / len(xs)
+
+
+def on_device(t: torch.Tensor, dev: torch.device, **detail) -> torch.Tensor:
+    """``t`` where it is already on ``dev``, else a copy there recorded as
+    a ``kind="copy"`` trace event."""
+    if t.device == dev:
+        return t
+    out = t.to(dev)
+    record("copy", device=str(dev), bytes=out.numel() * out.element_size(),
+           **detail)
     return out

@@ -1,9 +1,13 @@
 """Training driver: the MADlib host driver at LM scale, on one card.
 
-Counterpart of the single-card part of the reference package's
-``launch/train.py``: config -> :class:`TrainState` (weights from a seed)
--> train step -> data pipeline (prefetched to the device) ->
-checkpoint/restart and straggler tracking.  Only the logged metrics
+Counterpart of the reference package's ``launch/train.py``: config ->
+mesh -> :class:`TrainState` (weights from a seed) -> the train step over
+the mesh (``jit_train_step``) -> data pipeline (prefetched to the device,
+checked against ``batch_sharding``) -> checkpoint/restart and straggler
+tracking.  The reference's mesh holds every device of the host; the
+model here lives on one device, so the mesh is the one data shard of
+that device, whatever else the host holds, and the step is the unsharded
+step, bit for bit.  Only the logged metrics
 cross to the host, every ``log_every`` steps.  Runs on the card unless
 ``device="cpu"`` (``--device cpu``); without a card and without that it
 raises.
@@ -20,11 +24,15 @@ import time
 import torch
 
 from ..configs import get_config, reduced_config
+from ..core.compat import make_mesh
 from ..data import TokenStream, corpus_profile, make_lm_batches
 from ..device import resolve_device
 from ..distributed import checkpoint as ckpt
 from ..distributed.fault_tolerance import StragglerMitigator
-from ..train.trainer import init_train_state, make_train_step
+from ..distributed.sharding import DEFAULT_RULES, batch_sharding
+from ..models.model import param_axes
+from ..train.trainer import (init_train_state, jit_train_step,
+                             make_train_step)
 
 
 def _sync(dev: torch.device) -> None:
@@ -43,6 +51,8 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 128,
     losses as floats, one a step."""
     cfg = reduced_config(arch) if reduced else get_config(arch)
     dev = resolve_device(device)
+    mesh = make_mesh((1,), ("data",), devices=[dev])
+    rules = dict(DEFAULT_RULES)
     gen = torch.Generator(device=dev).manual_seed(0)
     state = init_train_state(cfg, generator=gen, device=dev)
     step_fn = make_train_step(cfg, base_lr=base_lr, warmup=10,
@@ -54,6 +64,11 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 128,
         print(f"[data] distinct-token estimate: "
               f"{float(prof['distinct_estimate']):.0f}")
 
+    sample = next(iter(stream))
+    fn = jit_train_step(step_fn, state, param_axes(state.model), sample,
+                        mesh, rules)
+    batch_sh = batch_sharding(mesh, sample, rules)
+
     start_step = 0
     if resume and ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
         state, start_step = ckpt.restore(ckpt_dir, state)
@@ -64,11 +79,12 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 128,
     losses = []
     _sync(dev)
     t_last = time.perf_counter()
-    for i, b in enumerate(make_lm_batches(stream, device=dev)):
+    for i, b in enumerate(make_lm_batches(stream, mesh, batch_sh,
+                                          device=dev)):
         step_no = start_step + i
         if step_no >= steps:
             break
-        state, metrics = step_fn(state, b)
+        state, metrics = fn(state, b)
         loss = float(metrics["loss"])
         losses.append(loss)
         dt = time.perf_counter() - t_last

@@ -31,6 +31,12 @@ NEG_INF = -1e30
 NORMAL = ("normal", None)
 ONES = ("ones", None)
 ZEROS = ("zeros", None)
+# Each module's ``AXES`` maps its parameters to their logical axis names,
+# as the reference's ``ParamStore.add`` calls name them; ``param_axes`` in
+# ``models/model.py`` gathers them for ``param_sharding``.
+REPLICATED = (None,)
+IN_OUT = ("fsdp", "tensor")      # (d, out): input dim over fsdp
+OUT_IN = ("tensor", "fsdp")      # (in, d)
 
 
 def param(shape, dtype, device) -> nn.Parameter:
@@ -46,6 +52,8 @@ class Attention(nn.Module):
 
     INIT = {"wq": NORMAL, "wk": NORMAL, "wv": NORMAL, "wo": NORMAL,
             "q_norm": ONES, "k_norm": ONES}
+    AXES = {"wq": IN_OUT, "wk": IN_OUT, "wv": IN_OUT, "wo": OUT_IN,
+            "q_norm": REPLICATED, "k_norm": REPLICATED}
 
     def __init__(self, cfg, dtype, device):
         super().__init__()
@@ -63,6 +71,7 @@ class FFN(nn.Module):
     """SwiGLU weights ``w_gate``/``w_up`` (d, d_ff), ``w_down`` (d_ff, d)."""
 
     INIT = {"w_gate": NORMAL, "w_up": NORMAL, "w_down": NORMAL}
+    AXES = {"w_gate": IN_OUT, "w_up": IN_OUT, "w_down": OUT_IN}
 
     def __init__(self, cfg, dtype, device):
         super().__init__()

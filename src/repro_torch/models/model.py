@@ -12,9 +12,16 @@ takes no gradient and records no graph; once the trainer calls
 ``torch.utils.checkpoint`` where ``cfg.remat`` (the reference's
 ``jax.checkpoint(period_body)``), and :func:`train_loss` is the loss.
 
-The sharding options raise ``NotImplementedError`` naming their ROADMAP
-item (the port has no mesh: the reference's ``constrain`` has no
-counterpart here).
+Under :func:`~repro_torch.distributed.sharding.activation_sharding` the
+blocks name their logical layouts through ``constrain`` as the
+reference's do (``seq_parallel`` keeps the residual stream split over the
+sequence and gathers it only for attention), which leaves every tensor
+as it is: a forward under a mesh is bitwise the unsharded one.  The one
+block that changes its algorithm under a mesh is the MoE with
+``moe_impl="a2a"``, which routes each sequence shard on its own
+(``distributed/ep_a2a.py``).  :func:`param_axes` and
+:func:`decode_state_axes` name the logical axes of the parameters and of
+the decode state, for ``param_sharding``.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..distributed.sharding import constrain, get_active
 from . import layers as L
 from . import moe as MOE
 from . import rglru as RG
@@ -31,23 +39,9 @@ from . import xlstm as XL
 from .config import ModelConfig, layer_kinds
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item for what the
-    port does not run yet."""
-    if cfg.seq_parallel:
-        raise NotImplementedError(
-            f"{cfg.name}: seq_parallel is not ported yet (ROADMAP Queue 1 "
-            "item 13b, distributed)")
-    if cfg.moe_impl != "gather":
-        raise NotImplementedError(
-            f"{cfg.name}: moe_impl={cfg.moe_impl!r} is not ported yet "
-            "(ROADMAP Queue 1 item 13b, distributed)")
-
-
 def period_pattern(cfg: ModelConfig) -> list[str]:
     """The family's repeating block pattern: the reference stacks the
     parameters of pattern position p of every full period together."""
-    check_ported(cfg)
     if cfg.family == "hybrid":
         pat = list(cfg.block_pattern or ("rglru", "rglru", "local"))
     elif cfg.family == "ssm":
@@ -69,6 +63,7 @@ class Block(nn.Module):
     ``slstm``."""
 
     INIT = {"norm1": L.ONES, "norm2": L.ONES}
+    AXES = {"norm1": L.REPLICATED, "norm2": L.REPLICATED}
 
     def __init__(self, cfg: ModelConfig, kind: str, dtype, device):
         super().__init__()
@@ -102,10 +97,11 @@ class Model(nn.Module):
 
     INIT = {"embed": ("normal", 1.0), "out_norm": L.ONES,
             "lm_head": L.NORMAL}
+    AXES = {"embed": ("vocab", "fsdp"), "out_norm": L.REPLICATED,
+            "lm_head": ("fsdp", "vocab")}
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        check_ported(cfg)
         dev = resolve_device(device)
         dt = _dtype(cfg)
         self.cfg = cfg
@@ -155,24 +151,68 @@ def init_model(cfg: ModelConfig, *, generator: torch.Generator,
     return model
 
 
+def param_axes(model: Model) -> dict[str, tuple]:
+    """The logical axes of each parameter, keyed by its name in
+    ``model.named_parameters()`` (the reference's ``init_model`` axes
+    tree, each layer's without the period stack's leading "layers")."""
+    out = {}
+    for prefix, module in model.named_modules():
+        for name, _ in module.named_parameters(recurse=False):
+            out[f"{prefix}.{name}" if prefix else name] = module.AXES[name]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Forward (prefill)
 # ---------------------------------------------------------------------------
+
+def _moe_dispatch(cfg: ModelConfig, p, h2):
+    """The baseline gather MoE, or with ``moe_impl="a2a"`` under an active
+    mesh the sequence-sharded all-to-all MoE."""
+    if cfg.moe_impl == "a2a":
+        active = get_active()
+        if active is not None:
+            from ..distributed.ep_a2a import make_run_moe_a2a
+            mesh, rules = active
+            batch = rules.get("batch", ("pod", "data"))
+            batch = batch if isinstance(batch, tuple) else (batch,)
+            h2s = constrain(h2, ("batch", "tensor", None))
+            moe_fn = make_run_moe_a2a(
+                mesh, cfg, batch_axes=batch,
+                expert_axis=rules.get("expert", "model"),
+                fsdp_axis=rules.get("fsdp", "data"))
+            out, aux = moe_fn(p, h2s)
+            return constrain(out, ("batch", None, None)), aux
+    return MOE.run_moe(p, cfg, h2)
+
+
+def _layout(cfg: ModelConfig) -> tuple:
+    """The residual stream's logical layout: split over the sequence on
+    the tensor axis under ``seq_parallel`` (Megatron-SP), else only over
+    the batch."""
+    return (("batch", "tensor", None) if cfg.seq_parallel
+            else ("batch", None, None))
+
 
 def _run_block(cfg: ModelConfig, p: Block, x, positions, *,
                mrope_positions=None, aux_acc=None, use_flash: bool = True):
     """Pre-norm residual block; returns (x, aux_acc)."""
     kind = p.kind
+    layout = _layout(cfg)
     h = L.rms_norm(x, p.norm1, cfg.norm_eps)
     if kind in ("attn", "local"):
         window = cfg.local_window if kind == "local" else None
-        x = x + L.run_attention(p.attn, cfg, h, positions, window=window,
-                                use_flash=use_flash,
-                                mrope_positions=mrope_positions)
+        if cfg.seq_parallel:
+            # gather the sequence only for attention; scatter right after
+            h = constrain(h, ("batch", None, None))
+        attn_out = L.run_attention(p.attn, cfg, h, positions, window=window,
+                                   use_flash=use_flash,
+                                   mrope_positions=mrope_positions)
+        x = constrain(x + constrain(attn_out, layout), layout)
         h2 = L.rms_norm(x, p.norm2, cfg.norm_eps)
         if cfg.is_moe:
-            out, aux = MOE.run_moe(p.moe, cfg, h2)
-            x = x + out
+            out, aux = _moe_dispatch(cfg, p.moe, h2)
+            x = x + constrain(out, layout)
             if aux_acc is not None:
                 aux_acc = {k: aux_acc[k] + aux[k] for k in aux_acc}
         elif cfg.d_ff > 0:
@@ -187,7 +227,7 @@ def _run_block(cfg: ModelConfig, p: Block, x, positions, *,
     else:
         out, _ = XL.run_slstm(p.slstm, cfg, h)
         x = x + out
-    return x, aux_acc
+    return constrain(x, layout), aux_acc
 
 
 def _run_period(cfg: ModelConfig, blocks, x, positions, mrope_positions,
@@ -232,6 +272,7 @@ def forward(model: Model, tokens=None, *, embeddings=None,
                 x = torch.cat([x, model.embed[tokens]], dim=1)
         else:
             x = model.embed[tokens]
+        x = constrain(x, _layout(cfg))
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         aux = ({k: torch.zeros((), dtype=torch.float32, device=x.device)
@@ -246,7 +287,9 @@ def forward(model: Model, tokens=None, *, embeddings=None,
         x, aux = _run_period(cfg, model.blocks[n_stacked:], x, positions,
                              mrope_positions, aux, use_flash)
         x = L.rms_norm(x, model.out_norm, cfg.norm_eps)
-        return x @ model.w_out(), (aux or {})
+        x = constrain(x, ("batch", None, None))    # gather seq for the head
+        logits = constrain(x @ model.w_out(), ("batch", None, "vocab"))
+        return logits, (aux or {})
 
 
 def train_loss(model: Model, batch: dict, *, use_flash: bool = True):
@@ -295,10 +338,32 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
     ``{"h"}`` f32 and ``{"conv"}`` (batch, W-1, d) in ``cfg.dtype`` for
     an RG-LRU layer; the f32 mLSTM ``{"C", "n", "m"}`` and sLSTM
     ``{"c", "n", "h", "m"}`` states."""
-    check_ported(cfg)
     dev = resolve_device(device)
     return [_layer_state(cfg, kind, batch, max_seq, dev)
             for kind in layer_kinds(cfg)]
+
+
+def decode_state_axes(cfg: ModelConfig) -> list[dict]:
+    """The logical axes of :func:`init_decode_state`'s caches, one dict a
+    layer.  KV caches split their sequence over "kv_seq" (the split-K
+    decode layout: kv-head counts of 1 to 8 are below a 16-way tensor
+    axis); recurrent states split their channels over "tensor"."""
+
+    def one(kind):
+        if kind in ("attn", "local"):
+            kv = ("batch", "kv_seq", None, None)
+            return {"k": kv, "v": kv}
+        if kind == "rglru":
+            return {"h": ("batch", "tensor"),
+                    "conv": ("batch", None, "tensor")}
+        if kind == "mlstm":
+            return {"C": ("batch", "tensor", None, None),
+                    "n": ("batch", "tensor", None),
+                    "m": ("batch", "tensor")}
+        ax = ("batch", "tensor")
+        return {"c": ax, "n": ax, "h": ax, "m": ax}
+
+    return [one(kind) for kind in layer_kinds(cfg)]
 
 
 def _decode_block(cfg: ModelConfig, p: Block, cache: dict, x, pos):

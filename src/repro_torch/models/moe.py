@@ -16,6 +16,9 @@ Two choices keep the port's answers those of the reference on the card:
   output dtype, where the reference's scatter-add sums them.  An atomic
   ``index_add_`` would change the order, and in bf16 the bits, from run
   to run.
+
+:func:`route`, :func:`dispatch` and :func:`combine` are the three steps;
+the all-to-all MoE (``distributed/ep_a2a.py``) runs them per shard.
 """
 
 from __future__ import annotations
@@ -34,6 +37,10 @@ class MoE(nn.Module):
 
     INIT = {"router": NORMAL, "w_gate": NORMAL, "w_up": NORMAL,
             "w_down": NORMAL}
+    AXES = {"router": ("fsdp", None),
+            "w_gate": ("expert", "fsdp", "tensor"),
+            "w_up": ("expert", "fsdp", "tensor"),
+            "w_down": ("expert", "tensor", "fsdp")}
 
     def __init__(self, cfg, dtype, device):
         super().__init__()
@@ -68,27 +75,33 @@ def run_moe(p: MoE, cfg, x):
     return _moe_tokens(p, cfg, x)
 
 
-def _moe_tokens(p: MoE, cfg, x):
-    b, s, d = x.shape
-    n = b * s
-    e, k = cfg.n_experts, cfg.top_k
-    dev = x.device
-    xf = x.reshape(n, d)
-
-    logits = (xf @ p.router).to(torch.float32)                # (N, E)
+def route(logits, k: int):
+    """f32 router logits (N, E) -> (probs (N, E), top_p (N, k), top_e (N,
+    k)): top-k by a stable descending sort (ties keep the lower expert),
+    top_p renormalised over the k."""
     probs = torch.softmax(logits, -1)
     top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
-    top_p, top_e = top_p[:, :k], top_e[:, :k]                 # (N, k)
-    top_p = top_p / torch.sum(top_p, -1, keepdim=True)        # renormalise
+    top_p, top_e = top_p[:, :k], top_e[:, :k]
+    return probs, top_p / torch.sum(top_p, -1, keepdim=True), top_e
 
-    # load-balance auxiliary loss (Switch/GShard form)
+
+def balance_loss(probs, top_e, e: int):
+    """The load-balance term ``E * sum(me * ce)`` (Switch/GShard form),
+    before ``router_aux_weight``."""
     me = torch.mean(probs, dim=0)                             # (E,)
     ce = torch.mean(torch.sum(F.one_hot(top_e, e).to(torch.float32),
                               dim=1), dim=0)
-    aux_loss = e * torch.sum(me * ce) * cfg.router_aux_weight
+    return e * torch.sum(me * ce)
 
-    # sort-based capacity dispatch
-    cap = _capacity(n, cfg)
+
+def dispatch(top_p, top_e, e: int, cap: int):
+    """Sort-based capacity bucketing of (N, k) assignments into E buckets
+    of ``cap`` slots.  Returns (tok_ec (E, C) int64, w_ec (E, C) f32,
+    valid_ec (E, C) f32, slot_of (N, k)): the token, weight and validity
+    of each slot (an empty slot holds token 0 with weight 0), and each
+    assignment's slot, ``E * cap`` for one past its bucket (dropped)."""
+    n, k = top_e.shape
+    dev = top_e.device
     flat_e = top_e.reshape(-1)                                # (N*k,)
     flat_p = top_p.reshape(-1)
     flat_tok = torch.arange(n, device=dev).repeat_interleave(k)
@@ -106,8 +119,39 @@ def _moe_tokens(p: MoE, cfg, x):
     tok_ec[kept] = stok[keep]
     w_ec[kept] = sp[keep]
     valid_ec[kept] = 1.0
-    tok_ec, w_ec, valid_ec = (t.reshape(e, cap)
-                              for t in (tok_ec, w_ec, valid_ec))
+    slot_of = torch.empty_like(slot)
+    slot_of[order] = slot
+    return (tok_ec.reshape(e, cap), w_ec.reshape(e, cap),
+            valid_ec.reshape(e, cap), slot_of.reshape(n, k))
+
+
+def combine(down, slot_of, top_e):
+    """Each token's kept slots of ``down`` (E * C, d), in slot order
+    (expert order), summed left to right in ``down``'s dtype; a dropped
+    assignment reads the zero row past the buckets.  No scatter-add, so
+    the order and the bits are the same on every run."""
+    n, k = slot_of.shape
+    by_expert = torch.argsort(top_e, dim=-1)                  # slot order
+    slots = torch.gather(slot_of, 1, by_expert)
+    rows = torch.cat([down, down.new_zeros((1, down.shape[1]))])[slots]
+    out = rows[:, 0]
+    for j in range(1, k):
+        out = out + rows[:, j]
+    return out
+
+
+def _moe_tokens(p: MoE, cfg, x):
+    b, s, d = x.shape
+    n = b * s
+    e, k = cfg.n_experts, cfg.top_k
+    xf = x.reshape(n, d)
+
+    logits = (xf @ p.router).to(torch.float32)                # (N, E)
+    probs, top_p, top_e = route(logits, k)
+    aux_loss = balance_loss(probs, top_e, e) * cfg.router_aux_weight
+
+    cap = _capacity(n, cfg)
+    tok_ec, w_ec, valid_ec, slot_of = dispatch(top_p, top_e, e, cap)
 
     xe = xf[tok_ec] * valid_ec[..., None].to(x.dtype)         # (E, C, d)
     gate = torch.bmm(xe, p.w_gate)
@@ -115,17 +159,7 @@ def _moe_tokens(p: MoE, cfg, x):
     down = torch.bmm(F.silu(gate) * up, p.w_down)
     down = down * (w_ec * valid_ec)[..., None].to(x.dtype)
 
-    # combine: each token's kept slots in slot order, summed left to
-    # right; a dropped assignment reads the zero row past the buckets
-    slot_of = torch.empty_like(slot)
-    slot_of[order] = slot
-    by_expert = torch.argsort(top_e, dim=-1)                  # slot order
-    slots = torch.gather(slot_of.reshape(n, k), 1, by_expert)
-    rows = torch.cat([down.reshape(e * cap, d),
-                      down.new_zeros((1, d))])[slots]         # (N, k, d)
-    out = rows[:, 0]
-    for j in range(1, k):
-        out = out + rows[:, j]
+    out = combine(down.reshape(e * cap, d), slot_of, top_e)
     dropped = 1.0 - torch.sum(valid_ec) / max(n * k, 1)
     return out.reshape(b, s, d).to(x.dtype), {
         "aux_loss": aux_loss, "drop_frac": dropped}

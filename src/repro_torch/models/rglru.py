@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import NORMAL, ONES, ZEROS, param
+from .layers import IN_OUT, NORMAL, ONES, OUT_IN, ZEROS, param
 
 
 class RGLRU(nn.Module):
@@ -31,6 +31,10 @@ class RGLRU(nn.Module):
     INIT = {"w_in": NORMAL, "w_gate_branch": NORMAL, "conv_w": NORMAL,
             "conv_b": ZEROS, "w_a": NORMAL, "w_i": NORMAL, "lam": ONES,
             "w_out": NORMAL}
+    AXES = {"w_in": IN_OUT, "w_gate_branch": IN_OUT,
+            "conv_w": (None, "tensor"), "conv_b": ("tensor",),
+            "w_a": IN_OUT, "w_i": IN_OUT, "lam": ("tensor",),
+            "w_out": OUT_IN}
 
     def __init__(self, cfg, dtype, device):
         super().__init__()

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import NORMAL, param
+from .layers import IN_OUT, NORMAL, OUT_IN, param
 
 
 # ---------------------------------------------------------------------------
@@ -38,6 +38,9 @@ class MLSTM(nn.Module):
     INIT = {"w_up": NORMAL, "w_skip_gate": NORMAL, "wq": NORMAL,
             "wk": NORMAL, "wv": NORMAL, "w_if": ("normal", 0.02),
             "w_o": NORMAL}
+    AXES = {"w_up": IN_OUT, "w_skip_gate": IN_OUT, "wq": OUT_IN,
+            "wk": OUT_IN, "wv": OUT_IN, "w_if": ("tensor", None),
+            "w_o": OUT_IN}
 
     def __init__(self, cfg, dtype, device):
         super().__init__()
@@ -167,6 +170,8 @@ class SLSTM(nn.Module):
 
     INIT = {"w_gates": NORMAL, "r_gates": ("normal", 0.02),
             "w_out": NORMAL}
+    AXES = {"w_gates": IN_OUT, "r_gates": (None, "tensor"),
+            "w_out": OUT_IN}
 
     def __init__(self, cfg, dtype, device):
         super().__init__()

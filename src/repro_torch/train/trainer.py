@@ -14,8 +14,16 @@ card:
 The model, the optimizer state and the step stay on the device; the
 metrics (``loss``, ``grad_norm``, ``lr`` and the last micro-batch's
 ``nll`` and MoE terms) come back as 0-d device tensors, so a step never
-waits for the host.  The sharded assembly (``shardings_for_state``,
-``jit_train_step``) is ROADMAP Queue 1 item 13b: a ``mesh`` raises.
+waits for the host.
+
+The sharded assembly keeps the reference's names.  :func:`jit_train_step`
+compiles nothing: it runs the step under ``activation_sharding`` on a
+single-controller mesh, cuts each micro-batch into the data shards of the
+``batch`` axes, folds each shard's micro-batches as ``grad_accum`` does,
+and merges the shards' gradient sums in shard order (a left fold in f32,
+no collective and no float atomic) before clipping and AdamW.  The
+shards are views of the batch and share the one model and its moments.
+On one shard the step is the unsharded step, bit for bit.
 """
 
 from __future__ import annotations
@@ -25,11 +33,15 @@ from typing import Callable
 
 import torch
 
-from ..core.table import require_no_mesh
+from ..distributed.sharding import (DEFAULT_RULES, P, NamedSharding,
+                                    activation_sharding, axes_in_mesh,
+                                    batch_sharding, check_mesh,
+                                    ordered_mean, param_sharding)
 from ..models import model as M
 from ..models.config import ModelConfig
 from ..optim import AdamWState, adamw_init, adamw_update, \
     clip_by_global_norm, linear_warmup_cosine
+from ..tree import tree_map
 
 
 @dataclasses.dataclass
@@ -57,15 +69,16 @@ def init_train_state(cfg: ModelConfig, *, generator: torch.Generator,
                                   device=model.embed.device))
 
 
-def _split(batch: dict, n: int) -> list[dict]:
-    """``n`` micro-batches along the batch axis: the second axis of the
-    M-RoPE positions (3, B, S), the first of everything else."""
+def _split(batch: dict, n: int, what: str = "grad_accum") -> list[dict]:
+    """``n`` micro-batches (or data shards) along the batch axis: the
+    second axis of the M-RoPE positions (3, B, S), the first of
+    everything else."""
     out = [{} for _ in range(n)]
     for k, x in batch.items():
         axis = 1 if k == "mrope_positions" else 0
         if x.shape[axis] % n:
             raise ValueError(f"make_train_step: {k} has {x.shape[axis]} "
-                             f"rows, not a multiple of grad_accum = {n}")
+                             f"rows, not a multiple of {what} = {n}")
         for mb, part in zip(out, torch.chunk(x, n, dim=axis)):
             mb[k] = part
     return out
@@ -78,8 +91,12 @@ def make_train_step(cfg: ModelConfig, *, base_lr=3e-4, warmup=100,
     updates ``state`` in place.  With ``grad_accum`` > 1 the batch is cut
     into that many micro-batches; their gradients are summed into f32
     zeros in order and divided by ``grad_accum``, as is the loss, and the
-    other metrics are the last micro-batch's."""
-    require_no_mesh("make_train_step", mesh)
+    other metrics are the last micro-batch's.  With a ``mesh`` the step is
+    :func:`jit_train_step`'s over it (``DEFAULT_RULES``).
+
+    ``train_step.grads(state, batch) -> (loss, metrics, grads)`` is the
+    step without its update; ``train_step.fold`` and ``train_step.final``
+    are its two halves, which :func:`jit_train_step` reuses."""
 
     def transition(model, leaves, mb):
         total, metrics = M.train_loss(model, mb)
@@ -90,34 +107,55 @@ def make_train_step(cfg: ModelConfig, *, base_lr=3e-4, warmup=100,
         return (total.detach(), {k: v.detach() for k, v in metrics.items()},
                 grads)
 
-    def train_step(state: TrainState, batch: dict):
+    def fold(state: TrainState, micro: list[dict]):
+        """The transition over ``micro`` in order: (the losses' sum, the
+        last micro-batch's metrics, the gradients' sum by name).  One
+        micro-batch keeps its gradients as autograd gives them; more are
+        summed into f32 zeros."""
         params = state.params()
         names, leaves = list(params), list(params.values())
-        if grad_accum == 1:
-            loss, metrics, g = transition(state.model, leaves, batch)
-            grads = dict(zip(names, g))
-        else:
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                   for p in leaves]
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=state.step.device)
-            for mb in _split(batch, grad_accum):
-                lm, metrics, g = transition(state.model, leaves, mb)
-                loss = loss + lm
-                torch._foreach_add_(acc, list(g))
-                del g
+        if len(micro) == 1:
+            loss, metrics, g = transition(state.model, leaves, micro[0])
+            return loss, metrics, dict(zip(names, g))
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for p in leaves]
+        loss = torch.zeros((), dtype=torch.float32, device=state.step.device)
+        for mb in micro:
+            lm, metrics, g = transition(state.model, leaves, mb)
+            loss = loss + lm
+            torch._foreach_add_(acc, list(g))
+            del g
+        return loss, metrics, dict(zip(names, acc))
+
+    def grads(state: TrainState, batch: dict):
+        micro = _split(batch, grad_accum) if grad_accum > 1 else [batch]
+        loss, metrics, g = fold(state, micro)
+        if grad_accum > 1:
             loss = loss / grad_accum
-            torch._foreach_div_(acc, grad_accum)
-            grads = dict(zip(names, acc))
+            torch._foreach_div_(list(g.values()), grad_accum)
+        return loss, metrics, g
+
+    def final(state: TrainState, grads: dict, loss, metrics: dict):
+        """Clip, schedule and AdamW, in place; the step's metrics."""
         with torch.no_grad():
             grads, gnorm = clip_by_global_norm(grads, grad_clip)
             lr = linear_warmup_cosine(state.step, base_lr=base_lr,
                                       warmup_steps=warmup,
                                       total_steps=total_steps)
-            adamw_update(grads, state.opt, params, lr=lr)
+            adamw_update(grads, state.opt, state.params(), lr=lr)
             state.step += 1
         return state, dict(metrics, loss=loss, grad_norm=gnorm, lr=lr)
 
+    def train_step(state: TrainState, batch: dict):
+        loss, metrics, g = grads(state, batch)
+        return final(state, g, loss, metrics)
+
+    train_step.grad_accum = grad_accum
+    train_step.fold = fold
+    train_step.grads = grads
+    train_step.final = final
+    if mesh is not None:
+        return jit_train_step(train_step, None, None, None, mesh)
     return train_step
 
 
@@ -128,3 +166,113 @@ def make_serve_step(cfg: ModelConfig) -> Callable:
         return M.decode_step(model, cache, token, pos)
 
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# The sharded assembly
+# ---------------------------------------------------------------------------
+
+def shardings_for_state(state: TrainState, axes, mesh, rules=None
+                        ) -> TrainState:
+    """The :class:`NamedSharding` of every leaf of ``state``: the
+    parameters by ``axes`` (:func:`repro_torch.models.model.param_axes`),
+    the f32 moments as their parameters, ``count`` and ``step``
+    replicated.  Keyed as ``state`` is, so it is the ``shardings=`` tree
+    of ``checkpoint.restore``."""
+    p_sh = param_sharding(axes, mesh, state.params(), rules)
+    rep = NamedSharding(mesh, P())
+    return TrainState(p_sh, AdamWState(p_sh, dict(p_sh), rep), rep)
+
+
+def _shards(batch: dict, n: int) -> list[dict]:
+    """``n`` data shards of one micro-batch, along its batch axis."""
+    return _split(batch, n, "data shards") if n > 1 else [batch]
+
+
+def jit_train_step(train_step, state, axes, batch_spec, mesh, rules=None,
+                   donate=True) -> Callable:
+    """``train_step`` (from :func:`make_train_step`) over ``mesh``, under
+    ``activation_sharding(mesh, rules)``.
+
+    The batch's rows split as the reference's sharded step splits them:
+    ``grad_accum`` micro-batches, each cut into the n data shards of the
+    ``batch`` axes.  Shard s folds its pieces of the micro-batches in
+    order (f32 sums past one), the shards' sums merge left to right in
+    f32, and the loss and gradients are divided by n * grad_accum; the
+    metrics are the shards' last micro-batch means.  On one data shard
+    this is ``train_step`` itself.  ``state`` and ``axes``, when given,
+    check that every leaf of ``state`` splits into its slices of
+    ``shardings_for_state`` and holds the global tensor on the mesh's
+    first device; ``batch_spec`` (a tree of arrays or tensors) checks
+    its shapes against ``batch_sharding``.
+    ``donate`` is the reference's argument: the port updates in place
+    anyway.  Every data shard runs on the model's device; a mesh whose
+    data shards lie on other devices raises (a model placed across cards
+    is not ported).  The returned step carries ``grads`` and
+    ``shard_grads`` (each shard's (loss sum, metrics, gradient sums))."""
+    check_mesh(mesh, "jit_train_step")
+    rules = rules or DEFAULT_RULES
+    batch_axes = axes_in_mesh(mesh, rules.get("batch"))
+    devs = mesh.segments(batch_axes)
+    n = len(devs)
+    ga = train_step.grad_accum
+    if state is not None and axes is not None:
+        tree_map(lambda sh, leaf: sh.check(leaf.shape, leaf.device,
+                                           "jit_train_step: the state"),
+                 shardings_for_state(state, axes, mesh, rules),
+                 dataclasses.replace(state, model=state.params()))
+    if batch_spec is not None:
+        tree_map(lambda sh, leaf: sh.check(tuple(leaf.shape),
+                                           what="jit_train_step: the batch"),
+                 batch_sharding(mesh, batch_spec, rules), batch_spec)
+
+    def check_devices(state):
+        dev = state.step.device
+        if any(d != dev for d in devs):
+            raise ValueError(
+                f"jit_train_step: data shards on {sorted(set(map(str, devs)))}"
+                f" and the model on {dev}; every data shard runs on the "
+                "model's device")
+
+    def shard_pieces(state, batch):
+        check_devices(state)
+        micro = _split(batch, ga) if ga > 1 else [batch]
+        pieces = [_shards(mb, n) for mb in micro]
+        return [[p[s] for p in pieces] for s in range(n)]
+
+    def shard_grads(state, batch):
+        return [train_step.fold(state, mbs)
+                for mbs in shard_pieces(state, batch)]
+
+    def grads(state, batch):
+        if n == 1:
+            check_devices(state)
+            return train_step.grads(state, batch)
+        loss, metrics, acc = None, [], None
+        for mbs in shard_pieces(state, batch):
+            l_s, m_s, g_s = train_step.fold(state, mbs)
+            metrics.append(m_s)
+            if acc is None:
+                loss = l_s
+                acc = {k: g.to(torch.float32) for k, g in g_s.items()}
+            else:
+                loss = loss + l_s
+                torch._foreach_add_(list(acc.values()), list(g_s.values()))
+            del g_s
+        count = n * ga
+        torch._foreach_div_(list(acc.values()), count)
+        return loss / count, {k: ordered_mean([m[k] for m in metrics])
+                              for k in metrics[0]}, acc
+
+    def sharded_grads(state, batch):
+        with activation_sharding(mesh, rules):
+            return grads(state, batch)
+
+    def step(state, batch):
+        with activation_sharding(mesh, rules):
+            loss, metrics, g = grads(state, batch)
+            return train_step.final(state, g, loss, metrics)
+
+    step.grads = sharded_grads
+    step.shard_grads = shard_grads
+    return step

@@ -17,7 +17,9 @@ import torch
 
 from repro.distributed import fault_tolerance as jft
 from repro_torch.configs import base as tbase
+from repro_torch.core.compat import make_mesh
 from repro_torch.distributed import checkpoint as ckpt
+from repro_torch.distributed.sharding import NamedSharding, P
 from repro_torch.distributed.fault_tolerance import StragglerMitigator
 from repro_torch.launch.train import main, train
 from repro_torch.train import init_train_state
@@ -61,11 +63,21 @@ def test_save_restore_round_trip(tmp_path, dtype):
 
 
 def test_restore_rejects_a_shape_mismatch_and_shardings(tmp_path):
+    """A leaf of another shape; shardings that miss a leaf or do not split
+    it (the resharding round trip itself is in
+    ``test_torch_sharded_train.py``)."""
     ckpt.save(str(tmp_path), {"w": torch.zeros(3)}, 1)
     with pytest.raises(ValueError, match="shape"):
         ckpt.restore(str(tmp_path), {"w": torch.zeros(4)})
-    with pytest.raises(NotImplementedError, match="item 13"):
+    mesh = make_mesh((2,), ("data",), devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="no sharding"):
         ckpt.restore(str(tmp_path), {"w": torch.zeros(3)}, shardings={})
+    with pytest.raises(ValueError, match="split"):
+        ckpt.restore(str(tmp_path), {"w": torch.zeros(3)},
+                     shardings={"w": NamedSharding(mesh, P("data"))})
+    out, _ = ckpt.restore(str(tmp_path), {"w": torch.ones(3)},
+                          shardings={"w": NamedSharding(mesh, P())})
+    assert torch.equal(out["w"], torch.zeros(3))
     with pytest.raises(FileNotFoundError):
         ckpt.restore(str(tmp_path / "none"), {"w": torch.zeros(3)})
 

@@ -547,18 +547,6 @@ def test_init_model_draws_per_leaf(arch, want):
     assert seen == set(want)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "moonshot-v1-16b-a3b"])
-@pytest.mark.parametrize("change", [{"seq_parallel": True},
-                                    {"moe_impl": "a2a"}])
-def test_sharding_options_raise(arch, change):
-    cfg = dataclasses.replace(tbase.reduced_config(arch), **change)
-    for make in (lambda: M.Model(cfg, device="cpu"),
-                 lambda: M.init_decode_state(cfg, 1, 4, device="cpu")):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 13"):
-            make()
-
-
 def test_entry_points_need_a_card_or_the_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
