@@ -216,7 +216,22 @@ o. then, with section n's tables freed, the LM's distribution on meshes
    moonshot-v1-16b-a3b's all-to-all MoE over model = 4: at depth 2 in f32
    with capacity_factor = E / k within 1e-4 of the gather MoE with nothing
    dropped, at full depth in bf16 its forward timed beside the gather
-   MoE's, both ``drop_frac`` printed, bitwise on a repeat.
+   MoE's, both ``drop_frac`` printed, bitwise on a repeat;
+p. then, with section o's models freed, the dry run
+   (``repro_torch.launch.dryrun``, meta tensors, no card): p1 one cell
+   per (family, kind) on the 16 x 16 and 2 x 16 x 16 production meshes
+   (fits, GB a device, dominant roofline term, trace seconds;
+   xlstm-350m's train and prefill cells, minutes of sLSTM steps on meta,
+   are left to ``--all``); p2 stablelm-1.6b's train step (8 x 4096, 4
+   micro-batches) and p3 qwen3-8b's prefill at (2, 4096) on a
+   one-position mesh, the dry run held against the same step on the
+   card: argument bytes against ``memory_allocated`` of the real state
+   and batch (within 1%), the meta dot flops equal to the op counter's
+   count of one real step (the flash kernels record their cost; the
+   kernels' costs equal too), temp bytes against
+   ``max_memory_allocated`` less the arguments (within 10%); MFU from a
+   step timed without the counter, beside the card's name and power
+   limit.
 
 The last line is ``{"ok": true, "device": {...}}``.  Imports neither JAX
 nor the JAX package.
@@ -706,12 +721,12 @@ def ptxas_for(lines: list[str], key: str) -> list[str]:
 
 def flash_bound_ms(b, hq, hk, s, d, causal=True) -> tuple[float, float]:
     """(operations ms, bytes ms) of attention at (B, Hq, Hk, S, D) in
-    bf16: 4 B Hq D P operations (the two products over the P unmasked
-    pairs: S (S + 1) / 2 causal, S^2 not) over the bf16 tensor-core peak;
-    q and o, k and v each read or written once, 2 bytes an element, over
-    the memory rate."""
-    ops = 4.0 * b * hq * d * (s * (s + 1) / 2 if causal else s * s)
-    nbytes = 2.0 * (2 * b * hq * s * d + 2 * b * hk * s * d)
+    bf16: the kernel package's ``forward_cost`` (4 B Hq D P operations
+    over the P unmasked pairs; q and o, k and v each read or written once,
+    2 bytes an element), the count that the dry run and the op counter
+    read too, over the bf16 tensor-core peak and the memory rate."""
+    from repro_torch.kernels.flash_attention.ops import forward_cost
+    ops, nbytes = forward_cost(b, hq, hk, s, d, causal, 2)
     return ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
@@ -1482,13 +1497,12 @@ TRAIN_INIT_SEED = SEED + 230
 
 
 def bwd_bound_ms(b, hq, hk, s, d, causal, elt_bytes, peak):
-    """(operations ms, bytes ms) of the attention backward: its five
-    products are 2.5 x the forward's 4 B Hq D P operations (P the unmasked
-    pairs: S (S + 1) / 2 causal, S^2 not) over ``peak``; q, k, v, o, dO
-    read once and dq, dk, dv written once, ``elt_bytes`` an element, over
-    the memory rate."""
-    ops = 2.5 * 4.0 * b * hq * d * (s * (s + 1) / 2 if causal else s * s)
-    nbytes = elt_bytes * (4.0 * b * hq * s * d + 4.0 * b * hk * s * d)
+    """(operations ms, bytes ms) of the attention backward: the kernel
+    package's ``backward_cost`` (its five products are 2.5 x the forward's
+    operations; q, k, v, o, dO read once and dq, dk, dv written once,
+    ``elt_bytes`` an element) over ``peak`` and the memory rate."""
+    from repro_torch.kernels.flash_attention.ops import backward_cost
+    ops, nbytes = backward_cost(b, hq, hk, s, d, causal, elt_bytes)
     return ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
@@ -3643,9 +3657,9 @@ def convex_section(torch, dev, counters, errs, smi) -> dict:
         ms = cuda_ms(torch, lambda: xtx_ops.xtx_xty(xw, yw),
                      XTX_NARROW_REPS)
         mm = cuda_ms(torch, lambda: torch.matmul(xw.T, xw), XTX_NARROW_REPS)
-        w = kw + 1
-        t_ops = float(N_MAIN) * kw * (kw + 3) / PEAK_F32_FLOPS * 1e3
-        t_bytes = 4.0 * (N_MAIN * w + kw * w) / PEAK_BYTES * 1e3
+        t_ops, t_bytes = xtx_ops.xtx_cost(N_MAIN, kw)
+        t_ops, t_bytes = (t_ops / PEAK_F32_FLOPS * 1e3,
+                          t_bytes / PEAK_BYTES * 1e3)
         row = {"k": kw, "rows": N_MAIN, "ms": ms, "matmul_ms": mm,
                "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -4448,6 +4462,190 @@ def dist_section(torch, dev, counters, smi, driver) -> dict:
     print(json.dumps({"dist_section": out}))
     print(f"[dist] section o took {out['section_s']:.1f} s; {smi}")
     require(not fails, "section o: " + "; ".join(fails))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# p. the dry run: the meta cells at 256 and 512 positions, then the dry
+# run held against the card on section m's train step and section g's
+# prefill
+# ---------------------------------------------------------------------------
+
+# p1 runs one cell per (family, kind) in-process, of the family's arch
+# with the fewest layers; xlstm-350m's train and prefill cells dispatch its
+# sLSTM time loop (about 22 ops a step, 4,096 or 32,768 steps a layer) op
+# by op on meta, which takes minutes: ``python -m
+# repro_torch.launch.dryrun --all`` traces them, and PERF.md has its times
+DRY_ARCHS = ("stablelm-1.6b", "dbrx-132b", "hubert-xlarge",
+             "recurrentgemma-2b", "qwen2-vl-2b", "xlstm-350m")
+DRY_SLOW = {("xlstm-350m", "train_4k"), ("xlstm-350m", "prefill_32k")}
+# the card against the dry run: the state and batch that the step's
+# arguments hold within ARG_REL of the prediction; the step's temporary
+# memory (max_memory_allocated less the arguments) within TEMP_REL of the
+# meta trace's peak of live storage; the dot flops equal
+ARG_REL, TEMP_REL = 0.01, 0.10
+
+
+def dryrun_section(torch, dev, counters, smi) -> dict:
+    """p1: the dry run of one cell per (family, kind) on both production
+    meshes (fits, GB a device, dominant term, trace seconds).  p2: the
+    dry run of stablelm-1.6b's train step (TRAIN_BATCH x LM_SEQ,
+    TRAIN_ACCUM micro-batches, one-position mesh) against the same step
+    on the card: argument bytes against ``memory_allocated`` of the real
+    state and batch, the meta ``dot_flops`` against the op counter's
+    count of one real step (the flash kernels recording their cost),
+    temp bytes against ``max_memory_allocated`` less the arguments; MFU
+    from a step timed without the counter.  p3: the same for qwen3-8b's
+    prefill at (LM_BATCH, LM_SEQ).  Returns the launches by main-path
+    step (p2's step and p3's forward under the counter)."""
+    from repro_torch.configs import SHAPES, cells, get_config
+    from repro_torch.core.compat import make_mesh
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.distributed.sharding import activation_sharding
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16
+    from repro_torch.launch.op_analysis import OpCounter, analyze
+    from repro_torch.launch.scan_registry import (clear_registry,
+                                                  get_registry)
+    from repro_torch.models import model as M
+    from repro_torch.train import init_train_state, make_train_step
+
+    out: dict = {"launches": {}, "device": smi, "p1": [], "skipped": []}
+    fails: list[str] = []
+
+    # -- p1 ------------------------------------------------------------------
+    t_p1 = time.perf_counter()
+    picked = {}
+    for arch, shape, _, _ in cells():
+        key = (get_config(arch).family, SHAPES[shape]["kind"])
+        if arch not in DRY_ARCHS:
+            continue
+        if (arch, shape) in DRY_SLOW:
+            out["skipped"].append(f"{arch} {shape}")
+        elif key not in picked:
+            picked[key] = (arch, shape)
+    for arch, shape in picked.values():
+        cell = D.abstract_cell(arch, shape)
+        counts, secs = D.trace(cell, D.make_production_mesh())
+        for mp in (False, True):
+            res = D.cell_result(arch, shape, cell, counts, secs, mp)
+            print(f"[dryrun] p1 {D.summary(res)}")
+            out["p1"].append({k: res[k] for k in (
+                "arch", "shape", "mesh", "fits", "trace_s")} | {
+                "gb": (res["memory"]["argument_bytes"]
+                       + res["memory"]["temp_bytes"]) / 1e9,
+                "dominant": res["roofline"]["dominant"]})
+        del cell
+    out["p1_s"] = time.perf_counter() - t_p1
+    print(f"[dryrun] p1: {len(picked)} cells on both meshes in "
+          f"{out['p1_s']:.1f} s; traced by --all instead: "
+          f"{', '.join(out['skipped'])}")
+
+    # -- p2 and p3 ----------------------------------------------------------
+    meta_mesh = D.one_position_mesh()
+    card_mesh = make_mesh((1, 1), ("data", "model"), devices=[dev])
+
+    def against_card(tag, cell, build, run, mflops):
+        """The dry run of ``cell`` against ``build()`` (the arguments on the
+        card) and ``run(args)`` (one step), as the docstring says."""
+        pred_arg = int(D.position_bytes(cell.inputs(meta_mesh),
+                                        meta_mesh).max())
+        counts, trace_s = D.trace(cell, meta_mesh)
+        pred_temp = counts["peak_bytes"] / cell.batch_positions(meta_mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        args = build()
+        torch.cuda.synchronize()
+        arg = torch.cuda.memory_allocated() - base
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        clear_registry()
+        counters.zero()
+        with OpCounter() as c, activation_sharding(card_mesh):
+            run(args)
+        torch.cuda.synchronize()
+        got = counters.read()
+        temp = torch.cuda.max_memory_allocated() - held
+        card = analyze(c, get_registry())
+        (_, secs1), (_, secs2) = (timed(torch, lambda: run(args))
+                                  for _ in range(2))
+        secs = min(secs1, secs2)
+        mfu = mflops / secs / PEAK_FLOPS_BF16
+        row = {"arg_pred": pred_arg, "arg_card": arg,
+               "arg_rel": abs(arg - pred_arg) / pred_arg,
+               "dot_flops_meta": counts["dot_flops"],
+               "dot_flops_card": card["dot_flops"],
+               "temp_pred": pred_temp, "temp_card": temp,
+               "temp_rel": abs(temp - pred_temp) / pred_temp,
+               "kernels_meta": counts["kernels"],
+               "kernels_card": card["kernels"],
+               "registry": card["registry"], "trace_s": trace_s,
+               "step_s": secs, "step_s_both": [secs1, secs2],
+               "model_flops": mflops, "mfu": mfu, "device": smi}
+        out["launches"][f"p {tag}"] = {k: v for k, v in got.items() if v}
+        if row["arg_rel"] > ARG_REL:
+            fails.append(f"{tag}: argument bytes {arg} on the card, "
+                         f"{pred_arg} predicted")
+        if card["dot_flops"] != counts["dot_flops"]:
+            fails.append(f"{tag}: dot flops {card['dot_flops']} on the "
+                         f"card, {counts['dot_flops']} on meta")
+        if row["temp_rel"] > TEMP_REL:
+            fails.append(f"{tag}: temp bytes {temp} on the card, "
+                         f"{pred_temp} predicted")
+        if card["kernels"] != counts["kernels"]:
+            fails.append(f"{tag}: kernel costs {card['kernels']} on the "
+                         f"card, {counts['kernels']} on meta")
+        print(f"[dryrun] {tag}: argument bytes {arg} on the card, "
+              f"{pred_arg} predicted ({row['arg_rel']:.2e}, limit "
+              f"{ARG_REL}); dot flops {card['dot_flops']:.6e} on the card, "
+              f"{counts['dot_flops']:.6e} on meta; temp bytes {temp} on the "
+              f"card, {pred_temp:.0f} predicted ({row['temp_rel']:.3f}, "
+              f"limit {TEMP_REL}); meta trace {trace_s:.2f} s; step "
+              f"{secs:.4f} s; MFU {mfu:.4f} ({mflops:.4e} model flops over "
+              f"989e12); launches {out['launches'][f'p {tag}']}; {smi}")
+        return row
+
+    cfg = get_config(TRAIN_ARCH)
+    step = make_train_step(cfg, grad_accum=TRAIN_ACCUM, base_lr=TRAIN_LR,
+                           warmup=1, total_steps=TRAIN_STEPS)
+
+    def build_train():
+        g = torch.Generator(device=dev)
+        g.manual_seed(TRAIN_INIT_SEED)
+        return (init_train_state(cfg, generator=g, device=dev),
+                synthetic_batch(cfg, TRAIN_BATCH, LM_SEQ, generator=g))
+
+    out["p2"] = against_card(
+        f"p2 {TRAIN_ARCH} train ({TRAIN_BATCH}, {LM_SEQ}) x {TRAIN_ACCUM}",
+        D.abstract_cell(TRAIN_ARCH, "train_4k", cfg=cfg, batch=TRAIN_BATCH,
+                        seq=LM_SEQ, grad_accum=TRAIN_ACCUM),
+        build_train, lambda a: step(*a),
+        D.model_flops(cfg, "train_4k", batch=TRAIN_BATCH, seq=LM_SEQ))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    pcfg = get_config(LM_ARCH)
+
+    def build_prefill():
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED + 27)
+        model = M.init_model(pcfg, generator=g, device=dev)
+        return model, torch.randint(0, pcfg.vocab, (LM_BATCH, LM_SEQ),
+                                    generator=g, dtype=torch.int32,
+                                    device=dev)
+
+    out["p3"] = against_card(
+        f"p3 {LM_ARCH} prefill ({LM_BATCH}, {LM_SEQ})",
+        D.abstract_cell(LM_ARCH, "prefill_32k", cfg=pcfg, batch=LM_BATCH,
+                        seq=LM_SEQ),
+        build_prefill, lambda a: M.forward(a[0], a[1]),
+        D.model_flops(pcfg, "prefill_32k", batch=LM_BATCH, seq=LM_SEQ))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"dryrun": out}))
+    require(not fails, "; ".join(fails))
     return out
 
 
@@ -5387,19 +5585,24 @@ def main() -> int:
     del flat
     l2_flush = torch.empty((32 * 2 ** 20,), dtype=torch.float32, device=dev)
     fm_kw = {"num_hashes": 8, "bits": 32, "num_groups": G_MAIN}
-    # Operations the function needs: X^T X is symmetric, so only its
-    # k (k + 1) / 2 distinct entries, plus X^T y (and, per group, y^2),
-    # each a multiply and an add per row; sum(y) and n one add per row.
-    # The sketches need PIPE_OPS_PER_HASH integer instructions per valid
-    # row and hash, on the slowest pipe (int_ops_seconds).  Bytes: each
-    # input read once, each output written once.
+    # Operations and bytes: each kernel package's cost count (the one
+    # that the dry run and the op counter read too).  X^T X is symmetric,
+    # so only its k (k + 1) / 2 distinct entries, plus X^T y (and, per
+    # group, y^2), each a multiply and an add per row; sum(y) and n one add
+    # per row; segment_linregr counts the valid rows, the ones the
+    # function needs.  The sketches need PIPE_OPS_PER_HASH integer
+    # instructions per valid row and hash, on the slowest pipe
+    # (int_ops_seconds).  Bytes: each input read once, each output
+    # written once.
+    sl_ops, sl_bytes = sf_ops.linregr_cost(n2, K_MAIN, nb, G_MAIN,
+                                           rows=n_valid)
     specs = (
         ("xtx", "src/repro_torch/csrc/xtx.cu",
          "src/repro/kernels/xtx/kernel.py:29",
          lambda: xtx_ops.xtx_xty(x, y), lambda: xtx_xty_ref(x, y),
          lambda: torch.matmul(x.T, x),
-         float(N_MAIN) * K_MAIN * (K_MAIN + 3) / PEAK_F32_FLOPS,
-         4.0 * (N_MAIN * (K_MAIN + 1) + K_MAIN * (K_MAIN + 1)), 5, 2,
+         xtx_ops.xtx_cost(N_MAIN, K_MAIN)[0] / PEAK_F32_FLOPS,
+         xtx_ops.xtx_cost(N_MAIN, K_MAIN)[1], 5, 2,
          [N_MAIN, K_MAIN], ("xtx_upper_kernel", "xtx_reduce_kernel")),
         ("segment_linregr", "src/repro_torch/csrc/segment_linregr.cu",
          "src/repro/kernels/segment_fold/kernel.py:52",
@@ -5407,10 +5610,7 @@ def main() -> int:
                                         num_groups=G_MAIN),
          lambda: segment_linregr_ref(xs, ys, valid, bgids,
                                      num_groups=G_MAIN),
-         None,
-         float(n_valid) * ((K_MAIN + 1) * (K_MAIN + 2) + 2) / PEAK_F32_FLOPS,
-         4.0 * n2 * (K_MAIN + 1) + n2 + 4.0 * nb
-         + 4.0 * G_MAIN * (K_MAIN * (K_MAIN + 1) + 3), 5, 2,
+         None, sl_ops / PEAK_F32_FLOPS, sl_bytes, 5, 2,
          [n2, K_MAIN, nb, G_MAIN],
          ("segment_partial_kernel", "segment_reduce_kernel")),
         ("countmin", "src/repro_torch/csrc/countmin.cu",
@@ -5418,8 +5618,8 @@ def main() -> int:
          lambda: cm_ops.countmin_block(items, all_rows, 4, 1024),
          lambda: countmin_block_ref(items, all_rows, 4, 1024), None,
          int_ops_seconds("countmin", float(N_MAIN) * 4, sms, clock_hz),
-         5.0 * N_MAIN + 4.0 * 4 * 1024, 20, 1, [N_MAIN, 4, 1024],
-         ("countmin_kernel",)),
+         cm_ops.countmin_cost(N_MAIN, 4, 1024)[1], 20, 1,
+         [N_MAIN, 4, 1024], ("countmin_kernel",)),
         ("segment_countmin", "src/repro_torch/csrc/segment_sketch.cu",
          "src/repro/kernels/segment_fold/kernel.py:125",
          lambda: sf_ops.segment_countmin(sk_items, sk_valid, sk_bgids,
@@ -5428,7 +5628,7 @@ def main() -> int:
          None,
          int_ops_seconds("segment_countmin", float(sk_valid_n) * 4, sms,
                          clock_hz),
-         5.0 * sk_n2 + 4.0 * sk_nb + 4.0 * G_MAIN * 4 * 1024, 20, 1,
+         sf_ops.sketch_cost(sk_n2, sk_nb, G_MAIN * 4 * 1024)[1], 20, 1,
          [sk_n2, sk_nb, G_MAIN, 4, 1024], ("segment_countmin_kernel",)),
         ("segment_fm", "src/repro_torch/csrc/segment_sketch.cu",
          "src/repro/kernels/segment_fold/kernel.py:180",
@@ -5437,7 +5637,7 @@ def main() -> int:
          None,
          int_ops_seconds("segment_fm", float(sk_valid_n) * 8, sms,
                          clock_hz),
-         5.0 * sk_n2 + 4.0 * sk_nb + 4.0 * G_MAIN * 8 * 32, 20, 1,
+         sf_ops.sketch_cost(sk_n2, sk_nb, G_MAIN * 8 * 32)[1], 20, 1,
          [sk_n2, sk_nb, G_MAIN, 8, 32], ("segment_fm_kernel",)),
         # a multiply and an add per row, centroid and feature; x and the
         # mask in, assign and mind out, the centroids in and the sums out
@@ -5445,8 +5645,8 @@ def main() -> int:
          "src/repro/kernels/kmeans_assign/kernel.py:26",
          lambda: km_ops.assign_and_reduce(bx, km_cents, ones),
          lambda: assign_and_reduce_ref(bx, km_cents, ones), None,
-         2.0 * N_MAIN * K_KM * D_KM / PEAK_F32_FLOPS,
-         4.0 * N_MAIN * D_KM + 12.0 * N_MAIN + 8.0 * K_KM * D_KM, 20, 2,
+         km_ops.assign_cost(N_MAIN, D_KM, K_KM)[0] / PEAK_F32_FLOPS,
+         km_ops.assign_cost(N_MAIN, D_KM, K_KM)[1], 20, 2,
          [N_MAIN, D_KM, K_KM],
          ("kmeans_assign_kernel", "kmeans_reduce_kernel")),
     )
@@ -5492,9 +5692,9 @@ def main() -> int:
     g_ms = cuda_ms(torch, lambda: km_ops.assign_and_reduce(xg, gseeds, mg),
                    200)
     g_plain = cuda_ms(torch, lambda: assign_and_reduce_ref(xg, gseeds, mg), 20)
-    g_ops = 2.0 * n_g * K_KM_GROUPED * D_KM / PEAK_F32_FLOPS * 1e3
-    g_bytes = (4.0 * n_g * D_KM + 12.0 * n_g
-               + 8.0 * K_KM_GROUPED * D_KM) / PEAK_BYTES * 1e3
+    g_ops, g_bytes = km_ops.assign_cost(n_g, D_KM, K_KM_GROUPED)
+    g_ops, g_bytes = (g_ops / PEAK_F32_FLOPS * 1e3,
+                      g_bytes / PEAK_BYTES * 1e3)
     print(json.dumps({"kernel_at_grouped_shape": {
         "name": "kmeans_assign", "shape": [n_g, D_KM, K_KM_GROUPED],
         "launches": km_launches["grouped"], "ms": g_ms, "plain_ms": g_plain,
@@ -5626,6 +5826,25 @@ def main() -> int:
     for r in rows:
         by_step = {step: got[r["name"]]
                    for step, got in dist["launches"].items()
+                   if got.get(r["name"])}
+        if by_step:
+            r["launches"] = counters.total[r["name"]]
+            if "launches_tc" in r:
+                r["launches_tc"] = counters.total[f"{r['name']}_tc"]
+            r["launches_by_shape"] = {**r.get("launches_by_shape", {}),
+                                      **by_step}
+            print(json.dumps({"kernel_launches": {
+                "name": r["name"], "launches": r["launches"],
+                "launches_by_shape": r["launches_by_shape"]}}))
+
+    # p. the dry run, and the dry run against the card, once section o's
+    # models are freed: its launches join rows 7 and 8
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry = dryrun_section(torch, dev, counters, smi)
+    for r in rows:
+        by_step = {step: got[r["name"]]
+                   for step, got in dry["launches"].items()
                    if got.get(r["name"])}
         if by_step:
             r["launches"] = counters.total[r["name"]]

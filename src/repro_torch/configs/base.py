@@ -83,12 +83,15 @@ def cells(include_skipped: bool = False):
                 yield arch, shape, ok, why
 
 
-def input_specs(arch: str, shape: str, cfg: ModelConfig | None = None
+def input_specs(arch: str, shape: str, cfg: ModelConfig | None = None, *,
+                batch: int | None = None, seq: int | None = None
                 ) -> dict[str, Spec]:
-    """The cell's step inputs as ``(shape, dtype)`` pairs."""
+    """The cell's step inputs as ``(shape, dtype)`` pairs; ``batch`` and
+    ``seq`` replace the shape's where given."""
     cfg = cfg or get_config(arch)
     spec = SHAPES[shape]
-    b, s = spec["batch"], spec["seq"]
+    b = spec["batch"] if batch is None else batch
+    s = spec["seq"] if seq is None else seq
     i32, f32 = torch.int32, torch.float32
     f = getattr(torch, cfg.dtype)
 

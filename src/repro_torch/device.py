@@ -23,14 +23,16 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def runs_on_card(t: torch.Tensor, what: str) -> bool:
-    """Where a kernel's work on ``t`` runs: ``True`` on a CUDA tensor (the
-    kernel launches), ``False`` on a CPU tensor (its plain version runs).
-    Any other device raises.  The kernel wrappers and the registry both
-    ask this one function, so they cannot disagree."""
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
+def kernel_route(t: torch.Tensor, what: str) -> str:
+    """Where a kernel's work on ``t`` goes: ``"cuda"`` on a CUDA tensor (the
+    kernel launches), ``"cpu"`` on a CPU tensor (its plain version runs),
+    ``"meta"`` on a meta tensor (the kernel's shape path: outputs of the
+    kernel's shapes and dtypes, nothing launched and nothing computed; the
+    dry run's device).  Any other device raises.  The kernel wrappers and
+    the registry all ask this one function, so they cannot disagree: a
+    CUDA tensor never takes the meta path, and a meta tensor never
+    reaches a plain version."""
+    if t.device.type in ("cuda", "cpu", "meta"):
+        return t.device.type
     raise ValueError(f"{what}: no kernel and no plain version for "
                      f"device {t.device}")

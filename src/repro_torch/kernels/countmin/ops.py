@@ -1,7 +1,9 @@
 """PyTorch wrapper of the CUDA countmin kernel (``csrc/countmin.cu``).
 
 On a CUDA tensor it checks the inputs and launches the kernel, or
-raises; on a CPU tensor it runs the plain version in ``ref.py``.
+raises; on a CPU tensor it runs the plain version in ``ref.py``; on a
+meta tensor it returns the counts' shape and launches nothing
+(:func:`cost` is the work of one call).
 ``countmin_launches`` counts the kernel's launches: one per call on the
 card, so a fold over one block shows 1 and a fold over ``b`` blocks
 shows ``b``.
@@ -13,7 +15,7 @@ import functools
 
 import torch
 
-from ...device import runs_on_card
+from ...device import kernel_route
 from .. import _build
 from ..sketch_hash import _check_rows, as_u32
 from .ref import countmin_block_ref
@@ -67,6 +69,18 @@ def item_words(items: torch.Tensor, *, saturate_floats: bool = False
     return items.contiguous()
 
 
+def countmin_cost(n: int, depth: int, width: int) -> tuple[float, float]:
+    """(floating-point operations, bytes) of one call: no floating point
+    (its hashes are integer instructions, which the bound counts by pipe
+    from the SASS); int32 items and the bool mask read once, the
+    (depth, width) int32 counts written once."""
+    return 0.0, 5.0 * n + 4.0 * depth * width
+
+
+def cost(items, mask, depth: int, width: int) -> tuple[float, float]:
+    return countmin_cost(items.shape[0], depth, width)
+
+
 def countmin_block(items: torch.Tensor, mask: torch.Tensor, depth: int,
                    width: int) -> torch.Tensor:
     """(n,) items, (n,) bool mask -> (depth, width) int32 counts."""
@@ -75,10 +89,13 @@ def countmin_block(items: torch.Tensor, mask: torch.Tensor, depth: int,
     _check_rows(depth, "countmin: depth")
     if width < 1 or depth * width > _INT_MAX:
         raise ValueError(f"countmin: width {width} out of range")
-    if not runs_on_card(items, "countmin"):
+    route = kernel_route(items, "countmin")
+    if route == "cpu":
         return countmin_block_ref(items, mask, depth, width)
     n = items.shape[0]
     out = torch.empty((depth, width), dtype=torch.int32, device=items.device)
+    if route == "meta":
+        return out
     if n == 0:
         return out.zero_()
     words, mask = item_words(items), mask.contiguous()

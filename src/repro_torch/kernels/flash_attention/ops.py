@@ -12,7 +12,11 @@ trying one and falling back:
 * float32 (any D), and every other bfloat16 input -> the FFMA kernel
   ``csrc/flash_attention.cu``, which reads any strides.
 
-On a CPU tensor the wrapper runs the plain version in ``ref.py``.
+On a CPU tensor the wrapper runs the plain version in ``ref.py``; on a
+meta tensor it returns outputs of the kernels' shapes (the log-sum-exp
+and the backward's scratch included) and launches nothing.
+:func:`forward_cost` and :func:`backward_cost` are the work of one call,
+which the bound, the dry run and the op counter on the card all read.
 ``flash_attention_launches`` counts every launch of either kernel;
 ``flash_attention_tc_launches`` and ``flash_attention_ffma_launches``
 count each kernel's own.
@@ -42,7 +46,7 @@ from __future__ import annotations
 
 import torch
 
-from ...device import runs_on_card
+from ...device import kernel_route
 from .. import _build
 from .ref import flash_attention_bwd_ref, flash_attention_ref
 
@@ -111,6 +115,40 @@ def kernel_for(*tensors: torch.Tensor) -> str:
     return "tc"
 
 
+def _pairs(s: int, causal: bool) -> float:
+    """The unmasked (query, key) pairs of one head: S (S + 1) / 2 causal,
+    S^2 not."""
+    return s * (s + 1) / 2 if causal else float(s) * s
+
+
+def forward_cost(b, hq, hk, s, d, causal: bool = True, elt_bytes: int = 2
+                 ) -> tuple[float, float]:
+    """(operations, bytes) of attention at (B, Hq, Hk, S, D): 4 B Hq D P
+    operations (the two products over the P unmasked pairs), q and o, k
+    and v each read or written once at ``elt_bytes`` an element."""
+    return (4.0 * b * hq * d * _pairs(s, causal),
+            elt_bytes * (2.0 * b * hq * s * d + 2.0 * b * hk * s * d))
+
+
+def backward_cost(b, hq, hk, s, d, causal: bool = True, elt_bytes: int = 2
+                  ) -> tuple[float, float]:
+    """(operations, bytes) of the attention backward: its five products
+    are 2.5 x the forward's operations; q, k, v, o and dO read once and
+    dq, dk, dv written once at ``elt_bytes`` an element."""
+    return (2.5 * 4.0 * b * hq * d * _pairs(s, causal),
+            elt_bytes * (4.0 * b * hq * s * d + 4.0 * b * hk * s * d))
+
+
+def cost(q, k, v, *, causal: bool = True, return_lse: bool = False):
+    b, hq, s, d = q.shape
+    return forward_cost(b, hq, k.shape[1], s, d, causal, q.element_size())
+
+
+def bwd_cost(q, k, v, out, dout, lse, *, causal: bool = True):
+    b, hq, s, d = q.shape
+    return backward_cost(b, hq, k.shape[1], s, d, causal, q.element_size())
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, return_lse: bool = False):
     """q (B, Hq, S, D), k/v (B, Hk, S, D) -> (B, Hq, S, D) in q's dtype:
@@ -166,7 +204,8 @@ def _forward(q, k, v, causal: bool, with_lse: bool = False):
     without it)."""
     global flash_attention_launches, flash_attention_tc_launches
     global flash_attention_ffma_launches
-    if not runs_on_card(q, "flash_attention"):
+    route = kernel_route(q, "flash_attention")
+    if route == "cpu":
         return flash_attention_ref(q, k, v, causal=causal,
                                    return_lse=with_lse)
     if any(t.stride(-1) != 1 for t in (q, k, v)):
@@ -176,7 +215,7 @@ def _forward(q, k, v, causal: bool, with_lse: bool = False):
     out = torch.empty_like(q)      # q's strides where q is dense
     lse = (torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    if out.numel() == 0:
+    if route == "meta" or out.numel() == 0:
         return (out, lse) if with_lse else out
     lse_ptr = None if lse is None else lse.data_ptr()
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -234,7 +273,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the backward that :func:`bwd_kernel_for` picks (rows, dK/dV, dQ) on
     the current stream, with an f32 scratch for the rows' delta (and, for
     the tensor cores, lse in base 2 beside it).  On the CPU it runs the
-    plain version, which recomputes the softmax and reads no lse."""
+    plain version, which recomputes the softmax and reads no lse.  On
+    meta tensors it allocates what the card's call allocates (the
+    gradients and the scratch) and launches nothing."""
     global flash_attention_bwd_launches, flash_attention_bwd_tc_launches
     global flash_attention_bwd_ffma_launches
     _check(q, k, v)
@@ -245,7 +286,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"want q's {tuple(q.shape)} {q.dtype} on "
                              f"{q.device}")
     _check_lse(q, lse)
-    if not runs_on_card(q, "flash_attention_bwd"):
+    route = kernel_route(q, "flash_attention_bwd")
+    if route == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, dout, causal=causal)
     if any(t.stride(-1) != 1 for t in (q, k, v, out, dout)):
         raise ValueError("flash_attention_bwd: the feature axis of q, k, v, "
@@ -254,13 +296,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.numel() == 0:
         return dq, dk, dv
     b, hq, s, d = q.shape
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     tensors = (q, k, v, out, dout, dq, dk, dv)
-    ptrs = [t.data_ptr() for t in tensors]
     if bwd_kernel_for(q, k, v, out, dout, lse) == "tc":
         s_pad = -(-s // ROW_PAD) * ROW_PAD
         rows = torch.empty((2, b, hq, s_pad), dtype=torch.float32,
                            device=q.device)
+        if route == "meta":
+            return dq, dk, dv
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        ptrs = [t.data_ptr() for t in tensors]
         err = _build.lib().madlib_flash_attention_bwd_tc(
             *ptrs, lse.data_ptr(), rows.data_ptr(), b, hq, k.shape[1], s, d,
             *(st for t in tensors for st in tma_strides(t)),
@@ -269,6 +313,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         flash_attention_bwd_tc_launches += 1
     else:
         delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+        if route == "meta":
+            return dq, dk, dv
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        ptrs = [t.data_ptr() for t in tensors]
         err = _build.lib().madlib_flash_attention_bwd(
             *ptrs, lse.data_ptr(), delta.data_ptr(), _DTYPES[q.dtype], b, hq,
             k.shape[1], s, d, *(st for t in tensors for st in t.stride()[:3]),

@@ -2,7 +2,9 @@
 (``csrc/kmeans_assign.cu``).
 
 On a CUDA tensor it checks the inputs and launches the kernel, or
-raises; on a CPU tensor it runs the plain version in ``ref.py``.
+raises; on a CPU tensor it runs the plain version in ``ref.py``; on a
+meta tensor it returns outputs of the kernel's shapes and launches
+nothing (:func:`cost` is the work of one call).
 ``kmeans_assign_launches`` counts the wrapper's calls that launch the
 kernel pair (the assign-and-partial pass and the fixed-order reduce).
 
@@ -15,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from ...device import runs_on_card
+from ...device import kernel_route
 from .. import _build
 from .ref import assign_and_reduce_ref
 
@@ -70,6 +72,19 @@ def splits_for(n: int, k: int, d: int, sm_count: int) -> int:
     return max(1, min(tiles, CTAS_PER_SM * sm_count, cap))
 
 
+def assign_cost(n: int, d: int, k: int) -> tuple[float, float]:
+    """(operations, bytes) of one call: a multiply and an add per row,
+    centroid and feature (f32); x and the mask read, assign and mind
+    written, the centroids read and the sums and counts written."""
+    return (2.0 * n * k * d,
+            4.0 * n * d + 12.0 * n + 8.0 * k * d)
+
+
+def cost(x: torch.Tensor, c: torch.Tensor, m: torch.Tensor
+         ) -> tuple[float, float]:
+    return assign_cost(x.shape[0], x.shape[1], c.shape[0])
+
+
 def assign_and_reduce(x: torch.Tensor, c: torch.Tensor, m: torch.Tensor):
     """x (N,D), centroids c (K,D), mask m (N,) f32 -> (assign (N,) int32,
     mind (N,), sums (K,D), counts (K,)) f32.  ``assign`` is the nearest
@@ -78,7 +93,8 @@ def assign_and_reduce(x: torch.Tensor, c: torch.Tensor, m: torch.Tensor):
     times each row into its centroid."""
     global kmeans_assign_launches
     _check(x, c, m)
-    if not runs_on_card(x, "kmeans_assign"):
+    route = kernel_route(x, "kmeans_assign")
+    if route == "cpu":
         return assign_and_reduce_ref(x, c, m)
     n, d = x.shape
     k = c.shape[0]
@@ -87,6 +103,8 @@ def assign_and_reduce(x: torch.Tensor, c: torch.Tensor, m: torch.Tensor):
     mind = torch.empty((n,), dtype=torch.float32, device=dev)
     sums = torch.empty((k, d), dtype=torch.float32, device=dev)
     counts = torch.empty((k,), dtype=torch.float32, device=dev)
+    if route == "meta":
+        return assign, mind, sums, counts
     if n == 0:
         return assign, mind, sums.zero_(), counts.zero_()
     props = torch.cuda.get_device_properties(dev)

@@ -5,15 +5,18 @@ They take the group-aligned layout as ``segment_fold`` holds it:
 ``(N2, ...)`` permuted and padded columns, ``(N2,)`` validity, ``(nb,)``
 int32 block gids.  On CUDA tensors they check them and launch the
 kernel, or raise; on CPU tensors they run the plain versions in
-``ref.py``.  ``segment_linregr_launches``, ``segment_countmin_launches``
-and ``segment_fm_launches`` count the kernels' launches.
+``ref.py``; on meta tensors they return outputs of the kernels' shapes
+and launch nothing.  ``segment_linregr_launches``,
+``segment_countmin_launches`` and ``segment_fm_launches`` count the
+kernels' launches.  The ``*_cost`` functions are the work of one call,
+which the bound, the dry run and the op counter on the card all read.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ...device import runs_on_card
+from ...device import kernel_route
 from .. import _build
 from ..countmin.ops import CTAS_PER_SM, check_items, item_words, sm_count
 from ..sketch_hash import _check_rows
@@ -65,6 +68,56 @@ def block_splits(bs: int) -> tuple[int, int]:
     return splits, -(-bs // splits)
 
 
+def _linregr_shapes(g: int, k: int) -> dict:
+    return {"xtx": (g, k, k), "xty": (g, k), "y_sum": (g,), "y_sq": (g,),
+            "n": (g,)}
+
+
+def linregr_cost(n2: int, k: int, nb: int, g: int, rows=None
+                 ) -> tuple[float, float]:
+    """(operations, bytes) of one call over ``rows`` rows (default all
+    ``n2``; the bound counts the valid ones, the rows the function needs):
+    the upper triangle of each row's (k + 1) x (k + 1) outer product of
+    [x | y] and the sums, a multiply and an add each (f32); x, y, the
+    validity and the block gids read once, the (G, ...) state written
+    once."""
+    rows = n2 if rows is None else rows
+    return (float(rows) * ((k + 1) * (k + 2) + 2),
+            4.0 * n2 * (k + 1) + n2 + 4.0 * nb
+            + 4.0 * g * (k * (k + 1) + 3))
+
+
+def segment_linregr_cost(x, y, valid, bgids, *, num_groups: int):
+    """:func:`linregr_cost` of a call: the valid rows where ``valid`` has
+    values (on the card a read of their count, as the bound counts them),
+    all ``n2`` rows on meta tensors, whose validity has none (an upper
+    bound)."""
+    rows = None if valid.is_meta else int(valid.sum())
+    return linregr_cost(x.shape[0], x.shape[1], bgids.shape[0], num_groups,
+                        rows=rows)
+
+
+def sketch_cost(n2: int, nb: int, cells: int) -> tuple[float, float]:
+    """(floating-point operations, bytes) of one call of a segment sketch
+    kernel whose per-group state has ``cells`` int32 cells: no floating
+    point (the hashes are integer instructions, counted by pipe from the
+    SASS for the bound); int32 items, the bool validity and the block
+    gids read once, the (G, ...) stack written once."""
+    return 0.0, 5.0 * n2 + 4.0 * nb + 4.0 * cells
+
+
+def segment_countmin_cost(items, valid, bgids, *, depth: int, width: int,
+                          num_groups: int):
+    return sketch_cost(items.shape[0], bgids.shape[0],
+                       num_groups * depth * width)
+
+
+def segment_fm_cost(items, valid, bgids, *, num_hashes: int, bits: int,
+                    num_groups: int):
+    return sketch_cost(items.shape[0], bgids.shape[0],
+                       num_groups * num_hashes * bits)
+
+
 def segment_linregr(x, y, valid, bgids, *, num_groups: int):
     """(N2,K) x, (N2,) y, (N2,) valid, (nb,) bgids -> stacked (G, ...)
     linregr state dict (fold-from-zero)."""
@@ -73,9 +126,13 @@ def segment_linregr(x, y, valid, bgids, *, num_groups: int):
     n2, k = x.shape
     nb = bgids.shape[0]
     bs = _layout(n2, nb)
-    if not runs_on_card(x, "segment_linregr"):
+    route = kernel_route(x, "segment_linregr")
+    if route == "cpu":
         return segment_linregr_ref(x, y, valid, bgids,
                                    num_groups=num_groups)
+    if route == "meta":
+        return {name: x.new_empty(shape)
+                for name, shape in _linregr_shapes(num_groups, k).items()}
     w = k + 2
     packed = w * (w + 1) // 2   # the upper triangle of a block's Gram
     if -(-packed // 256) > _GRID_YZ_MAX:
@@ -89,11 +146,8 @@ def segment_linregr(x, y, valid, bgids, *, num_groups: int):
     partials = torch.empty((nb * splits, packed), dtype=torch.float32,
                            device=dev)
     # pass 2 writes every element of every group, empty ones as zeros
-    shapes = {"xtx": (num_groups, k, k), "xty": (num_groups, k),
-              "y_sum": (num_groups,), "y_sq": (num_groups,),
-              "n": (num_groups,)}
     out = {name: torch.empty(shape, dtype=torch.float32, device=dev)
-           for name, shape in shapes.items()}
+           for name, shape in _linregr_shapes(num_groups, k).items()}
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _build.lib().madlib_segment_linregr(
         x.data_ptr(), y.data_ptr(), valid.data_ptr(), bgids.data_ptr(),
@@ -135,9 +189,12 @@ def segment_countmin(items, valid, bgids, *, depth: int, width: int,
     if width < 1 or num_groups * depth * width >= 2 ** 31:
         raise ValueError(f"segment_countmin: (G, depth, width) = "
                          f"({num_groups}, {depth}, {width}) is out of range")
-    if not runs_on_card(items, "segment_countmin"):
+    route = kernel_route(items, "segment_countmin")
+    if route == "cpu":
         return segment_countmin_ref(items, valid, bgids, depth=depth,
                                     width=width, num_groups=num_groups)
+    if route == "meta":
+        return items.new_empty((num_groups, depth, width), dtype=torch.int32)
     nb = bgids.shape[0]
     if max(nb, bs) >= 2 ** 31:
         raise ValueError("segment_countmin: too many blocks or rows per "
@@ -166,9 +223,13 @@ def segment_fm(items, valid, bgids, *, num_hashes: int, bits: int,
     if bits < 1 or num_groups * num_hashes * bits >= 2 ** 31:
         raise ValueError(f"segment_fm: (G, H, bits) = ({num_groups}, "
                          f"{num_hashes}, {bits}) is out of range")
-    if not runs_on_card(items, "segment_fm"):
+    route = kernel_route(items, "segment_fm")
+    if route == "cpu":
         return segment_fm_ref(items, valid, bgids, num_hashes=num_hashes,
                               bits=bits, num_groups=num_groups)
+    if route == "meta":
+        return items.new_empty((num_groups, num_hashes, bits),
+                               dtype=torch.int32)
     nb = bgids.shape[0]
     if max(nb, bs) >= 2 ** 31:
         raise ValueError("segment_fm: too many blocks or rows per block "

@@ -1,8 +1,11 @@
 """PyTorch wrapper of the CUDA xtx kernel (``csrc/xtx.cu``).
 
 On a CUDA tensor it checks the inputs and launches the kernel, or
-raises; on a CPU tensor it runs the plain version in ``ref.py``.
-``xtx_launches`` counts the kernel's launches (one per call on the card).
+raises; on a CPU tensor it runs the plain version in ``ref.py``; on a
+meta tensor it returns outputs of the kernel's shapes and launches
+nothing.  ``xtx_launches`` counts the kernel's launches (one per call on
+the card).  :func:`cost` is the work of one call, which the bound, the
+dry run and the op counter on the card all read.
 
 The kernel computes only the upper triangle of the Gram matrix of
 ``A = [x | y]``; ``csrc/gram_upper.cuh`` lays out its work units and
@@ -14,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from ...device import runs_on_card
+from ...device import kernel_route
 from .. import _build
 from .ref import xtx_xty_ref
 
@@ -54,13 +57,29 @@ def splits_for(n: int, k: int, sm_count: int) -> tuple[int, int]:
     return max(1, -(-n // rows)), rows
 
 
+def xtx_cost(n: int, k: int) -> tuple[float, float]:
+    """(operations, bytes) of X^T X and X^T y over n rows of k variables:
+    X^T X is symmetric, so only its k (k + 1) / 2 distinct entries, plus
+    the k of X^T y, each a multiply and an add per row (f32); x and y read
+    once, X^T X and X^T y written once."""
+    return (float(n) * k * (k + 3),
+            4.0 * (float(n) * (k + 1) + k * (k + 1)))
+
+
+def cost(x: torch.Tensor, y: torch.Tensor) -> tuple[float, float]:
+    return xtx_cost(*x.shape)
+
+
 def xtx_xty(x: torch.Tensor, y: torch.Tensor):
     """(N, K), (N,) f32 -> (X^T X (K, K), X^T y (K,)) f32."""
     global xtx_launches
     _check(x, y)
-    if not runs_on_card(x, "xtx"):
+    route = kernel_route(x, "xtx")
+    if route == "cpu":
         return xtx_xty_ref(x, y)
     n, k = x.shape
+    if route == "meta":
+        return (x.new_empty((k, k)), x.new_empty((k,)))
     props = torch.cuda.get_device_properties(x.device)
     splits, rows = splits_for(n, k, props.multi_processor_count)
     w = k + 1

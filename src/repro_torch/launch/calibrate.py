@@ -43,9 +43,13 @@ on the CPU by the host clock.  The JSON has the reference's schema
 (``backend`` is ``"cuda"`` or ``"cpu"``, ``timestamp`` ISO, ``kernels``
 ``{}``: the port's wrappers derive their grids and take no tuned
 parameter) plus a top-level ``device`` (the card's name and power limit
-from nvidia-smi) that the loader ignores.  The reference's replayed XLA
-statistics are not applicable here (``hlo_context``); their tooling is
-ROADMAP item 13c.
+from nvidia-smi) that the loader ignores.  Each ``local`` entry also
+carries the counterpart of the reference's replayed XLA statistics of
+one fold over the bucket's block, which the loader ignores as the
+reference's does: ``op_dot_flops`` and ``op_bytes_accessed``, from one
+fold of the block on meta tensors under
+:class:`~repro_torch.launch.op_analysis.OpCounter` (the kernels' shape
+path and cost; nothing runs).
 
 The file goes to ``--out`` (default ``build/calibration/<backend>.json``
 under the working directory) and changes nothing until the caller
@@ -69,13 +73,26 @@ from ..core.table import Table
 from ..device import resolve_device
 from ..distributed.sharding import mesh_segments
 from .mesh import make_host_mesh
+from .op_analysis import OpCounter, analyze
 from ..methods.linregr import LinregrAggregate
 from ..methods.sketches import CountMinAggregate
 
 _DIMS = 8
 _SKETCH = (4, 128)
-HLO_CONTEXT = ("not applicable: the port replays no compiled-program "
-               "statistics (ROADMAP item 13c)")
+
+
+def op_context(agg, cols: dict) -> dict:
+    """The counts of one fold of ``agg`` over ``cols``' block, from its
+    transition on meta tensors of the same shapes under the op counter:
+    context for the entry, never read by a lookup."""
+    meta = {k: torch.empty_like(v, device="meta") for k, v in cols.items()}
+    mask = torch.ones(next(iter(cols.values())).shape[0], dtype=torch.bool,
+                      device="meta")
+    with OpCounter() as counter:
+        agg.transition(agg.init(meta), meta, mask)
+    stats = analyze(counter, {})
+    return {"op_dot_flops": stats["dot_flops"],
+            "op_bytes_accessed": stats["bytes_accessed"]}
 
 
 def _xtx_cols(gen, rows, dev):
@@ -162,7 +179,8 @@ def measure(rows_list, groups_list, reps: int, block_sizes, *,
             cols = build(gen, rows, dev)
             tbl = Table(dict(cols))
             s = _time(lambda: run_local(make(), tbl), reps, dev)
-            put("local", cls, {"rows": rows, "seconds": s})
+            put("local", cls, {"rows": rows, **op_context(make(), cols),
+                               "seconds": s})
             log(f"  local/{cls} rows={rows}: {_fmt(s)}")
             if mesh is not None and rows % mesh_segments(mesh) == 0:
                 dist = tbl.distribute(mesh)
@@ -281,8 +299,7 @@ def calibrate(rows_list, groups_list, reps: int, block_sizes, *,
         engines=tables["engines"], kernels={},
         grouped_block=tables["grouped_block"])
     path = out or f"build/calibration/{backend}.json"
-    calibration.save(cal, path, extra={"device": card_description(dev),
-                                       "hlo_context": HLO_CONTEXT})
+    calibration.save(cal, path, extra={"device": card_description(dev)})
     log(f"wrote {path}")
     return calibration.load(path), path
 

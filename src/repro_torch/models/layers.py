@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.registry import dispatch
+from ..launch.scan_registry import tag_scope
 
 NEG_INF = -1e30
 
@@ -196,42 +197,45 @@ def attention_chunked(q, k, v, *, causal: bool, window: int | None = None,
     cols = torch.arange(ck, device=q.device)
     neg = _mask_value(q.device)
     outs = []
-    for qi in range(nq):
-        qc = q[:, qi * cq:(qi + 1) * cq].reshape(b, cq, hk, group, dh)
-        qcs = (qc * scale).to(torch.float32)
-        m = torch.full((b, hk, group, cq), NEG_INF, dtype=torch.float32,
-                       device=q.device)
-        l = torch.zeros((b, hk, group, cq), dtype=torch.float32,
-                        device=q.device)
-        acc = torch.zeros((b, hk, group, cq, dh), dtype=torch.float32,
-                          device=q.device)
-        for ki in range(nk):
-            if causal and ki * ck > qi * cq + cq - 1:
-                break
-            kc = k[:, ki * ck:(ki + 1) * ck]
-            vc = v[:, ki * ck:(ki + 1) * ck]
-            logits = torch.einsum("bqhgd,bkhd->bhgqk", qcs,
-                                  kc.to(torch.float32))
-            grow = qi * cq + rows                  # global q positions
-            gcol = ki * ck + cols
-            mask = torch.ones((cq, ck), dtype=torch.bool, device=q.device)
-            if causal:
-                mask &= grow[:, None] >= gcol[None, :]
-            if window is not None:
-                mask &= grow[:, None] - gcol[None, :] < window
-            logits = torch.where(mask, logits, neg)
-            m_cur = torch.amax(logits, -1)
-            m_new = torch.maximum(m, m_cur)
-            p = torch.exp(logits - m_new[..., None])
-            alpha = torch.exp(m - m_new)
-            l = l * alpha + torch.sum(p, -1)
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bhgqk,bkhd->bhgqd", p.to(vc.dtype).to(torch.float32),
-                vc.to(torch.float32))
-            m = m_new
-        out = acc / torch.clamp(l, min=1e-30)[..., None]   # (B,Hk,G,cq,D)
-        out = torch.movedim(out, 3, 1).reshape(b, cq, h, dh)
-        outs.append(out.to(q.dtype))
+    # one scope for both loops: the reference's two tagged scans, with
+    # every op of the pair attributed to the inner one
+    with tag_scope("tagscan_attn_q", nq), tag_scope("tagscan_attn_kv", nk):
+        for qi in range(nq):
+            qc = q[:, qi * cq:(qi + 1) * cq].reshape(b, cq, hk, group, dh)
+            qcs = (qc * scale).to(torch.float32)
+            m = torch.full((b, hk, group, cq), NEG_INF, dtype=torch.float32,
+                           device=q.device)
+            l = torch.zeros((b, hk, group, cq), dtype=torch.float32,
+                            device=q.device)
+            acc = torch.zeros((b, hk, group, cq, dh), dtype=torch.float32,
+                              device=q.device)
+            for ki in range(nk):
+                if causal and ki * ck > qi * cq + cq - 1:
+                    break
+                kc = k[:, ki * ck:(ki + 1) * ck]
+                vc = v[:, ki * ck:(ki + 1) * ck]
+                logits = torch.einsum("bqhgd,bkhd->bhgqk", qcs,
+                                      kc.to(torch.float32))
+                grow = qi * cq + rows                  # global q positions
+                gcol = ki * ck + cols
+                mask = torch.ones((cq, ck), dtype=torch.bool, device=q.device)
+                if causal:
+                    mask &= grow[:, None] >= gcol[None, :]
+                if window is not None:
+                    mask &= grow[:, None] - gcol[None, :] < window
+                logits = torch.where(mask, logits, neg)
+                m_cur = torch.amax(logits, -1)
+                m_new = torch.maximum(m, m_cur)
+                p = torch.exp(logits - m_new[..., None])
+                alpha = torch.exp(m - m_new)
+                l = l * alpha + torch.sum(p, -1)
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "bhgqk,bkhd->bhgqd", p.to(vc.dtype).to(torch.float32),
+                    vc.to(torch.float32))
+                m = m_new
+            out = acc / torch.clamp(l, min=1e-30)[..., None]   # (B,Hk,G,cq,D)
+            out = torch.movedim(out, 3, 1).reshape(b, cq, h, dh)
+            outs.append(out.to(q.dtype))
     return torch.cat(outs, dim=1)
 
 

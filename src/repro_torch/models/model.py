@@ -5,7 +5,9 @@ an ``nn.Module`` with one :class:`Block` per layer in an ``nn.ModuleList``,
 each of its layer's kind (``layer_kinds``: attn for dense, moe, vlm and
 audio; the (rglru, rglru, local) period for hybrid; (mlstm, slstm) for
 ssm).  There is no period stacking: the reference's ``tagged_scan`` over
-layers is a Python loop, and ``interop`` maps layer i to its period slot.
+layers is a Python loop over the full periods inside ``tag_scope`` (the
+same tag and trip count), and ``interop`` maps layer i to its period
+slot.
 :func:`forward` serves and trains: a model made by :func:`init_model`
 takes no gradient and records no graph; once the trainer calls
 ``model.requires_grad_(True)``, each full period of blocks runs under
@@ -32,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..distributed.sharding import constrain, get_active
+from ..launch.scan_registry import tagged
 from . import layers as L
 from . import moe as MOE
 from . import rglru as RG
@@ -279,11 +282,12 @@ def forward(model: Model, tokens=None, *, embeddings=None,
                 for k in ("aux_loss", "drop_frac")} if cfg.is_moe else None)
         p = len(period_pattern(cfg))
         n_stacked = cfg.n_layers // p * p
-        for i in range(0, n_stacked, p):
-            args = (cfg, model.blocks[i:i + p], x, positions,
-                    mrope_positions, aux, use_flash)
-            x, aux = (checkpoint(_run_period, *args, use_reentrant=False)
-                      if graph and cfg.remat else _run_period(*args))
+        with tagged("tagscan_layers_fwd", n_stacked // p):
+            for i in range(0, n_stacked, p):
+                args = (cfg, model.blocks[i:i + p], x, positions,
+                        mrope_positions, aux, use_flash)
+                x, aux = (checkpoint(_run_period, *args, use_reentrant=False)
+                          if graph and cfg.remat else _run_period(*args))
         x, aux = _run_period(cfg, model.blocks[n_stacked:], x, positions,
                              mrope_positions, aux, use_flash)
         x = L.rms_norm(x, model.out_norm, cfg.norm_eps)
@@ -406,8 +410,14 @@ def decode_step(model: Model, state: list[dict], token: torch.Tensor, pos):
     cfg = model.cfg
     x = model.embed[token]
     pos = torch.as_tensor(pos, device=x.device)   # one copy, not one a layer
+    p = len(period_pattern(cfg))
+    n_stacked = cfg.n_layers // p * p
     new_state = []
-    for blk, cache in zip(model.blocks, state):
+    with tagged("tagscan_layers_dec", n_stacked // p):
+        for blk, cache in zip(model.blocks[:n_stacked], state[:n_stacked]):
+            x, cache = _decode_block(cfg, blk, cache, x, pos)
+            new_state.append(cache)
+    for blk, cache in zip(model.blocks[n_stacked:], state[n_stacked:]):
         x, cache = _decode_block(cfg, blk, cache, x, pos)
         new_state.append(cache)
     x = L.rms_norm(x, model.out_norm, cfg.norm_eps)

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..launch.scan_registry import tag_scope
 from .layers import NORMAL, param
 
 
@@ -67,8 +68,9 @@ def run_moe(p: MoE, cfg, x):
     n = b * s
     chunk = cfg.moe_token_chunk
     if chunk and n > chunk and n % chunk == 0:
-        outs, auxs = zip(*(_moe_tokens(p, cfg, xi)
-                           for xi in x.reshape(n // chunk, 1, chunk, d)))
+        with tag_scope("tagscan_moe_tokens", n // chunk):
+            outs, auxs = zip(*[_moe_tokens(p, cfg, xi)
+                               for xi in x.reshape(n // chunk, 1, chunk, d)])
         aux = {k: torch.mean(torch.stack([a[k] for a in auxs]))
                for k in auxs[0]}
         return torch.cat(outs).reshape(b, s, d), aux
@@ -112,17 +114,19 @@ def dispatch(top_p, top_e, e: int, cap: int):
         se, se, side="left")
     keep = pos_in_e < cap
     slot = torch.where(keep, se * cap + pos_in_e, e * cap)    # overflow slot
-    tok_ec = torch.zeros(e * cap, dtype=torch.long, device=dev)
-    w_ec = torch.zeros(e * cap, dtype=torch.float32, device=dev)
-    valid_ec = torch.zeros(e * cap, dtype=torch.float32, device=dev)
-    kept = slot[keep]
-    tok_ec[kept] = stok[keep]
-    w_ec[kept] = sp[keep]
-    valid_ec[kept] = 1.0
+    # every kept assignment owns its slot; the dropped ones all write the
+    # one slot past the buckets, which is cut off (no boolean indexing:
+    # its length would depend on the data, which a meta tensor lacks)
+    tok_ec = torch.zeros(e * cap + 1, dtype=torch.long, device=dev)
+    w_ec = torch.zeros(e * cap + 1, dtype=torch.float32, device=dev)
+    valid_ec = torch.zeros(e * cap + 1, dtype=torch.float32, device=dev)
+    tok_ec[slot] = stok
+    w_ec[slot] = sp
+    valid_ec[slot] = 1.0
     slot_of = torch.empty_like(slot)
     slot_of[order] = slot
-    return (tok_ec.reshape(e, cap), w_ec.reshape(e, cap),
-            valid_ec.reshape(e, cap), slot_of.reshape(n, k))
+    return (tok_ec[:-1].reshape(e, cap), w_ec[:-1].reshape(e, cap),
+            valid_ec[:-1].reshape(e, cap), slot_of.reshape(n, k))
 
 
 def combine(down, slot_of, top_e):

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..launch.scan_registry import tag_scope
 from .layers import IN_OUT, NORMAL, OUT_IN, param
 
 
@@ -98,43 +99,46 @@ def run_mlstm(p: MLSTM, cfg, x, *, chunk: int = 256):
     state = init_mlstm_state(cfg, b, x.device)
     c_prev, n_prev, m_prev = state["C"], state["n"], state["m"]
     hids = []
-    for c0 in range(0, s, ck):
-        qc, kc, vc = (t[:, c0:c0 + ck] for t in (q, k, v))   # (B,ck,H,D)
-        li, lf = log_i[:, c0:c0 + ck], log_f[:, c0:c0 + ck]  # (B,ck,H)
-        bcum = torch.cumsum(lf, dim=1)               # (B,ck,H) inclusive
-        # intra-chunk decay D_{t,j} = b_t - b_j + log i_j (j <= t)
-        dmat = (bcum[:, :, None, :] - bcum[:, None, :, :]
-                + li[:, None, :, :])                 # (B,ck,ck,H)
-        dmat = dmat.masked_fill(future, float("-inf"))
-        m_intra = torch.amax(dmat, dim=2)            # (B,ck,H)
-        m_inter = m_prev[:, None, :] + bcum          # (B,ck,H)
-        m_t = torch.maximum(m_intra, m_inter)
-        w = torch.exp(dmat - m_t[:, :, None, :])     # (B,ck,ck,H)
-        scores = torch.einsum("bthd,bjhd->btjh", qc, kc) / (dk ** 0.5)
-        wsc = w * scores
-        num_intra = torch.einsum("btjh,bjhd->bthd", wsc, vc)
-        den_intra = torch.sum(wsc, dim=2)            # (B,ck,H)
-        inter_scale = torch.exp(m_inter - m_t)       # (B,ck,H)
-        qsc = qc / (dk ** 0.5)
-        num_inter = torch.einsum("bthk,bhkv->bthv", qsc, c_prev) \
-            * inter_scale[..., None]
-        den_inter = torch.einsum("bthk,bhk->bth", qsc, n_prev) * inter_scale
-        den = torch.maximum(torch.abs(den_intra + den_inter),
-                            torch.exp(-m_t))
-        hids.append((num_intra + num_inter) / den[..., None])
-        # the state at the chunk's end
-        b_l = bcum[:, -1, :]                         # (B,H) total decay
-        m_state = torch.maximum(
-            m_prev + b_l,
-            torch.amax(b_l[:, None, :] - bcum + li, dim=1))
-        carry_decay = torch.exp(m_prev + b_l - m_state)
-        kv_decay = torch.exp(b_l[:, None, :] - bcum + li
-                             - m_state[:, None, :])
-        c_prev = c_prev * carry_decay[..., None, None] + torch.einsum(
-            "bjh,bjhk,bjhv->bhkv", kv_decay, kc, vc)
-        n_prev = n_prev * carry_decay[..., None] + torch.einsum(
-            "bjh,bjhk->bhk", kv_decay, kc)
-        m_prev = m_state
+    with tag_scope("tagscan_mlstm_chunks", s // ck):
+        for c0 in range(0, s, ck):
+            # (B,ck,H,D) and (B,ck,H)
+            qc, kc, vc = (t[:, c0:c0 + ck] for t in (q, k, v))
+            li, lf = log_i[:, c0:c0 + ck], log_f[:, c0:c0 + ck]
+            bcum = torch.cumsum(lf, dim=1)               # (B,ck,H) inclusive
+            # intra-chunk decay D_{t,j} = b_t - b_j + log i_j (j <= t)
+            dmat = (bcum[:, :, None, :] - bcum[:, None, :, :]
+                    + li[:, None, :, :])                 # (B,ck,ck,H)
+            dmat = dmat.masked_fill(future, float("-inf"))
+            m_intra = torch.amax(dmat, dim=2)            # (B,ck,H)
+            m_inter = m_prev[:, None, :] + bcum          # (B,ck,H)
+            m_t = torch.maximum(m_intra, m_inter)
+            w = torch.exp(dmat - m_t[:, :, None, :])     # (B,ck,ck,H)
+            scores = torch.einsum("bthd,bjhd->btjh", qc, kc) / (dk ** 0.5)
+            wsc = w * scores
+            num_intra = torch.einsum("btjh,bjhd->bthd", wsc, vc)
+            den_intra = torch.sum(wsc, dim=2)            # (B,ck,H)
+            inter_scale = torch.exp(m_inter - m_t)       # (B,ck,H)
+            qsc = qc / (dk ** 0.5)
+            num_inter = torch.einsum("bthk,bhkv->bthv", qsc, c_prev) \
+                * inter_scale[..., None]
+            den_inter = torch.einsum("bthk,bhk->bth", qsc,
+                                     n_prev) * inter_scale
+            den = torch.maximum(torch.abs(den_intra + den_inter),
+                                torch.exp(-m_t))
+            hids.append((num_intra + num_inter) / den[..., None])
+            # the state at the chunk's end
+            b_l = bcum[:, -1, :]                         # (B,H) total decay
+            m_state = torch.maximum(
+                m_prev + b_l,
+                torch.amax(b_l[:, None, :] - bcum + li, dim=1))
+            carry_decay = torch.exp(m_prev + b_l - m_state)
+            kv_decay = torch.exp(b_l[:, None, :] - bcum + li
+                                 - m_state[:, None, :])
+            c_prev = c_prev * carry_decay[..., None, None] + torch.einsum(
+                "bjh,bjhk,bjhv->bhkv", kv_decay, kc, vc)
+            n_prev = n_prev * carry_decay[..., None] + torch.einsum(
+                "bjh,bjhk->bhk", kv_decay, kc)
+            m_prev = m_state
     hid = torch.cat(hids, 1).reshape(b, s, d).to(x.dtype)
     return _mlstm_out(p, x, hid)
 
@@ -211,9 +215,10 @@ def run_slstm(p: SLSTM, cfg, x, state=None):
     carry = state if state is not None else init_slstm_state(cfg, b,
                                                              x.device)
     hs = []
-    for t in range(s):
-        carry = _slstm_step(p, carry, pre[:, t])
-        hs.append(carry["h"])
+    with tag_scope("tagscan_slstm_time", s):
+        for t in range(s):
+            carry = _slstm_step(p, carry, pre[:, t])
+            hs.append(carry["h"])
     return torch.stack(hs, 1).to(x.dtype) @ p.w_out, carry
 
 

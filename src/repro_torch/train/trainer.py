@@ -28,6 +28,7 @@ On one shard the step is the unsharded step, bit for bit.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable
 
@@ -37,6 +38,7 @@ from ..distributed.sharding import (DEFAULT_RULES, P, NamedSharding,
                                     activation_sharding, axes_in_mesh,
                                     batch_sharding, check_mesh,
                                     ordered_mean, param_sharding)
+from ..launch.scan_registry import tag_scope
 from ..models import model as M
 from ..models.config import ModelConfig
 from ..optim import AdamWState, adamw_init, adamw_update, \
@@ -96,7 +98,13 @@ def make_train_step(cfg: ModelConfig, *, base_lr=3e-4, warmup=100,
 
     ``train_step.grads(state, batch) -> (loss, metrics, grads)`` is the
     step without its update; ``train_step.fold`` and ``train_step.final``
-    are its two halves, which :func:`jit_train_step` reuses."""
+    are its two halves, which :func:`jit_train_step` reuses.
+
+    ``repeat`` (of the step, ``grads`` and ``fold``) is the dry run's: a
+    context-manager factory such as ``OpCounter.repeat``.  Where given,
+    the fold runs the first micro-batch alone inside ``repeat(n)`` and
+    stands it for all n, whose work is identical; the accumulators, the
+    division and the update run once, as in the real step."""
 
     def transition(model, leaves, mb):
         total, metrics = M.train_loss(model, mb)
@@ -107,11 +115,11 @@ def make_train_step(cfg: ModelConfig, *, base_lr=3e-4, warmup=100,
         return (total.detach(), {k: v.detach() for k, v in metrics.items()},
                 grads)
 
-    def fold(state: TrainState, micro: list[dict]):
+    def fold(state: TrainState, micro: list[dict], repeat=None):
         """The transition over ``micro`` in order: (the losses' sum, the
         last micro-batch's metrics, the gradients' sum by name).  One
         micro-batch keeps its gradients as autograd gives them; more are
-        summed into f32 zeros."""
+        summed into f32 zeros, inside the ``tagscan_grad_accum`` scope."""
         params = state.params()
         names, leaves = list(params), list(params.values())
         if len(micro) == 1:
@@ -120,16 +128,19 @@ def make_train_step(cfg: ModelConfig, *, base_lr=3e-4, warmup=100,
         acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                for p in leaves]
         loss = torch.zeros((), dtype=torch.float32, device=state.step.device)
-        for mb in micro:
-            lm, metrics, g = transition(state.model, leaves, mb)
-            loss = loss + lm
-            torch._foreach_add_(acc, list(g))
-            del g
+        run, scale = ((micro, contextlib.nullcontext()) if repeat is None
+                      else (micro[:1], repeat(len(micro))))
+        with tag_scope("tagscan_grad_accum", len(micro)), scale:
+            for mb in run:
+                lm, metrics, g = transition(state.model, leaves, mb)
+                loss = loss + lm
+                torch._foreach_add_(acc, list(g))
+                del g
         return loss, metrics, dict(zip(names, acc))
 
-    def grads(state: TrainState, batch: dict):
+    def grads(state: TrainState, batch: dict, repeat=None):
         micro = _split(batch, grad_accum) if grad_accum > 1 else [batch]
-        loss, metrics, g = fold(state, micro)
+        loss, metrics, g = fold(state, micro, repeat)
         if grad_accum > 1:
             loss = loss / grad_accum
             torch._foreach_div_(list(g.values()), grad_accum)
@@ -146,8 +157,8 @@ def make_train_step(cfg: ModelConfig, *, base_lr=3e-4, warmup=100,
             state.step += 1
         return state, dict(metrics, loss=loss, grad_norm=gnorm, lr=lr)
 
-    def train_step(state: TrainState, batch: dict):
-        loss, metrics, g = grads(state, batch)
+    def train_step(state: TrainState, batch: dict, repeat=None):
+        loss, metrics, g = grads(state, batch, repeat)
         return final(state, g, loss, metrics)
 
     train_step.grad_accum = grad_accum

@@ -26,6 +26,8 @@ from repro_torch.core import Session, Table
 from repro_torch.core import calibration as tcal
 from repro_torch.core.aggregates import segment_block_size
 from repro_torch.core.plan import select_grouped_method
+from repro_torch.kernels.countmin import ops as cm_ops
+from repro_torch.kernels.xtx import ops as xtx_ops
 from repro_torch.methods.sketches import CountMinAggregate
 from test_torch_explain import GROUPS, N, _batch, _cols
 
@@ -221,7 +223,14 @@ def test_harness_tiny_on_the_cpu_writes_a_calibration_that_flips_explain(
     assert res.returncode == 0, res.stderr
     doc = json.loads(out.read_text())
     assert doc["backend"] == "cpu" and doc["kernels"] == {}
-    assert doc["device"] == "cpu" and "not applicable" in doc["hlo_context"]
+    assert doc["device"] == "cpu" and "hlo_context" not in doc
+    # each local entry carries one meta fold's counts: the xtx kernel's
+    # cost for the 4096 x 8 block, and no dot flops for Count-Min
+    (xe,), (se,) = (doc["engines"]["local"][c] for c in ("xtx", "sketch"))
+    assert xe["op_dot_flops"] == xtx_ops.xtx_cost(4096, 8)[0]
+    assert se["op_dot_flops"] == 0
+    assert xe["op_bytes_accessed"] >= xtx_ops.xtx_cost(4096, 8)[1]
+    assert se["op_bytes_accessed"] >= cm_ops.countmin_cost(4096, 4, 128)[1]
     for cal in (tcal.load(str(out)), jcal.load(str(out))):
         assert {"local", "grouped-segment", "grouped-masked"} <= \
             set(cal.engines)

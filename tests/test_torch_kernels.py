@@ -178,14 +178,44 @@ def test_registry_forced_cuda_on_cpu_raises():
         registry.dispatch("xtx", x, y, impl="cuda")
 
 
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports a device with neither kernel nor plain
+    version."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
+def _elsewhere(t):
+    return t.as_subclass(_Elsewhere)
+
+
 def test_registry_and_wrappers_share_one_device_rule():
-    """A device that is neither the card nor the CPU is refused alike by
-    the registry and by a direct call of each wrapper."""
+    """The registry and a direct call of each wrapper route a tensor alike:
+    a meta tensor takes the kernel's shape path in both (outputs of the
+    kernel's shapes, nothing launched), and a device that is neither the
+    card, the CPU nor meta is refused by the one rule both ask."""
     x, y = torch.ones((4, 2), device="meta"), torch.ones(4, device="meta")
     valid = torch.ones(4, dtype=torch.bool, device="meta")
     bgids = torch.zeros(1, dtype=torch.int32, device="meta")
+    for got in (registry.dispatch("xtx", x, y, impl="auto"),
+                xtx_ops.xtx_xty(x, y)):
+        assert [(t.shape, t.dtype, t.device.type) for t in got] == [
+            ((2, 2), torch.float32, "meta"), ((2,), torch.float32, "meta")]
+    for got in (registry.dispatch("segment_linregr", x, y, valid, bgids,
+                                  num_groups=1),
+                sf_ops.segment_linregr(x, y, valid, bgids, num_groups=1)):
+        assert got["xtx"].shape == (1, 2, 2) and got["n"].is_meta
+    # a tensor on a fourth device type: refused by the registry and by
+    # each wrapper called directly
+    x, y = _elsewhere(torch.ones((4, 2))), _elsewhere(torch.ones(4))
+    valid = _elsewhere(torch.ones(4, dtype=torch.bool))
+    bgids = _elsewhere(torch.zeros(1, dtype=torch.int32))
     for call in (lambda: registry.dispatch("xtx", x, y, impl="auto"),
                  lambda: xtx_ops.xtx_xty(x, y),
+                 lambda: registry.dispatch("segment_linregr", x, y, valid,
+                                           bgids, num_groups=1),
                  lambda: sf_ops.segment_linregr(x, y, valid, bgids,
                                                 num_groups=1)):
         with pytest.raises(ValueError, match="no kernel and no plain"):
