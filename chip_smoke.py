@@ -97,7 +97,9 @@ j. then the measured calibration on the card:
    bitwise against their plain versions on dyadic data (``xtx`` and
    ``countmin`` at 10^7 rows, the segment kernels at 2^20 rows, every
    group count and block size).  The masked cells above 64 groups are
-   timed over 64 group passes and scaled.  Then the methods of MADlib's Table 1 that
+   timed over 64 group passes and scaled.  Each bucket's grouped method
+   (segment or masked) under the heuristic and under the calibration is
+   printed beside the measured seconds, and which ones changed.  Then the methods of MADlib's Table 1 that
    the tenth slice ports, at full size on tables made on the card from
    the seed, each statement's first and repeated seconds printed:
    ``naive_bayes_fit`` (10 classes) on that table, its fold state
@@ -116,6 +118,14 @@ j. then the measured calibration on the card:
    equal to direct counts); ``approx_match`` over 1,000,000 strings
    (the index bitwise the CPU's on a 10,000-string prefix, the planted
    near-duplicate ranked first);
+k. then the convex layer at the main width (section k's docstring), and
+   ``xtx`` at K = 1 to 320 on 10^7 dyadic rows: the path ``xtx_xty``
+   takes (the narrow kernel up to ``K_NARROW``, the wide one past it)
+   and the other path where it exists, both bitwise the plain version
+   and bitwise symmetric, timed beside ``torch.matmul(x.T, x)`` and the
+   bound; a K = 10 view 4 bytes off 16 on both paths; at K = 8 on
+   Gaussian data the narrow kernel no farther from a float64 sum than
+   the plain version;
 g. then, with the analytics tables dropped, the LM serving path:
    the flash_attention kernels against their plain version, each call
    held to the kernel the wrapper must pick (f32 at the reference's test
@@ -466,6 +476,38 @@ def cold_ms(torch, fn, reps: int, flush) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def alone_ms(torch, fn, reps: int) -> float:
+    """Event time of each call alone: the stream sleeps for about 0.5 ms
+    while the host enqueues the call, so the host's time per call does
+    not show (the L2 keeps what the previous call left)."""
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def host_call_us(torch, fn, reps: int = 50) -> float:
+    """Host microseconds a call takes to return (the card not waited
+    for), over ``reps`` calls after one."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def device_ms(torch, fn, reps: int, kernels: tuple[str, ...]):
@@ -2864,6 +2906,7 @@ def methods_section(torch, dev, counters, errs, smi) -> dict:
         GroupedScanAgg, Session, Table, calibration, execute, run_grouped,
         run_local, trace_execution)
     from repro_torch.core.aggregates import segment_block_size
+    from repro_torch.core.plan import select_grouped_method
     from repro_torch.kernels.countmin import ops as cm_ops
     from repro_torch.kernels.countmin.ref import countmin_block_ref
     from repro_torch.kernels.segment_fold import ops as sf_ops
@@ -2931,6 +2974,34 @@ def methods_section(torch, dev, counters, errs, smi) -> dict:
               + (f"{e['sweep'][str(e['heuristic_block'])] * 1e3:.3f} ms"
                  if str(e["heuristic_block"]) in e["sweep"] else "not swept")
               + ")")
+    # the grouped method (segment or masked) the planner picks per bucket
+    # and aggregate class, under the heuristic and under this calibration,
+    # whose xtx cells now time the narrow kernel at K = 8
+    methods = []
+    for rows_b in CAL_ROWS:
+        for groups_b in CAL_GROUPS:
+            for cls in ("xtx", "sketch"):
+                heur_m = select_grouped_method(rows_b, groups_b,
+                                               segment_ok=True,
+                                               agg_cls=cls)[0]
+                with calibration.use(path):
+                    meas_m, costs, source = select_grouped_method(
+                        rows_b, groups_b, segment_ok=True, agg_cls=cls)
+                require(source["kind"] == "measured", f"the calibration "
+                        f"does not cover {cls} at {rows_b} x {groups_b}")
+                e = {"rows": rows_b, "groups": groups_b, "class": cls,
+                     "heuristic": heur_m, "measured": meas_m,
+                     "seconds": costs, "changed": heur_m != meas_m}
+                methods.append(e)
+                print(f"[calib] rows={rows_b} groups={groups_b} {cls}: "
+                      f"heuristic {heur_m}, calibrated {meas_m}"
+                      + (" (changed)" if e["changed"] else "") + "; "
+                      + ", ".join(f"{m} {v * 1e3:.3f} ms"
+                                  for m, v in costs.items()))
+    print(json.dumps({"calibration_methods": methods,
+                      "changed": [[e["rows"], e["groups"], e["class"]]
+                                  for e in methods if e["changed"]],
+                      "device": smi}))
     require(calibration.current() is None,
             "a calibration is active before any was activated")
 
@@ -3353,9 +3424,12 @@ ML_BATCH, ML_EPOCHS = 256, 2
 CONLL_SENTS, CONLL_T, CONLL_LABELS, CONLL_FEATURES = 8_936, 64, 23, 1 << 18
 CONLL_VOCAB, CONLL_MEAN_LEN, CRF_BATCH, CRF_STEPSIZE = 20_000, 23.7, 128, 0.3
 GIBBS_SWEEPS, MH_STEPS = 20, 200
-# xtx at narrow widths on 10^7 dyadic rows (the paper's Fig. 4 sweeps K)
-XTX_WIDTHS = (8, 10, 20, 40, 80, 160, 320)
+# xtx at narrow widths on 10^7 dyadic rows (the paper's Fig. 4 sweeps K
+# over 10-320), K_NARROW = 120 and the first width past it among them;
+# the narrow kernel's micro-tiles fill a CTA up to K = 176
+XTX_WIDTHS = (1, 8, 10, 16, 20, 32, 40, 64, 80, 96, 120, 128, 160, 320)
 XTX_NARROW_REPS = 10
+XTX_NARROW_MAX = 176
 
 
 def convex_section(torch, dev, counters, errs, smi) -> dict:
@@ -3646,32 +3720,101 @@ def convex_section(torch, dev, counters, errs, smi) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- xtx at narrow widths on 10^7 dyadic rows, one width at a time
+    # -- xtx at narrow widths on 10^7 dyadic rows, one width at a time:
+    # the path xtx_xty takes (the narrow kernel up to K_NARROW) and the
+    # other path where it exists (the narrow kernel's micro-tiles fill a
+    # CTA up to K = XTX_NARROW_MAX), both bitwise the plain version, timed
+    # beside torch.matmul(x.T, x) and the bound
     narrow = []
     for kw in XTX_WIDTHS:
         xw = dyadic(torch, gen, (N_MAIN, kw), dev)
         yw = dyadic(torch, gen, (N_MAIN,), dev)
-        errs["xtx"] = max(errs["xtx"], *(bitwise(
-            torch, f"xtx ({N_MAIN}, {kw})", a, c) for a, c in zip(
-                xtx_ops.xtx_xty(xw, yw), xtx_xty_ref(xw, yw))))
-        ms = cuda_ms(torch, lambda: xtx_ops.xtx_xty(xw, yw),
-                     XTX_NARROW_REPS)
+        path = "narrow" if kw <= xtx_ops.K_NARROW else "wide"
+        other = "wide" if path == "narrow" else "narrow"
+        want = xtx_xty_ref(xw, yw)
+        runs = {path: lambda: xtx_ops.xtx_xty(xw, yw)}
+        if other == "wide" or kw <= XTX_NARROW_MAX:
+            runs[other] = lambda: xtx_ops._launch(xw, yw, other == "narrow")
+        for name, fn in runs.items():
+            got = fn()
+            errs["xtx"] = max(errs["xtx"], *(bitwise(
+                torch, f"xtx ({N_MAIN}, {kw}) {name} path", a, c)
+                for a, c in zip(got, want)))
+            require(torch.equal(got[0], got[0].T),
+                    f"xtx ({N_MAIN}, {kw}) {name} path: not bitwise symmetric")
+        del got, want
+        ms = cuda_ms(torch, runs[path], XTX_NARROW_REPS)
+        other_ms = (cuda_ms(torch, runs[other], XTX_NARROW_REPS)
+                    if other in runs else None)
         mm = cuda_ms(torch, lambda: torch.matmul(xw.T, xw), XTX_NARROW_REPS)
+        # each call alone on the card (the host's time hidden), and the
+        # host's microseconds a call at 4,096 rows (no wait for the card)
+        alone = alone_ms(torch, runs[path], XTX_NARROW_REPS)
+        mm_alone = alone_ms(torch, lambda: torch.matmul(xw.T, xw),
+                            XTX_NARROW_REPS)
+        xs, ys = xw[:4096], yw[:4096]
+        host_us = host_call_us(torch, lambda: xtx_ops.xtx_xty(xs, ys))
+        mm_host_us = host_call_us(torch, lambda: torch.matmul(xs.T, xs))
         t_ops, t_bytes = xtx_ops.xtx_cost(N_MAIN, kw)
         t_ops, t_bytes = (t_ops / PEAK_F32_FLOPS * 1e3,
                           t_bytes / PEAK_BYTES * 1e3)
-        row = {"k": kw, "rows": N_MAIN, "ms": ms, "matmul_ms": mm,
+        row = {"k": kw, "rows": N_MAIN, "path": path, "ms": ms,
+               "other_path": other, "other_ms": other_ms, "matmul_ms": mm,
                "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                "ops_ms": t_ops, "bytes_ms": t_bytes,
-               "bound_share": max(t_ops, t_bytes) / ms}
-        print(f"[convex] xtx ({N_MAIN}, {kw}): {ms:.4f} ms, bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
-              f"torch.matmul(x.T, x) {mm:.4f} ms; bitwise its plain "
-              f"version; {smi}")
+               "bound_share": max(t_ops, t_bytes) / ms,
+               "alone_ms": alone, "matmul_alone_ms": mm_alone,
+               "host_us": host_us, "matmul_host_us": mm_host_us,
+               "faster_than_matmul": ms < mm and alone < mm_alone}
+        other_s = ("not run (too wide for its micro-tiles)"
+                   if other_ms is None else f"{other_ms:.4f} ms")
+        print(f"[convex] xtx ({N_MAIN}, {kw}), {path} path: {ms:.4f} ms, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+              f"{row['bound_share']:.1%} of it), torch.matmul(x.T, x) "
+              f"{mm:.4f} ms, the {other} path {other_s}; each call alone "
+              f"{alone:.4f} ms against torch.matmul's {mm_alone:.4f}, host "
+              f"{host_us:.1f} us a call against {mm_host_us:.1f}; each "
+              f"path run bitwise the plain version; {smi}")
         narrow.append(row)
-        del xw, yw
+        del xw, yw, xs, ys, runs
         torch.cuda.empty_cache()
+    # a K = 10 view that starts 4 bytes off 16, as a segment view may
+    kv = 10
+    flat = dyadic(torch, gen, (N_MAIN * kv + 1,), dev)
+    xv, yv = flat[1:].view(N_MAIN, kv), dyadic(torch, gen, (N_MAIN,), dev)
+    require(xv.data_ptr() % 16 != 0, "the K = 10 view is 16-byte aligned")
+    want = xtx_xty_ref(xv, yv)
+    for name, got in (("narrow", xtx_ops._launch(xv, yv, True)),
+                      ("wide", xtx_ops._launch(xv, yv, False))):
+        errs["xtx"] = max(errs["xtx"], *(bitwise(
+            torch, f"xtx ({N_MAIN}, {kv}) view off 16 bytes, {name} path",
+            a, c) for a, c in zip(got, want)))
+    print(f"[convex] xtx ({N_MAIN}, {kv}) on a view {xv.data_ptr() % 16} "
+          "bytes off 16: both paths bitwise the plain version")
+    del flat, xv, yv, want, got
+    # Gaussian K = 8: the narrow kernel no farther from a float64 sum
+    # than the plain version
+    xg = torch.randn((N_MAIN, 8), generator=gen, device=dev)
+    yg = torch.randn((N_MAIN,), generator=gen, device=dev)
+    got = dict(zip(("xtx", "xty"), xtx_ops.xtx_xty(xg, yg)))
+    plain = dict(zip(("xtx", "xty"), xtx_xty_ref(xg, yg)))
+    wide = dict(zip(("xtx", "xty"), xtx_ops._launch(xg, yg, False)))
+    x64 = xg.double()
+    exact = {"xtx": x64.T @ x64, "xty": x64.T @ yg.double()}
+    err_k, scale = max_err(torch, got, exact)
+    err_p, err_w = max_err(torch, plain, exact)[0], max_err(
+        torch, wide, exact)[0]
+    diff = max_err(torch, got, plain)[0]
+    require(err_k <= err_p, f"xtx ({N_MAIN}, 8) narrow gaussian: kernel "
+            f"error {err_k} vs float64 exceeds the plain version's {err_p}")
+    errs["xtx"] = max(errs["xtx"], diff)
+    print(f"[convex] xtx ({N_MAIN}, 8) narrow gaussian: max error vs "
+          f"float64 kernel {err_k:.3e}, plain {err_p:.3e}, wide path "
+          f"{err_w:.3e} (max |sum| {scale:.3e}); kernel vs plain {diff:.3e}")
+    summary["xtx_gaussian_k8"] = {"kernel": err_k, "plain": err_p,
+                                  "wide": err_w, "scale": scale}
+    del xg, yg, got, plain, wide, x64, exact
     print(json.dumps({"xtx_narrow": narrow, "device": smi}))
     part_done("xtx at narrow widths")
     summary["seconds"] = time.perf_counter() - t_section
@@ -4699,7 +4842,8 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    counters = Counters({"xtx": xtx_ops, "segment_linregr": sf_ops,
+    counters = Counters({"xtx": xtx_ops, "xtx_narrow": xtx_ops,
+                         "segment_linregr": sf_ops,
                          "countmin": cm_ops, "segment_countmin": sf_ops,
                          "segment_fm": sf_ops, "kmeans_assign": km_ops,
                          "flash_attention": fa_ops,
@@ -5740,6 +5884,8 @@ def main() -> int:
     for row in rows:
         name = row["name"]
         row["launches"] = counters.total[name]
+        if name == "xtx":  # of them, the narrow kernel's (K <= K_NARROW)
+            row["launches_narrow"] = counters.total["xtx_narrow"]
         by_step = {f"{kind} {step}": got[name]
                    for kind, st in (("server", steps), ("stream", i_steps),
                                     ("methods", j_steps),
@@ -5752,6 +5898,8 @@ def main() -> int:
                 **by_step}
             print(json.dumps({"kernel_launches": {
                 "name": name, "launches": row["launches"],
+                **({"launches_narrow": row["launches_narrow"]}
+                   if name == "xtx" else {}),
                 "launches_by_shape": row["launches_by_shape"]}}))
     gc.collect()
     torch.cuda.empty_cache()

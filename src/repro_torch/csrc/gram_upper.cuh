@@ -5,6 +5,13 @@
 //     A = [x m | y m | m]      (width k + 2; segment_linregr, m the 0/1
 //                               validity of each row)
 //
+// xtx runs this routine only past K_NARROW (kernels/xtx/ops.py), where
+// its operations bound it (k > 78 in f32 on the H100); narrower xtx runs
+// csrc/xtx_narrow.cu, bound by bytes below k = 78, which gives every
+// thread of a CTA rows of its own rather than a 176-column tile that
+// would leave all but a few of 256 threads idle.  segment_linregr runs
+// this routine at every width.
+//
 // Work plan.  A is cut into column tiles of 176 (22 blocks of 8).  A CTA
 // of 256 threads takes one row range and one unit: the triangle of a
 // tile (22 x 23 / 2 = 253 micro-tiles) or half of a tile pair ti < tj

@@ -1,15 +1,21 @@
-// xtx: X^T X (k, k) and X^T y (k,) of one row block, f32.
+// xtx: X^T X (k, k) and X^T y (k,) of one row block, f32: the wide path.
 //
 // Replaces the TPU kernel src/repro/kernels/xtx/kernel.py:29 (`_xtx_kernel`,
 // launched through `pl.pallas_call` at :56 by xtx_xty_padded), the inner
-// update of the OLS transition.
+// update of the OLS transition.  Two paths, chosen by kernels/xtx/ops.py
+// from k alone: k <= K_NARROW (120) runs csrc/xtx_narrow.cu (row groups
+// of a CTA each sum the whole upper triangle over their own rows: the
+// register triangle up to k = 15, 8 x 8 micro-tiles past it), wider k
+// runs this file.
 //
 // Bound on the H100: X^T X is symmetric, so the function needs a multiply
 // and an add per row for each of its k (k + 1) / 2 distinct entries and
 // the k of X^T y, n k (k + 3) operations in f32 on the CUDA cores
-// (67 TFLOP/s), against 4 n (k + 1) bytes read (3.35 TB/s).  At the main
-// path's n = 10M, k = 160 that is 2.6e11 FLOP, about 3.9 ms, to 6.4 GB,
-// about 1.9 ms: bound by operations.
+// (67 TFLOP/s), against 4 n (k + 1) bytes read (3.35 TB/s): bytes bound
+// it below k = 78, operations above, so the narrow path must stream x at
+// the memory rate and this path, from k = 121 up, must keep the FFMA
+// pipes busy.  At the main path's n = 10M, k = 160 that is 2.6e11 FLOP,
+// about 3.9 ms, to 6.4 GB, about 1.9 ms: bound by operations.
 //
 // Design.  The TPU kernel carries one accumulator across a sequential
 // grid; CTAs on the H100 run in parallel and in no fixed order.  So each

@@ -32,6 +32,11 @@ _P = ctypes.c_void_p
 _SIGNATURES = {
     "madlib_xtx": [_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_int, ctypes.c_longlong, _P],
+    "madlib_xtx_narrow": [_P, _P, _P, _P, _P, ctypes.c_longlong,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.c_int, ctypes.c_int, _P],
+    "madlib_xtx_narrow_ctas_per_sm": [ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_int],
     "madlib_segment_linregr": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],

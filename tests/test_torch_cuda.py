@@ -84,6 +84,99 @@ def test_xtx_upper_triangle_bitwise_and_symmetric(cuda_device, k):
     assert torch.equal(got[0], got[0].T)
 
 
+def _dyadic_rows(n, k, seed, device):
+    """x (n, k) and y (n,) in {-1/8, 0, 1/8}: every partial sum of up to
+    10^7 products is a multiple of 1/64 below 2^18, exact in f32."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-1, 2, size=(n, k)).astype(np.float32) / 8
+    y = rng.integers(-1, 2, size=(n,)).astype(np.float32) / 8
+    return torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+
+
+@pytest.mark.parametrize("n", [1, 31, 4097, 1_000_003])
+@pytest.mark.parametrize("k", [1, 7, 8, 9, 10, 15, 16, 17, 31, 33, 63, 64,
+                               79, 80, xtx_ops.K_NARROW + 1])
+def test_xtx_narrow_bitwise_and_symmetric(cuda_device, k, n):
+    """Around the register triangle's edge (K = 15, 16), the micro-tiles'
+    8-column edges and one past K_NARROW (the wide kernel): bitwise the
+    plain version on dyadic data, X^T X bitwise symmetric, one launch on
+    the path K chooses."""
+    x, y = _dyadic_rows(n, k, 1000 * k + n % 1000, cuda_device)
+    before = (xtx_ops.xtx_launches, xtx_ops.xtx_narrow_launches)
+    got = xtx_ops.xtx_xty(x, y)
+    want = xtx_ref.xtx_xty_ref(x, y)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[0], got[0].T)
+    narrow = int(k <= xtx_ops.K_NARROW)
+    assert (xtx_ops.xtx_launches, xtx_ops.xtx_narrow_launches) == (
+        before[0] + 1, before[1] + narrow)
+
+
+@pytest.mark.parametrize("k", [1, 10, 16, 64])
+def test_xtx_narrow_on_a_view_off_16_bytes(cuda_device, k):
+    """A view whose data_ptr is 4 bytes off 16 (as a segment view starts):
+    4-byte copies for x, bitwise the plain version; K = 16 and 64 would
+    take 16-byte copies from an aligned base."""
+    n = 50_001
+    flat, y = _dyadic_rows(n * k + 1, 1, k, cuda_device)
+    x = flat[1:, 0].view(n, k)
+    assert x.data_ptr() % 16 == 4 and x.is_contiguous()
+    y = y[:n]
+    got = xtx_ops.xtx_xty(x, y)
+    want = xtx_ref.xtx_xty_ref(x, y)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[0], got[0].T)
+
+
+def test_xtx_narrow_widths_in_any_order(cuda_device):
+    """K = 50 and 64 share one micro-tile kernel but need 105,408 and
+    92,736 bytes of shared memory, and K = 128 down the narrow path (as
+    chip_smoke.py's section k runs it) 25,536: a call after any other
+    width still launches and gives the plain version's bits."""
+    n = 100_003
+    data = {k: _dyadic_rows(n, k, 7 * k, cuda_device)
+            for k in (50, 64, 128)}
+    want = {k: xtx_ref.xtx_xty_ref(*data[k]) for k in data}
+    for k, narrow in ((50, None), (64, None), (50, None), (64, None),
+                      (128, True), (64, None)):
+        got = (xtx_ops.xtx_xty(*data[k]) if narrow is None
+               else xtx_ops._launch(*data[k], narrow))
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[k][0]), k
+        assert torch.equal(got[1], want[k][1]), k
+
+
+def test_xtx_narrow_on_two_streams(cuda_device):
+    """Calls alternating between two streams, each repeated, share no
+    scratch: all give the plain version's bits."""
+    x, y = _dyadic_rows(3_000_001, 1, 8, cuda_device)
+    want = xtx_ref.xtx_xty_ref(x, y)
+    side = torch.cuda.Stream()
+    outs = []
+    for i in range(6):
+        with torch.cuda.stream(side if i % 2 else
+                               torch.cuda.current_stream()):
+            outs.append(xtx_ops.xtx_xty(x, y))
+    torch.cuda.synchronize()
+    for got in outs:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_linregr_counts_its_narrow_launches(cuda_device):
+    """The main path's OLS at a narrow width goes through the narrow
+    kernel: one launch, counted on both counters."""
+    x, y = _dyadic_rows(20_000, 8, 5, cuda_device)
+    t = Table({"x": x, "y": y})
+    xtx_ops.xtx_launches = xtx_ops.xtx_narrow_launches = 0
+    linregr(t, use_kernel=True)
+    assert (xtx_ops.xtx_launches, xtx_ops.xtx_narrow_launches) == (1, 1)
+    x, y = _dyadic_rows(20_000, xtx_ops.K_NARROW + 1, 6, cuda_device)
+    linregr(Table({"x": x, "y": y}), use_kernel=True)
+    assert (xtx_ops.xtx_launches, xtx_ops.xtx_narrow_launches) == (2, 1)
+
+
 @pytest.mark.parametrize("pattern,pad_to", [("uniform", None),
                                             ("skewed", 7), ("empty", 3),
                                             ("singleton", None)])
