@@ -2487,6 +2487,11 @@ def device_busy(torch, fn) -> dict:
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
             waits += e.name in HOST_WAITS
             continue
+        if getattr(e, "is_user_annotation", False):
+            # a record_function range (the program's madlib:: spans),
+            # which the profiler also puts on the device's timeline: no
+            # device work of its own
+            continue
         iv = (e.time_range.start, e.time_range.end)   # microseconds
         if "Memcpy HtoD" in e.name:
             h2d.append(iv)

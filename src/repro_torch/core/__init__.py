@@ -32,7 +32,9 @@ aggregates, and execution tracing.
   dedup and the version-keyed result cache
 - Session / Handle — batch statements; one run() plans them together
 - ProfileAggregate / map_columns / one_hot_encode — templated queries
-- trace_execution — count scans, sorts and kernel dispatches
+- trace_execution — count scans, sorts and kernel dispatches; span —
+  the statement path's ranges for torch.profiler (statement, plan,
+  fold, dispatch, final)
 """
 
 from .aggregates import (  # noqa: F401
@@ -69,4 +71,4 @@ from .table import (  # noqa: F401
 from .templates import (  # noqa: F401
     ProfileAggregate, map_columns, one_hot_encode,
 )
-from .trace import Trace, record, trace_execution  # noqa: F401
+from .trace import Trace, record, span, trace_execution  # noqa: F401

@@ -56,7 +56,7 @@ from .table import (
     Columns, GroupedView, Table, _n_rows, as_column, host_tensor,
     stored_dtype, table_mesh,
 )
-from .trace import record as _record
+from .trace import record as _record, span
 
 S = TypeVar("S")  # transition state tree
 R = TypeVar("R")  # result tree
@@ -319,8 +319,12 @@ def run_local(agg: Aggregate, table: Table, *, block_size: int | None = None,
     ``jit=True`` and ``jit=False`` both run the eager fold (PyTorch has
     no compiled program to skip)."""
     _record(trace_kind, engine="local", rows=table.n_rows)
-    state = _blocked_fold(agg, dict(table.columns), mask, block_size)
-    return agg.final(state) if finalize else state
+    with span("fold"):
+        state = _blocked_fold(agg, dict(table.columns), mask, block_size)
+    if not finalize:
+        return state
+    with span("final"):
+        return agg.final(state)
 
 
 # ---------------------------------------------------------------------------
@@ -363,9 +367,13 @@ def run_sharded(agg: Aggregate, table: Table, *, mesh=None, row_axes=None,
                          finalize=finalize, trace_kind=trace_kind)
     _record(trace_kind, engine="sharded", rows=table.n_rows,
             segs=_sh.mesh_segments(mesh, row_axes))
-    state = sharded_fold(agg, dict(table.columns), mask, block_size, mesh,
-                         row_axes)
-    return agg.final(state) if finalize else state
+    with span("fold"):
+        state = sharded_fold(agg, dict(table.columns), mask, block_size,
+                             mesh, row_axes)
+    if not finalize:
+        return state
+    with span("final"):
+        return agg.final(state)
 
 
 # ---------------------------------------------------------------------------
@@ -505,23 +513,26 @@ def run_stream(agg: Aggregate, blocks: Iterable[Columns], *,
         raise ValueError("run_stream: empty block stream — at least one "
                          "block is required to seed the fold state") from None
     _record("scan", engine="stream")
-    feed = _CardFeed(dev) if dev.type == "cuda" else _HostFeed()
-    up = feed.put(first)
-    state = None
-    while up is not None:
-        cols = feed.take(up)
-        n = next(iter(cols.values())).shape[0]
-        if state is None:
-            state = agg.init(cols)
-        # enqueued before the producer runs again: a producer that reuses
-        # a buffer on the card writes it after this fold in stream order
-        state = agg.transition(state, cols, feed.ones(n))
-        del cols
-        feed.release(up)
-        nxt = next(it, None)
-        up = None if nxt is None else feed.put(nxt)
-        del nxt
-    return agg.final(state)
+    with span("fold"):
+        feed = _CardFeed(dev) if dev.type == "cuda" else _HostFeed()
+        up = feed.put(first)
+        state = None
+        while up is not None:
+            cols = feed.take(up)
+            n = next(iter(cols.values())).shape[0]
+            if state is None:
+                state = agg.init(cols)
+            # enqueued before the producer runs again: a producer that
+            # reuses a buffer on the card writes it after this fold in
+            # stream order
+            state = agg.transition(state, cols, feed.ones(n))
+            del cols
+            feed.release(up)
+            nxt = next(it, None)
+            up = None if nxt is None else feed.put(nxt)
+            del nxt
+    with span("final"):
+        return agg.final(state)
 
 
 # ---------------------------------------------------------------------------
@@ -694,6 +705,19 @@ def run_grouped(agg: Aggregate, table, group_col: str | None = None,
     to divide the segments, the padding masked out) and merges the same
     way, with the aggregate's own ``merge`` when it has no leaf-wise
     combinators."""
+    with span("fold"):
+        states = _grouped_fold(agg, table, group_col, num_groups,
+                               block_size, mask, method, mesh, row_axes,
+                               trace_kind)
+    if not finalize:
+        return states
+    with span("final"):
+        return agg.final_grouped(states)
+
+
+def _grouped_fold(agg: Aggregate, table, group_col, num_groups, block_size,
+                  mask, method, mesh, row_axes, trace_kind):
+    """:func:`run_grouped`'s fold: the stacked ``(G, ...)`` states."""
     view = table if isinstance(table, GroupedView) else None
     base_tbl = view.table if view is not None else table
     mesh, row_axes = table_mesh("run_grouped", mesh, row_axes, base_tbl)
@@ -727,7 +751,6 @@ def run_grouped(agg: Aggregate, table, group_col: str | None = None,
         method = "segment" if ops is not None else "masked"
     _record(trace_kind, engine=f"grouped-{method}", sharded=mesh is not None,
             groups=G)
-    group_final = agg.final_grouped if finalize else (lambda s: s)
 
     if method == "segment":
         if ops is None:
@@ -741,8 +764,7 @@ def run_grouped(agg: Aggregate, table, group_col: str | None = None,
         bs = segment_block_size(view.n_rows, G, block_size)
         if mesh is None:
             cols_a, valid_a, bgids = view.aligned_blocks(bs, pmask)
-            return group_final(_segment_fold_members(
-                agg, ops, cols_a, valid_a, bgids, G))
+            return _segment_fold_members(agg, ops, cols_a, valid_a, bgids, G)
         cols_a, valid_a, bgids = view.sharded_blocks(mesh, row_axes, bs,
                                                      pmask)
         chunks = _sh.segment_views(mesh, row_axes,
@@ -753,8 +775,7 @@ def run_grouped(agg: Aggregate, table, group_col: str | None = None,
             valid = part.pop("__valid__")
             states.append(_segment_fold_members(agg, ops, part, valid,
                                                 gpart["b"], G))
-        return group_final(_merge_segments(agg, ops, states, mesh,
-                                           row_axes))
+        return _merge_segments(agg, ops, states, mesh, row_axes)
 
     if method != "masked":
         raise ValueError(f"unknown method {method!r} "
@@ -768,11 +789,10 @@ def run_grouped(agg: Aggregate, table, group_col: str | None = None,
     if base is None:
         base = torch.ones(gids.shape, dtype=torch.bool, device=gids.device)
     if mesh is not None:
-        return group_final(_run_grouped_masked_sharded(
-            agg, ops, data, gids, base, G, block_size, mesh, row_axes))
-    states = tree_stack([_blocked_fold(agg, data, (gids == g) & base,
-                                       block_size) for g in range(G)])
-    return group_final(states)
+        return _run_grouped_masked_sharded(
+            agg, ops, data, gids, base, G, block_size, mesh, row_axes)
+    return tree_stack([_blocked_fold(agg, data, (gids == g) & base,
+                                     block_size) for g in range(G)])
 
 
 def _merge_segments(agg, ops, states: list, mesh, row_axes):

@@ -62,7 +62,7 @@ from .iterative import (
 from ..distributed import sharding as _sh
 from .join import Join
 from .table import GroupedView, Table
-from .trace import record as _record
+from .trace import record as _record, span
 
 # ---------------------------------------------------------------------------
 # The capability matrix: which cross-cutting features each engine honors.
@@ -943,42 +943,45 @@ def plan(statements: Sequence[Any]) -> PhysicalPlan:
     scans, dedup sorts and key resolutions, select engines.  Pass order
     follows each pass's first statement."""
     statements = list(statements)
-    groups: dict[Any, list] = {}
-    for i, node in enumerate(statements):
-        if isinstance(node, ScanAgg):
-            key = ("scan", id(node.table), _mask_key(node.mask),
-                   node.block_size, node.engine)
-        elif isinstance(node, GroupedScanAgg):
-            key = ("grouped", id(node.table), node.group_col,
-                   node.num_groups, _mask_key(node.mask), node.block_size,
-                   node.method) + _mesh_key(node)
-        elif isinstance(node, JoinedGroupedScanAgg):
-            # keyed on the join SPEC (both tables by identity, keys, attr,
-            # policy): joined statements built apart, even with distinct
-            # Join instances, fuse into one shared-resolution pass
-            key = (("join",) + node.join.spec_key()
-                   + (node.num_groups, _mask_key(node.mask),
-                      node.block_size, node.method) + _mesh_key(node))
-        elif isinstance(node, StreamAgg):
-            key = ("stream", id(node.blocks))
-        elif isinstance(node, IterativeFit):
-            key = ("fit", i)  # fits never fuse
-        else:
-            raise TypeError(f"not a logical plan node: {node!r}")
-        groups.setdefault(key, []).append((i, node))
+    with span("plan"):
+        groups: dict[Any, list] = {}
+        for i, node in enumerate(statements):
+            if isinstance(node, ScanAgg):
+                key = ("scan", id(node.table), _mask_key(node.mask),
+                       node.block_size, node.engine)
+            elif isinstance(node, GroupedScanAgg):
+                key = ("grouped", id(node.table), node.group_col,
+                       node.num_groups, _mask_key(node.mask),
+                       node.block_size, node.method) + _mesh_key(node)
+            elif isinstance(node, JoinedGroupedScanAgg):
+                # keyed on the join SPEC (both tables by identity, keys,
+                # attr, policy): joined statements built apart, even with
+                # distinct Join instances, fuse into one shared-resolution
+                # pass
+                key = (("join",) + node.join.spec_key()
+                       + (node.num_groups, _mask_key(node.mask),
+                          node.block_size, node.method) + _mesh_key(node))
+            elif isinstance(node, StreamAgg):
+                key = ("stream", id(node.blocks))
+            elif isinstance(node, IterativeFit):
+                key = ("fit", i)  # fits never fuse
+            else:
+                raise TypeError(f"not a logical plan node: {node!r}")
+            groups.setdefault(key, []).append((i, node))
 
-    build = {"scan": fused_scan_pass, "grouped": fused_grouped_pass,
-             "join": fused_join_pass, "stream": fused_stream_pass}
-    passes = [_fit_pass(*members[0]) if key[0] == "fit"
-              else build[key[0]](members)
-              for key, members in groups.items()]
+        build = {"scan": fused_scan_pass, "grouped": fused_grouped_pass,
+                 "join": fused_join_pass, "stream": fused_stream_pass}
+        passes = [_fit_pass(*members[0]) if key[0] == "fit"
+                  else build[key[0]](members)
+                  for key, members in groups.items()]
     return PhysicalPlan(passes, len(statements))
 
 
 def execute(node) -> Any:
     """Execute one logical statement through the planner: the
     single-statement path every method wrapper uses."""
-    return plan([node]).execute()[0]
+    with span("statement"):
+        return plan([node]).execute()[0]
 
 
 def explain(statements) -> str:

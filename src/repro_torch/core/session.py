@@ -48,6 +48,7 @@ from .plan import (
     plan,
 )
 from .table import Table
+from .trace import span
 
 _UNSET = object()
 
@@ -308,13 +309,15 @@ class Session:
             self._derived = []
             return []
         try:
-            pl = plan(self._nodes)
-            self.last_plan = pl
-            results = pl.execute()
-            for h, post, res in zip(self._handles, self._posts, results):
-                h._value = post(res) if post is not None else res
-            for h, parts, combine in self._derived:
-                h._value = combine([p.result() for p in parts])
+            with span("statement"):
+                pl = plan(self._nodes)
+                self.last_plan = pl
+                results = pl.execute()
+                for h, post, res in zip(self._handles, self._posts,
+                                        results):
+                    h._value = post(res) if post is not None else res
+                for h, parts, combine in self._derived:
+                    h._value = combine([p.result() for p in parts])
             return [h.result() for h in self._handles]
         finally:
             for h in self._handles + [d for d, _, _ in self._derived]:

@@ -10,6 +10,14 @@ performed (``kind="sort"``), and every kernel dispatch one
 view kinds (``admission``, ``cache_hit``, ``join``, ``cache_reject``,
 ``delta``) and :meth:`Trace.summary`'s rollups of them are kept so that
 later slices record into the same structure.
+
+Spans are the port's own; the reference's module has none.
+:func:`span` marks an interval of the statement path: ``statement``
+(the front end), ``plan`` (the planner), ``fold`` and ``final`` (the
+engines) and ``dispatch`` (a kernel's host side).  While torch.profiler
+records, a span is the profiler range ``madlib::<name>``, on the
+profiler's clock beside the device's intervals; otherwise it is one
+shared no-op context.  Spans never reach :attr:`Trace.events`.
 """
 
 from __future__ import annotations
@@ -17,6 +25,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 from typing import Any, Iterator
+
+import torch
 
 
 @dataclasses.dataclass
@@ -162,3 +172,16 @@ def trace_execution() -> Iterator[Trace]:
         yield t
     finally:
         _ACTIVE.remove(t)
+
+
+_OFF = contextlib.nullcontext()
+_profiling = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A context manager around one interval of the statement path:
+    the profiler range ``madlib::<name>`` while torch.profiler records,
+    else one shared no-op context (the check is its whole cost)."""
+    if not _profiling():
+        return _OFF
+    return torch.profiler.record_function(f"madlib::{name}")

@@ -48,7 +48,7 @@ import torch
 from torch.utils._python_dispatch import (_disable_current_modes,
                                           _get_current_dispatch_mode_stack)
 
-from ..core.trace import record
+from ..core.trace import record, span
 from ..device import kernel_route
 from .countmin import ops as _cm_ops, ref as _cm_ref
 from .flash_attention import ops as _fa_ops, ref as _fa_ref
@@ -182,23 +182,24 @@ def dispatch(name: str, *args, impl: str = "auto", _record: bool = True,
     execution) pass it so the inner call does not count twice.  The
     kernel's cost goes to the active op counter whenever the kernel (or
     its shape path) runs."""
-    entry = get(name)
-    resolved = entry.resolve(impl, *args, **kwargs)
-    if _record:
-        record("kernel", engine=resolved, name=name, requested=impl)
-    if resolved == "ref":
-        return entry.ref(*args, **kwargs)
-    if entry.cuda is None:
-        raise ValueError(f"kernel {name!r} has no {resolved} "
-                         "implementation")
-    if entry.cost is not None and _counters():
-        # a cost may read its data (segment_linregr's valid rows): only
-        # under a counter, and with the counters off so that the read is
-        # not counted as the step's work
-        with _disable_current_modes():
-            cost = entry.cost(*args, **kwargs)
-        record_cost(name, *cost)
-    return entry.cuda(*args, **kwargs)
+    with span("dispatch"):
+        entry = get(name)
+        resolved = entry.resolve(impl, *args, **kwargs)
+        if _record:
+            record("kernel", engine=resolved, name=name, requested=impl)
+        if resolved == "ref":
+            return entry.ref(*args, **kwargs)
+        if entry.cuda is None:
+            raise ValueError(f"kernel {name!r} has no {resolved} "
+                             "implementation")
+        if entry.cost is not None and _counters():
+            # a cost may read its data (segment_linregr's valid rows):
+            # only under a counter, and with the counters off so that the
+            # read is not counted as the step's work
+            with _disable_current_modes():
+                cost = entry.cost(*args, **kwargs)
+            record_cost(name, *cost)
+        return entry.cuda(*args, **kwargs)
 
 
 def resolve_impl(use_kernel: bool | str) -> str | None:
