@@ -21,8 +21,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    a. ``linregr`` and ``linregr_grouped``, against the plain versions;
    b. one ``Session`` batch of the analytics mix (``profile`` with
       distinct counts, ``linregr``, Count-Min, FM), planned as ONE scan
-      through ``xtx`` and ``countmin``, against the statements run solo
-      on the plain versions;
+      through ``xtx``, ``countmin`` and ``column_stats`` (one a numeric
+      column), against the statements run solo on the plain versions;
    c. ``countmin_sketch_grouped`` and ``fm_distinct_count_grouped``
       through ``segment_countmin`` and ``segment_fm``, fold states
       against the plain versions;
@@ -41,7 +41,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    torch.profiler), its plain version and the library call at the main
    path's shapes, beside the bound; the two Count-Min kernels also with
    the L2 flushed before each launch, and countmin beside torch.bincount
-   over the precomputed buckets (a point of reference);
+   over the precomputed buckets (a point of reference); ``column_stats``
+   on the main path's ``x`` and ``y`` bitwise its plain version first;
 h. then, with the tables of a-f dropped but for the Zipf ``item`` column,
    the analytics server on a dyadic 10M x 160 table (``x``, ``y``,
    ``item``, 64 groups ``g``): 8 analyst sessions on threads against one
@@ -2376,7 +2377,8 @@ def server_section(torch, dev, counters, errs, item, smi) -> dict:
     for got_step in steps.values():
         for name, k in got_step.items():
             launched[name] = launched.get(name, 0) + k
-    for name in ("xtx", "countmin", "segment_linregr", "segment_countmin"):
+    for name in ("xtx", "countmin", "segment_linregr", "segment_countmin",
+                 "column_stats"):
         require(launched.get(name, 0) > 0, f"server phase: {name} launched "
                 f"{launched.get(name, 0)} times on the main path")
     print(f"[server] star join {nf} x {DIM_ROWS} rows ({n_dangling} "
@@ -3935,7 +3937,8 @@ def sharded_section(torch, dev, counters, errs, smi) -> dict:
 
     want_launch = {"linregr": {"xtx": 1},
                    "linregr_grouped": {"segment_linregr": 1},
-                   "session batch": {"xtx": 1, "countmin": 1},
+                   "session batch": {"xtx": 1, "countmin": 1,
+                                     "column_stats": 2},
                    "countmin_grouped": {"segment_countmin": 1},
                    "fm_grouped": {"segment_fm": 1}}
     for segs in SHARD_SEGS:
@@ -4817,6 +4820,8 @@ def main() -> int:
     from repro_torch.core.iterative import fit_grouped
     from repro_torch.core.table import Table, synthetic_regression_table
     from repro_torch.kernels import _build
+    from repro_torch.kernels.column_stats import ops as cs_ops
+    from repro_torch.kernels.column_stats.ref import column_stats_ref
     from repro_torch.kernels.countmin import ops as cm_ops
     from repro_torch.kernels.countmin.ref import countmin_block_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -4851,6 +4856,7 @@ def main() -> int:
                          "segment_linregr": sf_ops,
                          "countmin": cm_ops, "segment_countmin": sf_ops,
                          "segment_fm": sf_ops, "kmeans_assign": km_ops,
+                         "column_stats": cs_ops,
                          "flash_attention": fa_ops,
                          "flash_attention_tc": fa_ops,
                          "flash_attention_ffma": fa_ops,
@@ -4881,7 +4887,7 @@ def main() -> int:
         print(f"[build] {line}")
     for key in ("flash_attention_tc", "flash_attention_kernel", "xtx_",
                 "kmeans_assign", "segment_partial", "segment_reduce",
-                "flash_bwd_dkdv_tc", "flash_bwd_dq_tc"):
+                "flash_bwd_dkdv_tc", "flash_bwd_dq_tc", "column_stats"):
         lines = ptxas_for(_build.last_build["ptxas"], key)
         require(bool(lines), f"build: no ptxas lines for {key}")
         for line in lines:
@@ -5273,9 +5279,13 @@ def main() -> int:
         events = sorted((e.detail["name"], e.engine) for e in tr.kernels)
         require(len(tr.scans) == 1,
                 f"session batch: {len(tr.scans)} scans, want 1")
-        require(events == [("countmin", "cuda"), ("xtx", "cuda")],
+        # profile's transition: one column_stats a numeric column (x, y,
+        # g, item)
+        require(events == [("column_stats", "cuda")] * 4
+                + [("countmin", "cuda"), ("xtx", "cuda")],
                 f"session batch: trace kernel events {events}")
-        require(launched["xtx"] > 0 and launched["countmin"] > 0,
+        require(launched["xtx"] > 0 and launched["countmin"] > 0
+                and launched["column_stats"] == 4,
                 f"session batch: launches {launched}")
     print(f"[main] session batch (profile with distinct counts, linregr, "
           f"countmin, fm_distinct): first {seconds['session batch'][0]:.3f} "
@@ -5745,6 +5755,22 @@ def main() -> int:
     # written once.
     sl_ops, sl_bytes = sf_ops.linregr_cost(n2, K_MAIN, nb, G_MAIN,
                                            rows=n_valid)
+    # column_stats, the profile transition's kernel, at the main path's
+    # shapes against its plain version: dyadic draws (a generator of
+    # their own), so every sum is exact and the two agree bit for bit;
+    # section b held it on the main path's x against float64
+    gen_cs = torch.Generator(device=dev)
+    gen_cs.manual_seed(SEED + 9)
+    errs["column_stats"] = 0.0
+    for shape in ((N_MAIN, K_MAIN), (N_MAIN,)):
+        c = dyadic(torch, gen_cs, shape, dev)
+        errs["column_stats"] = max(errs["column_stats"], *(
+            bitwise(torch, f"column_stats {shape}", got, want)
+            for got, want in zip(cs_ops.column_stats(c, all_rows),
+                                 column_stats_ref(c, all_rows))))
+        del c
+    print(f"[kernels] column_stats ({N_MAIN}, {K_MAIN}) and ({N_MAIN},) "
+          "dyadic: bitwise equal to the plain version")
     specs = (
         ("xtx", "src/repro_torch/csrc/xtx.cu",
          "src/repro/kernels/xtx/kernel.py:29",
@@ -5798,6 +5824,17 @@ def main() -> int:
          km_ops.assign_cost(N_MAIN, D_KM, K_KM)[1], 20, 2,
          [N_MAIN, D_KM, K_KM],
          ("kmeans_assign_kernel", "kmeans_reduce_kernel")),
+        # replaces no Pallas kernel: the reference's profile is plain jnp;
+        # bytes bound it (about 7 f32 operations a value)
+        ("column_stats", "src/repro_torch/csrc/column_stats.cu",
+         "none (src/repro/core/templates.py ProfileAggregate.transition, "
+         "plain jnp)",
+         lambda: cs_ops.column_stats(x, all_rows),
+         lambda: column_stats_ref(x, all_rows), None,
+         cs_ops.column_stats_cost(N_MAIN, K_MAIN)[0] / PEAK_F32_FLOPS,
+         cs_ops.column_stats_cost(N_MAIN, K_MAIN)[1], 20, 2,
+         [N_MAIN, K_MAIN],
+         ("column_stats_partial_kernel", "column_stats_reduce_kernel")),
     )
     rows = []
     for (name, source, replaces, kern, plain, lib, op_s, nbytes, reps,

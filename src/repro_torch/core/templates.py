@@ -15,6 +15,7 @@ from typing import Callable
 
 import torch
 
+from ..kernels import registry as _kernels
 from .aggregates import MERGE_MAX, MERGE_MIN, MERGE_SUM, Aggregate
 from .table import Columns, Table
 
@@ -59,21 +60,15 @@ class ProfileAggregate(Aggregate):
         return state
 
     def transition(self, state, block: Columns, mask):
+        """One ``column_stats`` call a column (the kernel on the card, its
+        plain version on the CPU), which folds the block into the
+        column's state."""
         out = {}
         for name, st in state.items():
             col = block[name].to(torch.float32)
-            mr = mask.reshape((-1,) + (1,) * (col.dim() - 1))
-            m = mr.to(torch.float32)
-            inf = torch.tensor(float("inf"), device=col.device)
-            out[name] = {
-                "count": st["count"] + mask.to(torch.float32).sum(),
-                "sum": st["sum"] + (col * m).sum(dim=0),
-                "sumsq": st["sumsq"] + (col * col * m).sum(dim=0),
-                "min": torch.minimum(st["min"],
-                                     torch.where(mr, col, inf).amin(dim=0)),
-                "max": torch.maximum(st["max"],
-                                     torch.where(mr, col, -inf).amax(dim=0)),
-            }
+            out[name] = dict(zip(
+                ("count", "sum", "sumsq", "min", "max"),
+                _kernels.dispatch("column_stats", col, mask, st)))
         return out
 
     def final(self, state):

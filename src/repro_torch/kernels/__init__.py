@@ -12,6 +12,8 @@ sites go through ``registry.dispatch``.
 
 Kernels:
   xtx              — X^T X and X^T y of a row block (the OLS transition)
+  column_stats     — per-column count, sum, sum of squares, min and max of
+                     a row block under a mask (the profile transition)
   segment_linregr  — the whole grouped OLS fold over group-aligned blocks
   countmin         — the Count-Min counts of a column (its transition)
   segment_countmin — the whole grouped Count-Min fold

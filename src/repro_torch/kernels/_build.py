@@ -37,6 +37,12 @@ _SIGNATURES = {
                           ctypes.c_int, ctypes.c_int, _P],
     "madlib_xtx_narrow_ctas_per_sm": [ctypes.c_int, ctypes.c_int,
                                       ctypes.c_int],
+    "madlib_column_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            ctypes.c_longlong, ctypes.c_int,
+                            ctypes.c_longlong, ctypes.c_longlong,
+                            ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_longlong, _P],
     "madlib_segment_linregr": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],

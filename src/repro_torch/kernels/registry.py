@@ -50,6 +50,7 @@ from torch.utils._python_dispatch import (_disable_current_modes,
 
 from ..core.trace import record, span
 from ..device import kernel_route
+from .column_stats import ops as _cs_ops, ref as _cs_ref
 from .countmin import ops as _cm_ops, ref as _cm_ref
 from .flash_attention import ops as _fa_ops, ref as _fa_ref
 from .kmeans_assign import ops as _km_ops, ref as _km_ref
@@ -118,6 +119,9 @@ class KernelEntry:
 _REGISTRY: dict[str, KernelEntry] = {
     "xtx": KernelEntry("xtx", _xtx_ref.xtx_xty_ref, _xtx_ops.xtx_xty,
                        _xtx_ops.cost),
+    "column_stats": KernelEntry(
+        "column_stats", _cs_ref.column_stats_ref, _cs_ops.column_stats,
+        _cs_ops.cost),
     "kmeans_assign": KernelEntry(
         "kmeans_assign", _km_ref.assign_and_reduce_ref,
         _km_ops.assign_and_reduce, _km_ops.cost),

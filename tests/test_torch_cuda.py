@@ -421,8 +421,10 @@ def test_session_batch_goes_through_countmin_and_xtx(cuda_device):
         sess.run()
     assert len(tr.scans) == 1
     assert (xtx_ops.xtx_launches, cm_ops.countmin_launches) == (1, 1)
+    # profile: one column_stats a numeric column (x, y, g, item)
     assert sorted((e.detail["name"], e.engine) for e in tr.kernels) == [
-        ("countmin", "cuda"), ("xtx", "cuda")]
+        *[("column_stats", "cuda")] * 4, ("countmin", "cuda"),
+        ("xtx", "cuda")]
     assert torch.equal(cm.result().cpu(), countmin_sketch(cpu))
     # FM estimates go through a float pow that the card and the CPU may
     # round 1 ulp apart; the states themselves are integers

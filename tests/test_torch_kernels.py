@@ -228,7 +228,8 @@ def test_registry_rejects_unknown_impl_and_kernel():
         registry.dispatch("xtx", x, y, impl="pallas")
     with pytest.raises(KeyError):
         registry.get("no_such_kernel")
-    assert registry.available() == ("countmin", "flash_attention",
+    assert registry.available() == ("column_stats", "countmin",
+                                    "flash_attention",
                                     "flash_attention_bwd", "kmeans_assign",
                                     "segment_countmin", "segment_fm",
                                     "segment_linregr", "xtx")

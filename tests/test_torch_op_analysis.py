@@ -27,6 +27,7 @@ import torch.distributed as dist
 
 from repro_torch.core import trace_execution
 from repro_torch.kernels import registry
+from repro_torch.kernels.column_stats import ops as cs_ops
 from repro_torch.kernels.countmin import ops as cm_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.kmeans_assign import ops as km_ops
@@ -38,7 +39,7 @@ from repro_torch.launch.scan_registry import (clear_registry, get_registry,
 
 
 def _launches() -> dict:
-    mods = (xtx_ops, km_ops, cm_ops, sf_ops, fa_ops)
+    mods = (xtx_ops, km_ops, cm_ops, sf_ops, fa_ops, cs_ops)
     return {f"{m.__name__}.{k}": getattr(m, k) for m in mods
             for k in dir(m) if k.endswith("_launches")}
 
@@ -209,6 +210,7 @@ def _args(name, dev):
                        {"num_hashes": 8, "bits": 32, "num_groups": 3}),
         "flash_attention": ((q, kv, kv), {"causal": True}),
         "flash_attention_bwd": ((q, kv, kv, q, q, lse), {"causal": True}),
+        "column_stats": ((x, valid), {}),
     }[name]
 
 

@@ -161,8 +161,9 @@ def test_session_batch_is_one_scan_and_equals_the_solo_statements():
     with trace_execution() as tr:
         sess.run()
     assert len(tr.scans) == 1
+    # one column_stats a numeric column (x, y, g, item) of the profile
     assert sorted((e.detail["name"], e.engine) for e in tr.kernels) == [
-        ("countmin", "ref"), ("xtx", "ref")]
+        *[("column_stats", "ref")] * 4, ("countmin", "ref"), ("xtx", "ref")]
     stats, ols, cm, fm = (h.result() for h in handles)
 
     assert torch.equal(cm, execute(ScanAgg(

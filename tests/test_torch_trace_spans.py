@@ -56,19 +56,24 @@ CASES = {
     "linregr": (lambda xy, xyk: linregr(xy, use_kernel=True),
                 [("statement", "plan", ("fold", "dispatch"), "final")]),
     "profile": (lambda xy, xyk: profile(xy),
-                [("statement", "plan", "fold", "final")]),
+                [("statement", "plan", ("fold", "dispatch", "dispatch"),
+                  "final")]),
     "profile_distinct": (lambda xy, xyk: profile(xyk, distinct_counts=True),
-                         [("statement", "plan", "fold", "final")]),
+                         [("statement", "plan",
+                           ("fold", "dispatch", "dispatch", "dispatch"),
+                           "final")]),
     "grouped": (lambda xy, xyk: linregr_grouped(xyk, "k", 3,
                                                 use_kernel=True),
                 [("statement", "plan", ("fold", "dispatch"), "final")]),
-    "stream": (_stream, [("statement", "plan", "fold", "final")]),
+    "stream": (_stream, [("statement", "plan",
+                          ("fold", *["dispatch"] * 4), "final")]),
     "sharded": (_sharded,
                 [("statement", "plan", ("fold", "dispatch", "dispatch"),
                   "final")]),
     "session_batch": (_batch,
                       [("statement", "plan", ("fold", "dispatch"), "final",
-                        "fold", "final")]),
+                        ("fold", "dispatch", "dispatch", "dispatch"),
+                        "final")]),
 }
 
 
